@@ -10,9 +10,14 @@ This package imports torch and never jax; the JAX package stays the
 reference that the tests hold it to. Layout and names mirror the JAX
 package's:
 
-* :mod:`mediastreamer2_tpu_torch.core`   -- formats, filters, factory, graph
-* :mod:`mediastreamer2_tpu_torch.ops`    -- the filters and the kernels
-* :mod:`mediastreamer2_tpu_torch.models` -- pipeline builders (the flagship leg)
+* :mod:`mediastreamer2_tpu_torch.core`   -- formats, filters, factory, graph,
+  worker pools, paced-section GC
+* :mod:`mediastreamer2_tpu_torch.ops`    -- the filters (G.711 among them)
+  and the kernels
+* :mod:`mediastreamer2_tpu_torch.models` -- pipeline builders: the flagship
+  leg and the end-to-end G.711 conference bench over UDP
+* :mod:`mediastreamer2_tpu_torch.native` -- the batched RTP edge (C++, g++)
+* :mod:`mediastreamer2_tpu_torch.net`    -- the edge's jitter controller
 * :mod:`mediastreamer2_tpu_torch.utils`  -- tree conversion, audio oracle
 """
 
@@ -23,3 +28,5 @@ from mediastreamer2_tpu_torch.core.filter import FilterDef, FilterCtx, register_
 from mediastreamer2_tpu_torch.core.factory import Factory  # noqa: F401
 from mediastreamer2_tpu_torch.core.graph import GraphBuilder  # noqa: F401
 from mediastreamer2_tpu_torch.models.flagship import build_flagship  # noqa: F401
+from mediastreamer2_tpu_torch.models.e2e_bench import (  # noqa: F401
+    E2EConferenceBench, build_e2e_graph)

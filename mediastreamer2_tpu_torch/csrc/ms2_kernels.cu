@@ -1,4 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels of the flagship conference leg.
+// Hand-written Hopper (sm_90a) kernels of the conference leg's echo
+// canceller and volume stage.
 //
 // Built by ops/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
@@ -13,7 +14,7 @@
 // which the stochastic rounding of the echo canceller's shadow taps needs
 // (one f32 ulp of difference before rounding can flip a bf16 ulp after).
 //
-// None of the three has a matrix product in it: all are bound by device
+// None of the four has a matrix product in it: all are bound by device
 // memory bandwidth. The [B, P, F] bf16 tap and history tensors of the echo
 // canceller set the pace, so each kernel reads every such element once
 // and writes only what changes.
@@ -96,7 +97,10 @@ fused_volume_kernel(const float* __restrict__ x, const float* __restrict__ g0,
 // Shifts the far-end history in place (the new block, RNE-rounded to bf16,
 // goes to p = 0; p = P-1 drops out) and applies both filters:
 //   Ym = sum_p Wm_p * Xh_p,   Ys = sum_p Ws_p * Xh_p   (complex MACs)
-// summed over p in order 0..P-1.
+// summed over p in order 0..P-1. The shadow taps Ws are bf16 (the default
+// storage) or f32 (the f32-shadow modes, where the JAX package upcasts Wm
+// and Xh exactly and runs the Pallas kernel on f32, ops/aec.py:258-267);
+// TS is Ws's storage type. Wm and Xh are bf16 in both.
 //
 // Each thread owns one (b, f) column across all P partitions. It loads
 // the column's whole history into registers before it stores the shifted
@@ -105,14 +109,15 @@ fused_volume_kernel(const float* __restrict__ x, const float* __restrict__ g0,
 // at once: a store to Xh[p] ahead of the load of Xh[p+1] would make each
 // partition wait for the previous one (the compiler cannot prove the two
 // addresses differ). Neighbouring threads own neighbouring f, so every
-// [B, P, F] access is coalesced. Bandwidth-bound: reads Wm, Ws, Xh (6 bf16
-// tensors), writes Xh (2) and the four [B, F] f32 sums.
+// [B, P, F] access is coalesced. Bandwidth-bound: reads Wm, Ws, Xh (6
+// tensors, Ws at 2 or 4 bytes), writes Xh (2) and the four [B, F] f32 sums.
 // ---------------------------------------------------------------------------
 #define MDF_MAX_P 16
 
+template <typename TS>
 __global__ void __launch_bounds__(256)
 mdf_apply_kernel(const bf16* __restrict__ wm_r, const bf16* __restrict__ wm_i,
-                 const bf16* __restrict__ ws_r, const bf16* __restrict__ ws_i,
+                 const TS* __restrict__ ws_r, const TS* __restrict__ ws_i,
                  bf16* __restrict__ xh_r, bf16* __restrict__ xh_i,
                  const float* __restrict__ x_r, const float* __restrict__ x_i,
                  float* __restrict__ ym_r, float* __restrict__ ym_i,
@@ -266,6 +271,79 @@ mdf_update_fused_kernel(const int* __restrict__ cpos_p,
 }
 
 // ---------------------------------------------------------------------------
+// mdf_update -- replaces mdf_update / _mdf_update_kernel
+// (mediastreamer2_tpu/ops/pallas_kernels.py:153-201), the megakernel
+// configuration's update (PALLAS_MDF=1, ops/aec.py:440-446).
+//
+// For each (b, p, f), in the Pallas kernel's arithmetic:
+//   g   = (p == cpos) ? gc : (Re/Im of conj(Xh) * E) * inv
+//   up  = Ws + mu * g
+//   Wm' = rne_bf16(pr * up + (1 - pr) * Wm)
+//   Ws' = rs * Wm + (1 - rs) * up          (the OLD Wm)
+// with promote pr and reseed rs as 0/1 floats. The transfers are
+// arithmetic blends, not selects, as on the TPU: a non-finite `up` reaches
+// Wm on a leg that is not promoted (0 * inf = NaN) exactly as it does there.
+// The gradient is scaled by inv before the multiply by mu, unlike
+// mdf_update_fused's (mu * inv) * G; with -fmad=false each product and sum
+// rounds on its own, as in the plain version. Wm is bf16 in storage and
+// read exactly; the JAX package carries it as f32 through the kernel and
+// rounds the result to bf16 with RNE (ops/aec.py:445-446), which the store
+// here does. No hard reset: the caller zeroes Ws after, as aec.py:543-546.
+//
+// Ws (f32) and Wm (bf16) are updated in place; each thread reads its
+// element of both before it writes either. cpos arrives through a device
+// pointer (SMEM scalar on the TPU). One thread per element, neighbouring
+// threads on neighbouring f. Bandwidth-bound: reads Ws (f32), Wm, Xh, writes
+// Ws and Wm -- every [B, P, F] byte of the update once.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(256)
+mdf_update_kernel(const int* __restrict__ cpos_p,
+                  float* __restrict__ ws_r, float* __restrict__ ws_i,
+                  bf16* __restrict__ wm_r, bf16* __restrict__ wm_i,
+                  const bf16* __restrict__ xh_r, const bf16* __restrict__ xh_i,
+                  const float* __restrict__ e_r, const float* __restrict__ e_i,
+                  const float* __restrict__ inv_norm,
+                  const float* __restrict__ gc_r, const float* __restrict__ gc_i,
+                  const float* __restrict__ mu,
+                  const float* __restrict__ promote,
+                  const float* __restrict__ reseed,
+                  int B, int P, int F)
+{
+    const size_t n = (size_t)B * P * F;
+    const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= n) return;
+    const int pf = P * F;
+    const int b = (int)(idx / pf);
+    const int rem = (int)(idx - (size_t)b * pf);
+    const int p = rem / F;
+    const int bf = b * F + (rem - p * F);
+
+    float gr, gi;
+    if (p == *cpos_p) {
+        gr = gc_r[bf];
+        gi = gc_i[bf];
+    } else {
+        const float hr = __bfloat162float(xh_r[idx]);
+        const float hi = __bfloat162float(xh_i[idx]);
+        const float er = e_r[bf], ei = e_i[bf];
+        const float inv = inv_norm[bf];
+        gr = (hr * er + hi * ei) * inv;
+        gi = (hr * ei - hi * er) * inv;
+    }
+    const float m = mu[b];
+    const float up_r = ws_r[idx] + m * gr;
+    const float up_i = ws_i[idx] + m * gi;
+    const float wmr = __bfloat162float(wm_r[idx]);
+    const float wmi = __bfloat162float(wm_i[idx]);
+    const float pr = promote[b], rs = reseed[b];
+    const float npr = 1.0f - pr, nrs = 1.0f - rs;
+    wm_r[idx] = __float2bfloat16_rn(pr * up_r + npr * wmr);
+    wm_i[idx] = __float2bfloat16_rn(pr * up_i + npr * wmi);
+    ws_r[idx] = rs * wmr + nrs * up_r;
+    ws_i[idx] = rs * wmi + nrs * up_i;
+}
+
+// ---------------------------------------------------------------------------
 // C entry points. Every pointer is a device pointer; `stream` is a
 // cudaStream_t of `device`.
 // ---------------------------------------------------------------------------
@@ -285,7 +363,7 @@ int ms2_fused_volume(int device, const void* x, const void* g0, const void* g1,
     return (int)cudaGetLastError();
 }
 
-int ms2_mdf_apply(int device, const void* wm_r, const void* wm_i,
+int ms2_mdf_apply(int device, int shadow_f32, const void* wm_r, const void* wm_i,
                   const void* ws_r, const void* ws_i, void* xh_r, void* xh_i,
                   const void* x_r, const void* x_i, void* ym_r, void* ym_i,
                   void* ys_r, void* ys_i, int B, int P, int F, void* stream)
@@ -293,12 +371,41 @@ int ms2_mdf_apply(int device, const void* wm_r, const void* wm_i,
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     const int n = B * F;
-    if (n > 0)
-        mdf_apply_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+    if (n == 0) return (int)cudaGetLastError();
+    const unsigned blocks = (unsigned)((n + 255) / 256);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (shadow_f32)
+        mdf_apply_kernel<float><<<blocks, 256, 0, s>>>(
+            (const bf16*)wm_r, (const bf16*)wm_i, (const float*)ws_r,
+            (const float*)ws_i, (bf16*)xh_r, (bf16*)xh_i, (const float*)x_r,
+            (const float*)x_i, (float*)ym_r, (float*)ym_i, (float*)ys_r,
+            (float*)ys_i, B, P, F);
+    else
+        mdf_apply_kernel<bf16><<<blocks, 256, 0, s>>>(
             (const bf16*)wm_r, (const bf16*)wm_i, (const bf16*)ws_r,
             (const bf16*)ws_i, (bf16*)xh_r, (bf16*)xh_i, (const float*)x_r,
             (const float*)x_i, (float*)ym_r, (float*)ym_i, (float*)ys_r,
             (float*)ys_i, B, P, F);
+    return (int)cudaGetLastError();
+}
+
+int ms2_mdf_update(int device, const void* cpos, void* ws_r, void* ws_i,
+                   void* wm_r, void* wm_i, const void* xh_r, const void* xh_i,
+                   const void* e_r, const void* e_i, const void* inv_norm,
+                   const void* gc_r, const void* gc_i, const void* mu,
+                   const void* promote, const void* reseed,
+                   int B, int P, int F, void* stream)
+{
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const size_t n = (size_t)B * P * F;
+    if (n > 0)
+        mdf_update_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+            (const int*)cpos, (float*)ws_r, (float*)ws_i, (bf16*)wm_r,
+            (bf16*)wm_i, (const bf16*)xh_r, (const bf16*)xh_i,
+            (const float*)e_r, (const float*)e_i, (const float*)inv_norm,
+            (const float*)gc_r, (const float*)gc_i, (const float*)mu,
+            (const float*)promote, (const float*)reseed, B, P, F);
     return (int)cudaGetLastError();
 }
 

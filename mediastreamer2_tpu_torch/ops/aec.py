@@ -1,5 +1,5 @@
 """Acoustic echo canceller -- batched two-path partitioned-block FDAF
-(port of ``mediastreamer2_tpu/ops/aec.py``, default path).
+(port of ``mediastreamer2_tpu/ops/aec.py``).
 
 Each leg runs a multi-delay-block frequency-domain adaptive filter: one
 10 ms block per partition, P = ceil(tail / 10 ms) partitions, spectra as
@@ -10,25 +10,41 @@ near-power-gated improvement; a diverged shadow is re-seeded from main or,
 when both are catastrophically off, zeroed. A spectral residual-echo
 suppressor follows.
 
-Storage, as the JAX default: main taps, shadow taps and far-end history are
-bf16 [B, P, F]; the shadow is stochastically rounded with a counter+index
-integer hash (``kernels.sround_bf16``), so the CPU and the card give the
-same bits. The per-tick [B, P, F] work runs in two kernels:
+Main taps and far-end history are bf16 [B, P, F]. The shadow taps' storage
+is chosen when the state is made, from the JAX package's environment
+variables, read as ``_bf16_shadow_on`` reads them (aec.py:100-107):
 
-* ``kernels.mdf_apply``: history shift + both filter applies;
-* ``kernels.mdf_update_fused``: NLMS update, the round-robin causality
-  constraint and the promote / reseed / hard-reset transfers.
+* bf16 with stochastic rounding (the default): a counter+index integer
+  hash (``kernels.sround_bf16``), so the CPU and the card give the same
+  bits; the state carries the rounding counter ``srk``;
+* f32, with no ``srk`` key, when ``AEC_BF16_SHADOW=0``, ``PALLAS_MDF=1``
+  or ``AEC_PALLAS_UPDATE=1``.
 
-Both update the state's taps and history **in place**; the rest of the
-state is returned as new tensors. The partition index ``cpos`` and the
-rounding counter ``srk`` stay on the device: the host never waits for them.
+The per-tick [B, P, F] work runs in two kernels, both of which update the
+taps and history **in place** (the rest of the state is returned as new
+tensors):
+
+* ``kernels.mdf_apply`` (Ws bf16 or f32): history shift + both filter
+  applies;
+* the update, by the path the JAX package takes at each step:
+
+  - bf16 shadow: ``kernels.mdf_update_fused`` in its stochastic-rounding
+    mode (the JAX default branch);
+  - f32 shadow, megakernel path (``mdf_available(B)``, see
+    ``_megakernel_path``): ``kernels.mdf_update``, then the hard reset
+    (aec.py:440-446, 543-546);
+  - f32 shadow otherwise (the jnp f32 branch or ``AEC_PALLAS_UPDATE=1``,
+    aec.py:436-439, 487-496, 508-521, 541-542): ``kernels.mdf_update_fused``
+    in its f32 mode.
+
+``cpos`` (and ``srk``) stay on the device: the host never waits for them.
 
 Left out of this port (JAX options that were measured and rejected, or
-TPU-only plumbing): ``AEC_CIRC_HIST`` (circular history, aec.py:110),
-``AEC_HALF_UPDATE`` (aec.py:167), ``AEC_COND_PROMOTE`` (aec.py:84), the
-``F_pad`` lane-padding plumbing, the ``PALLAS_MDF`` and
-``AEC_PALLAS_UPDATE`` knobs, and the f32-shadow state mode
-(``AEC_BF16_SHADOW=0``). ``srk`` is an int64 scalar here (uint32 in JAX).
+TPU-only plumbing): ``AEC_CIRC_HIST`` (circular history, aec.py:110) and
+``AEC_HALF_UPDATE`` (aec.py:167) -- state init raises when either is set,
+rather than computing something else; ``AEC_COND_PROMOTE`` (aec.py:84,
+a schedule knob with identical values); the ``F_pad`` lane-padding
+plumbing. ``srk`` is an int64 scalar here (uint32 in JAX).
 
 Inputs: pin 0 = near-end (mic), pin 1 = far-end reference (speaker).
 Output: echo-cancelled near-end.
@@ -36,6 +52,7 @@ Output: echo-cancelled near-end.
 from __future__ import annotations
 
 import io
+import os
 
 import numpy as np
 import torch
@@ -63,17 +80,46 @@ def _partitions(ctx):
     return max(1, -(-tail_ms // 10))       # ceil(tail / tick)
 
 
+def _bf16_shadow_on() -> bool:
+    """The JAX package's choice of shadow storage (aec.py:100-107), read at
+    state init: the state's Ws dtype then picks the path at every step."""
+    env = os.environ.get
+    for knob, on in (("AEC_HALF_UPDATE", env("AEC_HALF_UPDATE", "0") != "0"),
+                     ("AEC_CIRC_HIST", env("AEC_CIRC_HIST", "0") == "1")):
+        if on:
+            raise NotImplementedError(
+                f"{knob} is not ported: the port runs the full-update, "
+                f"shifted-history echo canceller only")
+    return (env("AEC_BF16_SHADOW", "1") != "0" and env("PALLAS_MDF", "0") != "1"
+            and env("AEC_PALLAS_UPDATE", "0") != "1")
+
+
+def _megakernel_path(B: int) -> bool:
+    """``pallas_kernels.mdf_available(B)`` (:204-212, with ``_mdf_tile``
+    :108-110), read at every step as JAX reads it: ``PALLAS_MDF=1``,
+    ``PALLAS_DISABLE`` not 1, and B <= 32 or B % 32 == 0. The batch rule is
+    the TPU kernel's tiling, which the CUDA kernels do not need; it is
+    mirrored so that the same environment and the same B put both packages
+    on the same branch."""
+    env = os.environ.get
+    return (env("PALLAS_MDF", "0") == "1" and env("PALLAS_DISABLE", "0") != "1"
+            and (B <= 32 or B % 32 == 0))
+
+
 def _aec_init(ctx, device):
     B = ctx.batch
     S = ctx.in_formats[0].samples_per_tick
     P = _partitions(ctx)
     F = S + 1
-    z3 = lambda: torch.zeros((B, P, F), dtype=STORE_DTYPE, device=device)
+    bf16_shadow = _bf16_shadow_on()
+    sdt = STORE_DTYPE if bf16_shadow else torch.float32
+    z3 = lambda dt=STORE_DTYPE: torch.zeros((B, P, F), dtype=dt, device=device)
     f = lambda v: torch.full((B,), v, dtype=torch.float32, device=device)
     i = lambda: torch.zeros((B,), dtype=torch.int32, device=device)
-    return {
+    st = {
         "Wm_r": z3(), "Wm_i": z3(),        # main (filtering) taps
-        "Ws_r": z3(), "Ws_i": z3(),        # shadow taps (stochastic rounding)
+        "Ws_r": z3(sdt), "Ws_i": z3(sdt),  # shadow taps (bf16 + stochastic
+                                           # rounding, or f32)
         "Xh_r": z3(), "Xh_i": z3(),        # far-end block spectra history
         "far_prev": torch.zeros((B, S), dtype=torch.float32, device=device),
         "Hp": torch.zeros((B, F), dtype=torch.float32, device=device),
@@ -86,8 +132,10 @@ def _aec_init(ctx, device):
         "Nf": f(1.0),                      # shadow-error floor (min stats)
         "leak": f(1.0),
         "cpos": torch.zeros((), dtype=torch.int32, device=device),
-        "srk": torch.zeros((), dtype=torch.int64, device=device),
     }
+    if bf16_shadow:
+        st["srk"] = torch.zeros((), dtype=torch.int64, device=device)
+    return st
 
 
 def _aec_params(ctx, device):
@@ -106,6 +154,8 @@ def _aec_process(state, ins, params, ctx):
     B, S = near.shape
     two_s = 2 * S
     P = state["Wm_r"].shape[1]
+    bf16_shadow = state["Ws_r"].dtype == STORE_DTYPE
+    megakernel = not bf16_shadow and _megakernel_path(B)
 
     far_blk = torch.cat([state["far_prev"], far], dim=1)            # [B, 2S]
     Xr, Xi = rfft(far_blk, two_s)                                   # [B, F]
@@ -171,10 +221,19 @@ def _aec_process(state, ins, params, ctx):
     promote = promote & ~hard_reset
 
     # --- gradient + NLMS update + transfer copies (in place on Ws, Wm) ------
-    Ws_r, Ws_i, Wm_r, Wm_i = kernels.mdf_update_fused(
-        cpos, state["Ws_r"], state["Ws_i"], state["Wm_r"], state["Wm_i"],
-        Xh_r, Xh_i, Er, Ei, inv_norm, gc_r, gc_i, mu, promote, reseed,
-        hard_reset, state["srk"])
+    if megakernel:
+        Ws_r, Ws_i, Wm_r, Wm_i = kernels.mdf_update(
+            cpos, state["Ws_r"], state["Ws_i"], state["Wm_r"], state["Wm_i"],
+            Xh_r, Xh_i, Er, Ei, inv_norm, gc_r, gc_i, mu,
+            promote.to(torch.float32), reseed.to(torch.float32))
+        h3 = hard_reset[:, None, None]
+        Ws_r.masked_fill_(h3, 0.0)
+        Ws_i.masked_fill_(h3, 0.0)
+    else:
+        Ws_r, Ws_i, Wm_r, Wm_i = kernels.mdf_update_fused(
+            cpos, state["Ws_r"], state["Ws_i"], state["Wm_r"], state["Wm_i"],
+            Xh_r, Xh_i, Er, Ei, inv_norm, gc_r, gc_i, mu, promote, reseed,
+            hard_reset, state.get("srk"))
     Em = torch.where(promote, Es, Em)
     Es = torch.where(reseed, Em, Es)
     Es = torch.where(hard_reset, Dn, Es)
@@ -196,8 +255,9 @@ def _aec_process(state, ins, params, ctx):
                  "leak": state["leak"],
                  "promote_cnt": promote_cnt, "reseed_cnt": reseed_cnt,
                  "diverge_cnt": diverge_cnt,
-                 "cpos": torch.remainder(cpos + 1, P).to(torch.int32),
-                 "srk": state["srk"] + 1}
+                 "cpos": torch.remainder(cpos + 1, P).to(torch.int32)}
+    if bf16_shadow:
+        new_state["srk"] = state["srk"] + 1
     # --- residual echo suppression ------------------------------------------
     if ctx.params.get("no_suppress"):
         # build-time suppressor bypass (static)

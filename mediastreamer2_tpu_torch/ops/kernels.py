@@ -1,18 +1,17 @@
-"""The flagship leg's hand-written CUDA kernels: build, loader, wrappers,
+"""The conference leg's hand-written CUDA kernels: build, loader, wrappers,
 plain versions and launch counters (port of ``mediastreamer2_tpu/ops/pallas_kernels.py``).
 
-Three kernels, all in ``csrc/ms2_kernels.cu``:
+Four kernels, all in ``csrc/ms2_kernels.cu``, one for each function of the
+JAX package that reaches ``pl.pallas_call``:
 
 ================  =======================================================
 wrapper           replaces (``mediastreamer2_tpu/ops/pallas_kernels.py``)
 ================  =======================================================
 fused_volume      ``fused_volume`` / ``_fused_volume_kernel`` (:38-84)
 mdf_apply         ``mdf_apply`` / ``_mdf_apply_kernel`` (:113-150)
+mdf_update        ``mdf_update`` / ``_mdf_update_kernel`` (:153-201)
 mdf_update_fused  ``mdf_update_fused`` / ``_mdf_update_fused_kernel`` (:227-310)
 ================  =======================================================
-
-``mdf_update`` (:153-201), the f32 partner of ``mdf_apply``, is not ported
-yet.
 
 Build: at first use, ``nvcc`` compiles the source for ``sm_90a`` into a
 shared library with a plain C interface under ``_build/``, named by a hash
@@ -84,9 +83,11 @@ def _load():
         lib = ctypes.CDLL(str(build()[0]))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.ms2_fused_volume.argtypes = [I] + [P] * 8 + [I, I, P]
-        lib.ms2_mdf_apply.argtypes = [I] + [P] * 12 + [I, I, I, P]
+        lib.ms2_mdf_apply.argtypes = [I, I] + [P] * 12 + [I, I, I, P]
+        lib.ms2_mdf_update.argtypes = [I] + [P] * 15 + [I, I, I, P]
         lib.ms2_mdf_update_fused.argtypes = [I, I] + [P] * 17 + [I, I, I, P]
-        for fn in (lib.ms2_fused_volume, lib.ms2_mdf_apply, lib.ms2_mdf_update_fused):
+        for fn in (lib.ms2_fused_volume, lib.ms2_mdf_apply, lib.ms2_mdf_update,
+                   lib.ms2_mdf_update_fused):
             fn.restype = I
         _lib = lib
     return _lib
@@ -121,12 +122,16 @@ def _launch(fn, device: torch.device, *args):
 _ptr = torch.Tensor.data_ptr
 
 
+def _wrappers():
+    return (fused_volume, mdf_apply, mdf_update, mdf_update_fused)
+
+
 def launch_counts() -> dict:
-    return {f.__name__: f.launches for f in (fused_volume, mdf_apply, mdf_update_fused)}
+    return {f.__name__: f.launches for f in _wrappers()}
 
 
 def reset_launch_counts():
-    for f in (fused_volume, mdf_apply, mdf_update_fused):
+    for f in _wrappers():
         f.launches = 0
 
 
@@ -172,7 +177,8 @@ fused_volume.launches = 0
 # ---------------------------------------------------------------------------
 def mdf_apply_reference(Wm_r, Wm_i, Ws_r, Ws_i, Xh_r, Xh_i, Xr, Xi):
     """Plain version: shift the history in place, then sum over p in
-    order 0..P-1, as the kernel does."""
+    order 0..P-1, as the kernel does. Ws may be bf16 or f32; every operand
+    is read as f32."""
     for h, x in ((Xh_r, Xr), (Xh_i, Xi)):
         h[:, 1:] = h[:, :-1].clone()
         h[:, 0] = x.to(h.dtype)
@@ -192,8 +198,9 @@ def mdf_apply_reference(Wm_r, Wm_i, Ws_r, Ws_i, Xh_r, Xh_i, Xr, Xi):
 
 def mdf_apply(Wm_r, Wm_i, Ws_r, Ws_i, Xh_r, Xh_i, Xr, Xi):
     """Shift the far-end history (bf16 [B,P,F], in place: the new block
-    Xr/Xi [B,F] f32, rounded to bf16, goes to p=0) and apply both filters
-    (bf16 [B,P,F]). Returns (Ym_r, Ym_i, Ys_r, Ys_i), f32 [B,F].
+    Xr/Xi [B,F] f32, rounded to bf16, goes to p=0) and apply both filters.
+    Wm is bf16 [B,P,F]; Ws is bf16 (the default shadow) or f32 (the
+    f32-shadow modes) [B,P,F]. Returns (Ym_r, Ym_i, Ys_r, Ys_i), f32 [B,F].
 
     The block that drops out of the history is overwritten: read it first."""
     if Xr.device.type == "cpu":
@@ -202,13 +209,16 @@ def mdf_apply(Wm_r, Wm_i, Ws_r, Ws_i, Xh_r, Xh_i, Xr, Xi):
     B, P, F = Wm_r.shape
     if P > MDF_MAX_P:
         raise ValueError(f"mdf_apply: {P} partitions, the kernel holds at most {MDF_MAX_P}")
-    for name, t in (("Wm_r", Wm_r), ("Wm_i", Wm_i), ("Ws_r", Ws_r),
-                    ("Ws_i", Ws_i), ("Xh_r", Xh_r), ("Xh_i", Xh_i)):
-        _check(name, t, torch.bfloat16, (B, P, F), dev)
+    shadow_f32 = Ws_r.dtype == torch.float32
+    sdt = torch.float32 if shadow_f32 else torch.bfloat16
+    for name, t, dt in (("Wm_r", Wm_r, torch.bfloat16), ("Wm_i", Wm_i, torch.bfloat16),
+                        ("Ws_r", Ws_r, sdt), ("Ws_i", Ws_i, sdt),
+                        ("Xh_r", Xh_r, torch.bfloat16), ("Xh_i", Xh_i, torch.bfloat16)):
+        _check(name, t, dt, (B, P, F), dev)
     _check("Xr", Xr, torch.float32, (B, F), dev)
     _check("Xi", Xi, torch.float32, (B, F), dev)
     outs = [torch.empty((B, F), dtype=torch.float32, device=dev) for _ in range(4)]
-    _launch(_load().ms2_mdf_apply, dev, *map(_ptr, (Wm_r, Wm_i, Ws_r, Ws_i,
+    _launch(_load().ms2_mdf_apply, dev, int(shadow_f32), *map(_ptr, (Wm_r, Wm_i, Ws_r, Ws_i,
                                                       Xh_r, Xh_i, Xr, Xi)),
             *map(_ptr, outs), B, P, F)
     mdf_apply.launches += 1
@@ -216,6 +226,70 @@ def mdf_apply(Wm_r, Wm_i, Ws_r, Ws_i, Xh_r, Xh_i, Xr, Xi):
 
 
 mdf_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# mdf_update
+# ---------------------------------------------------------------------------
+def mdf_update_reference(cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i, Er, Ei,
+                         inv_norm, gc_r, gc_i, mu, promote, reseed):
+    """Plain version (the arithmetic of ``_mdf_update_kernel``,
+    ``pallas_kernels.py:153-175``, then the RNE cast of Wm of
+    ``ops/aec.py:445-446``); updates Ws and Wm in place, as the kernel does."""
+    P = Ws_r.shape[1]
+    use_c = (torch.arange(P, device=Ws_r.device) == cpos)[None, :, None]
+    xr, xi = Xh_r.float(), Xh_i.float()
+    er, ei = Er[:, None, :], Ei[:, None, :]
+    inv = inv_norm[:, None, :]
+    gr = torch.where(use_c, gc_r[:, None, :], (xr * er + xi * ei) * inv)
+    gi = torch.where(use_c, gc_i[:, None, :], (xr * ei - xi * er) * inv)
+    m = mu[:, None, None]
+    pr, rs = promote[:, None, None], reseed[:, None, None]
+    outs = []
+    for ws, wm, g in ((Ws_r, Wm_r, gr), (Ws_i, Wm_i, gi)):
+        up = ws + m * g
+        wmf = wm.float()
+        outs.append(((pr * up + (1 - pr) * wmf).to(torch.bfloat16),
+                     rs * wmf + (1 - rs) * up))
+    for (wm_new, ws_new), ws, wm in zip(outs, (Ws_r, Ws_i), (Wm_r, Wm_i)):
+        wm.copy_(wm_new)
+        ws.copy_(ws_new)
+    return Ws_r, Ws_i, Wm_r, Wm_i
+
+
+def mdf_update(cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i, Er, Ei, inv_norm,
+               gc_r, gc_i, mu, promote, reseed):
+    """The megakernel configuration's NLMS update + round-robin constraint
+    + promote / reseed blends, in place (no hard reset: the caller applies
+    it after, as ``ops/aec.py:543-546`` does).
+
+    cpos: int32 scalar tensor; Ws: f32 [B,P,F]; Wm, Xh: bf16 [B,P,F];
+    Er, Ei, inv_norm, gc_r, gc_i: f32 [B,F]; mu, promote, reseed: f32 [B]
+    (promote and reseed 0/1). Returns (Ws_r, Ws_i, Wm_r, Wm_i), the updated
+    inputs; Wm is the blend rounded to bf16 with RNE."""
+    if Ws_r.device.type == "cpu":
+        return mdf_update_reference(cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i,
+                                    Er, Ei, inv_norm, gc_r, gc_i, mu, promote, reseed)
+    dev = _cuda_device(Ws_r)
+    B, P, F = Ws_r.shape
+    for name, t, dt in (("Ws_r", Ws_r, torch.float32), ("Ws_i", Ws_i, torch.float32),
+                        ("Wm_r", Wm_r, torch.bfloat16), ("Wm_i", Wm_i, torch.bfloat16),
+                        ("Xh_r", Xh_r, torch.bfloat16), ("Xh_i", Xh_i, torch.bfloat16)):
+        _check(name, t, dt, (B, P, F), dev)
+    for name, t in (("Er", Er), ("Ei", Ei), ("inv_norm", inv_norm),
+                    ("gc_r", gc_r), ("gc_i", gc_i)):
+        _check(name, t, torch.float32, (B, F), dev)
+    for name, t in (("mu", mu), ("promote", promote), ("reseed", reseed)):
+        _check(name, t, torch.float32, (B,), dev)
+    _check("cpos", cpos, torch.int32, (), dev)
+    _launch(_load().ms2_mdf_update, dev,
+            *map(_ptr, (cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i, Er, Ei,
+                        inv_norm, gc_r, gc_i, mu, promote, reseed)), B, P, F)
+    mdf_update.launches += 1
+    return Ws_r, Ws_i, Wm_r, Wm_i
+
+
+mdf_update.launches = 0
 
 
 # ---------------------------------------------------------------------------

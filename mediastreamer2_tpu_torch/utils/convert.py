@@ -4,7 +4,9 @@ Both packages use the same key names, so a tree converts leaf by leaf. The
 JAX side travels as numpy: bf16 leaves as float32, with the names of the
 bf16 leaves of each dict under ``"__bf16__"``, exactly as the JAX echo
 canceller's ``get_state_blob`` hands them over. The stochastic-rounding
-counter ``srk`` is a uint32 scalar in JAX and an int64 scalar in the port.
+counter ``srk`` is a uint32 scalar in JAX and an int64 scalar in the port;
+an f32-shadow echo canceller state has f32 shadow taps and no ``srk``, and
+converts leaf by leaf like any other.
 """
 from __future__ import annotations
 

@@ -66,7 +66,7 @@ def test_fused_volume_counts_no_cpu_launch():
     kernels.reset_launch_counts()
     kernels.fused_volume(*map(torch.from_numpy, _fv_inputs()))
     assert kernels.launch_counts() == {"fused_volume": 0, "mdf_apply": 0,
-                                       "mdf_update_fused": 0}
+                                       "mdf_update": 0, "mdf_update_fused": 0}
 
 
 def test_mdf_apply_matches_jax_default_path():
