@@ -11,14 +11,17 @@ reference that the tests hold it to. Layout and names mirror the JAX
 package's:
 
 * :mod:`mediastreamer2_tpu_torch.core`   -- formats, filters, factory, graph,
-  worker pools, paced-section GC
-* :mod:`mediastreamer2_tpu_torch.ops`    -- the filters (G.711 among them)
-  and the kernels
-* :mod:`mediastreamer2_tpu_torch.models` -- pipeline builders: the flagship
-  leg and the end-to-end G.711 conference bench over UDP
+  the ticker and event queue, worker pools, paced-section GC
+* :mod:`mediastreamer2_tpu_torch.ops`    -- the filters (G.711, PLC, mixers,
+  tones, VAD, ...) and the kernels
+* :mod:`mediastreamer2_tpu_torch.models` -- the flagship leg, the end-to-end
+  G.711 conference bench over UDP, the audio stream session
+  (``AudioStreamBatch``) and the conference control
 * :mod:`mediastreamer2_tpu_torch.native` -- the batched RTP edge (C++, g++)
-* :mod:`mediastreamer2_tpu_torch.net`    -- the edge's jitter controller
-* :mod:`mediastreamer2_tpu_torch.utils`  -- tree conversion, audio oracle
+* :mod:`mediastreamer2_tpu_torch.net`    -- RTP sessions and transports, jitter
+  buffers, the edge's jitter controller
+* :mod:`mediastreamer2_tpu_torch.utils`  -- tree conversion, audio oracle,
+  test signals, JAX's threefry random numbers
 """
 
 __version__ = "0.1.0"

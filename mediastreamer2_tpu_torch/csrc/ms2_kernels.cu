@@ -109,8 +109,9 @@ fused_volume_kernel(const float* __restrict__ x, const float* __restrict__ g0,
 // at once: a store to Xh[p] ahead of the load of Xh[p+1] would make each
 // partition wait for the previous one (the compiler cannot prove the two
 // addresses differ). Neighbouring threads own neighbouring f, so every
-// [B, P, F] access is coalesced. Bandwidth-bound: reads Wm, Ws, Xh (6
-// tensors, Ws at 2 or 4 bytes), writes Xh (2) and the four [B, F] f32 sums.
+// [B, P, F] access is coalesced. Bandwidth-bound: reads Wm, Ws (Ws at 2 or
+// 4 bytes) and Xh's partitions 0..P-2, writes all of Xh and the four
+// [B, F] f32 sums.
 // ---------------------------------------------------------------------------
 #define MDF_MAX_P 16
 

@@ -306,7 +306,9 @@ def get_state_blob(state_entry) -> bytes:
     return buf.getvalue()
 
 
-def set_state_blob(blob: bytes, device="cpu"):
+def set_state_blob(blob: bytes, device):
+    """EC state from a ``get_state_blob`` blob (from either package), on
+    ``device`` (``"cpu"`` or a CUDA device)."""
     data = np.load(io.BytesIO(blob))
     bf16 = set(data["__bf16__"].tolist()) if "__bf16__" in data.files else set()
     return {k: (torch.from_numpy(data[k]).to(device=device, dtype=torch.bfloat16)

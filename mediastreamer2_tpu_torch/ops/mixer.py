@@ -1,4 +1,5 @@
-"""Conference mixing with mix-minus (port of ``mediastreamer2_tpu/ops/mixer.py:26-66``).
+"""Conference mixing with mix-minus, small mixers and per-leg levels (port
+of ``mediastreamer2_tpu/ops/mixer.py``).
 
 Conference members are rows of the batch. ``group_id[b]`` names the
 conference of leg b; each leg hears its conference's sum minus its own
@@ -13,7 +14,9 @@ Two branches, as in JAX:
   (an ``index_add_`` there uses atomics and changes its summation order
   from run to run). Its cost is O(B^2 * S); it is not on the flagship path.
 
-``mix2``/``mix3``/``mix4`` and ``audio_levels`` are not ported yet.
+``mix2``/``mix3``/``mix4`` sum their inputs with per-input gains and clip;
+``audio_levels`` passes audio through and meters each leg's smoothed block
+energy (the conference's active-talker and RFC 6464/6465 level source).
 """
 from __future__ import annotations
 
@@ -57,4 +60,42 @@ register_filter(FilterDef(
     out_formats=lambda ctx: (ctx.in_formats[0],),
     runtime_params=_conf_params, process=_conf_process,
     interfaces=("conference",),
+))
+
+
+# --- small explicit mixers (graph-local, e.g. local play, mixed recording) --
+def _mk_mixN(n):
+    def process(state, ins, params, ctx):
+        acc = ins[0] * params["gains"][0][:, None]
+        for i in range(1, n):
+            acc = acc + ins[i] * params["gains"][i][:, None]
+        return state, (torch.clamp(acc, -1.0, 1.0),), {}
+
+    def rparams(ctx, device):
+        return {"gains": torch.ones((n, ctx.batch), dtype=torch.float32, device=device)}
+
+    register_filter(FilterDef(
+        name=f"mix{n}", ninputs=n, noutputs=1,
+        out_formats=lambda ctx: (ctx.in_formats[0],),
+        runtime_params=rparams, process=process,
+    ))
+
+
+for _n in (2, 3, 4):
+    _mk_mixN(_n)
+
+
+# --- RFC 6464/6465-style per-member levels for speaker selection ------------
+def _levels_process(state, ins, params, ctx):
+    x = ins[0]
+    sm = 0.7 * state["energy"] + 0.3 * (x * x).mean(dim=1)
+    return {"energy": sm}, (x,), {"level": sm}
+
+
+register_filter(FilterDef(
+    name="audio_levels", ninputs=1, noutputs=1,
+    out_formats=lambda ctx: (ctx.in_formats[0],),
+    init=lambda ctx, device: {"energy": torch.zeros((ctx.batch,), dtype=torch.float32,
+                                                    device=device)},
+    process=_levels_process,
 ))

@@ -67,7 +67,7 @@ def test_aec_erle_convergence(runs):
 
 def test_aec_state_blob_roundtrip(runs):
     st = runs["st"]["ec"]
-    restored = set_state_blob(get_state_blob(st))
+    restored = set_state_blob(get_state_blob(st), "cpu")
     assert set(restored) == set(st)
     for k, v in st.items():
         assert restored[k].dtype == v.dtype, k
@@ -78,7 +78,7 @@ def test_aec_state_blob_reads_jax_blob(factory):
     """A state saved by the JAX package restores into the port."""
     from mediastreamer2_tpu.ops.aec import get_state_blob as jax_blob
     *_, st = simulate(factory, B=1, ticks=12)
-    restored = set_state_blob(jax_blob(st["ec"]))
+    restored = set_state_blob(jax_blob(st["ec"]), "cpu")
     assert restored["Ws_r"].dtype == torch.bfloat16
     np.testing.assert_array_equal(restored["Wm_r"].float().numpy(),
                                   np.asarray(st["ec"]["Wm_r"], np.float32))

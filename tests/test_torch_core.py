@@ -192,6 +192,37 @@ def test_port_never_imports_jax():
         "ext = {k: torch.from_numpy(v) for k, v in example_inputs(8).items()}\n"
         "st, out, _ = cg.step(st, params, ext)\n"
         "assert out['out'].shape == (8, 160)\n"
+        # the session layer, lazy imports included: a conference server and
+        # echo-cancelling clients over loopback RTP, and a pipelined ticker
+        # with its publish worker
+        "import numpy as np\n"
+        "from mediastreamer2_tpu_torch.core.ticker import Ticker\n"
+        "from mediastreamer2_tpu_torch.models.audio_stream import (\n"
+        "    AudioStreamBatch, AudioStreamFeatures)\n"
+        "from mediastreamer2_tpu_torch.models.conference import AudioConferenceControl\n"
+        "from mediastreamer2_tpu_torch.net.rtp import LoopbackPair\n"
+        "ft = AudioStreamFeatures(echo_canceller=True, vad_dtx=True, dtmf=True,\n"
+        "                         local_play=True)\n"
+        "cl = AudioStreamBatch(m.Factory(), 2, mic_signal=np.ones(800, np.float32) / 4,\n"
+        "                      features=ft, record_ticks=6, device='cpu')\n"
+        "sv = AudioStreamBatch(m.Factory(), 2, conference=True, device='cpu')\n"
+        "ctl = AudioConferenceControl(sv.ticker)\n"
+        "for leg in range(2):\n"
+        "    pair = LoopbackPair()\n"
+        "    cl.set_transport(leg, pair.endpoint(0))\n"
+        "    sv.set_transport(leg, pair.endpoint(1))\n"
+        "    ctl.add_member(leg, 0)\n"
+        "cl.enable_dtmf_receive(0, play_tone=True)\n"
+        "sv.send_dtmf(0, '5')\n"
+        "cl.play_announcement(np.ones(160, np.float32) / 8)\n"
+        "for _ in range(6):\n"
+        "    cl.ticker.do_tick()\n"
+        "    sv.ticker.do_tick()\n"
+        "assert cl.get_recording().shape == (2, 480)\n"
+        "tk = Ticker(cl.graph, 'cpu', realtime=False, pipeline_depth=1)\n"
+        "tk.async_publish = True\n"
+        "tk.set_io(pull=lambda t: {'rtp_rx': np.zeros((2, 80), np.int32)})\n"
+        "tk.run(3)\n"
         "bad = [k for k in sys.modules if k == 'mediastreamer2_tpu'\n"
         "       or k.startswith('mediastreamer2_tpu.') or k.startswith('jax.')]\n"
         "assert not bad, bad\n"
