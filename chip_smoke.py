@@ -2,25 +2,31 @@
 """Smoke run of the PyTorch + CUDA port (mediastreamer2_tpu_torch) on one
 NVIDIA GPU: builds its kernels and its native RTP edge from source, checks
 each kernel against its plain PyTorch version on the card, drives the
-flagship conference leg, the end-to-end G.711 leg over localhost UDP and
-the session layer, and compares the port on the card with the port on
-the CPU.
+flagship conference leg, the end-to-end G.711 leg over localhost UDP (in
+clear and with SRTP), the session layer and the secured wideband call
+(G.722, SRTP, RTCP and QoS), and compares the port on the card with the
+port on the CPU.
 
     python3 chip_smoke.py
 
 Needs one CUDA card, nvcc, g++ and nvidia-smi; imports nothing of JAX.
 Phases, in order (any failure raises and the script exits non-zero):
 
-1. card, versions, build times (nvcc for the kernels and g++ for the
-   edge, started together);
+1. card, versions, build times (one nvcc per kernel source and g++ for the
+   edge, started together), the edge's AES path (``native.hw_crypto``) and
+   which system codec and crypto libraries the machine has (printed only);
 2. each kernel against its plain version, at the flagship's shapes
    (fused_volume; mdf_apply with bf16 and with f32 shadow taps;
    mdf_update at cpos 0, 3, 7; mdf_update_fused, f32 and bf16 shadow)
-   and at the session's (B = 1,024, S = 80, F = 81: the three kernels of
-   its path), with each one's device time per launch (the stream spins
-   while the host enqueues, then one event pair around 50 launches, over
-   input sets that spill the L2), its bound (bytes over 3.35 TB/s or
-   operations over 67 TFLOP/s, the larger) and its share of the bound;
+   at the session's (B = 1,024, S = 80, F = 81: the three kernels of
+   its path) and the wideband call's (B = 1,024, S = 160, F = 161), and
+   g722_encode / g722_decode at B = 1,024 (bit-exact, codes, samples and
+   every state leaf, over three ticks), with each one's device time per
+   launch (the stream spins while the host enqueues, then one event pair
+   around 50 launches, over input sets that spill the L2), its bound
+   (bytes over 3.35 TB/s or operations over 67 TFLOP/s, the larger; for
+   G.722 the serial chain of its 80 code slots instead of the throughput)
+   and its share of the bound;
 3. the flagship at 4,096 legs (1,024 four-party conferences) for 100
    ticks of echo-coupled input: fused_volume, mdf_apply and
    mdf_update_fused launched once per tick and mdf_update never, all
@@ -35,8 +41,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    (PALLAS_MDF=1): 1,024 legs paced over localhost UDP for 300 measured
    ticks inside paused_gc, with mdf_apply, mdf_update and fused_volume
    launched once per tick and mdf_update_fused never, finite graph
-   outputs and state, loss < 0.02 and fidelity >= 0.9; then 4,096 legs
-   unpaced for 100 ticks, printed with no bar;
+   outputs and state, loss < 0.02 and fidelity >= 0.9; the same with
+   AES_CM_128_HMAC_SHA1_80 on every leg (srtp=True; no authentication
+   failure); then 4,096 legs unpaced for 100 ticks, printed with no bar;
 6. the e2e graph without the network in megakernel mode, the CPU against
    the card, 256 legs x 100 ticks fed the same mu-law codes, held to the
    bar of phase 4;
@@ -55,12 +62,31 @@ Phases, in order (any failure raises and the script exits non-zero):
    own AGC shapes it) and > 0.7 against its mic, and the talker's own
    recording to < 5% of a listener's energy (mix-minus); 7c: 8 + 8 legs
    on the CPU against the card, the listeners' recordings held to the
-   bar of phase 4.
+   bar of phase 4;
+8. the secured wideband call: phase 7's clients and server with G.722 at
+   16 kHz (AEC P = 8, F = 161). 8a: 1,024 + 1,024 legs over the batch
+   edge with AES_CM_128_HMAC_SHA1_80 on every leg (keys from a seeded
+   generator), 200 alternating do_ticks: launches per tick pair
+   g722_encode 2, g722_decode 2, fused_volume 3, mdf_apply 1,
+   mdf_update_fused 1, every leg >= ticks/2 packets, no authentication
+   failure and no replay drop, phase 7a's listener, mix-minus and talker
+   bars (the speech as sent decoded from the wire codes by the plain
+   G.722 decode; from tick 40 on, after G.722's start transient), finite
+   outputs and state; 8b: 64 + 64 legs over
+   LoopbackPair with per-leg SRTP keyed by SDES, RTCP every 0.5 s, a
+   quality indicator and a bitrate controller on every leg, alternating
+   do_ticks with iterate() every 10 ticks for >= 3 s: every leg saw a
+   remote report and has an RTT, every quality indicator >= 4.5, one leg
+   given a wrong receive key receives nothing, the listener bars; 8c: 8 +
+   8 legs of 8b's configuration on the CPU against the card, the bar of
+   phase 4 on the listeners' recordings over 60 ticks.
 
-The last two lines of standard output are the kernels' JSON and the
-result's JSON; the card's name and power limit come before them.
+Each phase prints the seconds elapsed when it ends. The last two lines of
+standard output are the kernels' JSON and the result's JSON; the card's
+name and power limit come before them.
 """
 import contextlib
+import ctypes.util
 import json
 import math
 import os
@@ -75,12 +101,16 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "mediastreamer2_tpu_torch/csrc/ms2_kernels.cu"
-REPLACES = {  # the TPU kernel each CUDA kernel replaces
+G722_SOURCE = "mediastreamer2_tpu_torch/csrc/g722_kernels.cu"
+REPLACES = {  # the TPU kernel (or lax.scan) each CUDA kernel replaces
     "fused_volume": "mediastreamer2_tpu/ops/pallas_kernels.py:56",
     "mdf_apply": "mediastreamer2_tpu/ops/pallas_kernels.py:133",
     "mdf_update": "mediastreamer2_tpu/ops/pallas_kernels.py:178",
     "mdf_update_fused": "mediastreamer2_tpu/ops/pallas_kernels.py:278",
+    "g722_encode": "mediastreamer2_tpu/ops/g722.py:213",
+    "g722_decode": "mediastreamer2_tpu/ops/g722.py:221",
 }
+SYSTEM_LIBRARIES = ("opus", "gsm", "avcodec", "ssl", "crypto")
 LEGS = 4096
 TICKS = 100
 CROSS_LEGS = 256
@@ -95,8 +125,18 @@ PACED_LEGS = 64               # phase 7b
 PACED_TICKS = 300
 CROSS_SESSION_LEGS = 8        # phase 7c
 CROSS_SESSION_TICKS = 150
+WIDE_LEGS = 1024              # phase 8a: clients and server, each
+WIDE_TICKS = 200
+SECURE_LEGS = 64              # phase 8b
+SECURE_MIN_S = 3.0            # 8b's least wall time: several RTCP intervals
+SECURE_MIN_TICKS = 150
+SECURE_MAX_TICKS = 600
+RTCP_INTERVAL_S = 0.5
+CROSS_WIDE_LEGS = 8           # phase 8c
+CROSS_WIDE_TICKS = 60
 P, F, S = 8, 481, 480         # the flagship's AEC at 48 kHz
 SP, SF, S8 = 8, 81, 80        # the session's AEC at 8 kHz
+WF, S16 = 161, 160            # the wideband call's AEC at 16 kHz
 
 
 def card_line() -> str:
@@ -173,6 +213,40 @@ def mdf_update_fused_cost(B, P, F, ws_bytes, wm_read_legs=0, wm_write_legs=0):
     return (B * P * F * (2 * ws_bytes * 2 + 2 * 2) + P * F * 2 * 2 * (wm_read_legs + wm_write_legs)
             + 4 * B * F * 5 + B * (4 + 3) + 4 + 8,
             40 * B * P * F)
+
+
+# G.722: one thread per leg runs the leg's 80 code slots one after another;
+# each slot's predictor needs the previous slot's. The least time is then
+# the slots' chain of dependent integer operations (hand-counted from
+# csrc/g722_kernels.cu: the longest path through one slot, each add,
+# shift, compare, select, multiply or table load one step, sums as binary
+# trees): encode 42 (the lower band: the quantizer needs the prediction s,
+# el -> wd -> 29 thresholds summed -> ilow -> dlow -> block 4 -> s),
+# decode 27 (the codes arrive from the wire, so the chain runs det -> dlowt
+# -> block 4 -> s). Each step waits for its operand: at least 4 cycles of
+# a dependent integer operation, at the H100's 1.98 GHz boost clock.
+G722_SLOTS = 80
+G722_CHAIN_OPS = {"g722_encode": 42, "g722_decode": 27}
+G722_STATE_INTS = 80          # two bands of 28 int32, the 24-sample QMF line
+DEP_OP_CYCLES = 4
+SM_CLOCK_HZ = 1.98e9
+
+
+def g722_cost(B, name):
+    """(bytes, dependent operations of one leg's serial chain): pcm [B, 160]
+    and codes [B, 80] int32, one in and one out, and the codec state read
+    and written; the chain is 80 slots of G722_CHAIN_OPS."""
+    return (B * (4 * 2 * G722_SLOTS + 4 * G722_SLOTS + 2 * 4 * G722_STATE_INTS),
+            G722_SLOTS * G722_CHAIN_OPS[name])
+
+
+def g722_bound(cost):
+    """(bound ms, what bounds it, bytes bound ms, chain bound ms): the serial
+    chain's latency against the bytes over 3.35 TB/s."""
+    nbytes, chain = cost
+    t_bytes, t_chain = nbytes / HBM_BYTES_PER_S, chain * DEP_OP_CYCLES / SM_CLOCK_HZ
+    return (1e3 * max(t_bytes, t_chain), "bytes" if t_bytes >= t_chain else "operations",
+            1e3 * t_bytes, 1e3 * t_chain)
 
 
 def bound(cost):
@@ -318,6 +392,48 @@ def kernel_checks(kernels, dev, card, B, S, P, F, full=True):
     return results
 
 
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def g722_checks(kernels, dev, card, B):
+    """Phase 2 for G.722: each kernel against its plain version on the card
+    at B legs over three ticks of the same inputs, the state carried (the
+    codes or samples and every state leaf, bit for bit), then timed beside
+    its bounds (the serial chain and the bytes)."""
+    from mediastreamer2_tpu_torch.ops.g722 import g722_state
+    g = torch.Generator(device=dev).manual_seed(1)
+    pcm = lambda: torch.randint(-32768, 32768, (B, S16), generator=g, device=dev,  # noqa: E731
+                                dtype=torch.int32)
+    codes = lambda: torch.randint(0, 256, (B, G722_SLOTS), generator=g, device=dev,  # noqa: E731
+                                  dtype=torch.int32)
+    results = {}
+    for name, make, kfn, pfn in (
+            ("g722_encode", pcm, kernels.g722_encode, kernels.g722_encode_reference),
+            ("g722_decode", codes, kernels.g722_decode, kernels.g722_decode_reference)):
+        st_k, st_p = g722_state(B, dev), g722_state(B, dev)
+        for t in range(3):
+            x = make()
+            _require_equal(f"{name} tick {t}", kfn(x, st_k)[0], pfn(x, st_p)[0])
+            for a, b in zip(kernels.g722_state_leaves(st_k), kernels.g722_state_leaves(st_p)):
+                _require_equal(f"{name} state after tick {t}", a, b)
+        cost = g722_cost(B, name)
+        sets = [(make(), _clone_tree(st_k)) for _ in range(rotation(cost[0]))]
+        r = {"max_abs_err": 0.0, "tolerance": "bit-exact",
+             "ms": device_ms(lambda i: kfn(*sets[i % len(sets)])),
+             "plain_ms": device_ms(lambda i: pfn(*sets[i % len(sets)]), n=3), "bytes": cost[0]}
+        r["bound_ms"], r["bound_by"], r["bound_bytes_ms"], r["bound_chain_ms"] = g722_bound(cost)
+        results[name] = r
+        print(f"kernel {name} [B={B}, 80 slots]: matches plain (bit-exact: output and every "
+              f"state leaf, 3 ticks); device {r['ms']:.4f} ms per launch, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: serial chain "
+              f"{G722_SLOTS} x {G722_CHAIN_OPS[name]} ops = {r['bound_chain_ms']:.4f} ms, "
+              f"bytes {r['bytes'] / 1e6:.2f} MB = {r['bound_bytes_ms']:.4f} ms), "
+              f"{100 * r['bound_ms'] / r['ms']:.0f}% of bound; plain {r['plain_ms']:.4f} ms "
+              f"[{card}]", flush=True)
+    return results
+
+
 def _device_ticks(a: np.ndarray, ticks: int, dev) -> torch.Tensor:
     """[legs, ticks*S] numpy -> [ticks, legs, S] contiguous on ``dev``."""
     legs = a.shape[0]
@@ -365,18 +481,21 @@ def environ(**env):
 
 
 def _require_counts(path, launches, want):
+    """Every kernel's launches equal ``want``'s (0 where it names none)."""
+    want = {k: want.get(k, 0) for k in launches}
     if launches != want:
         raise AssertionError(f"{path}: kernel launches {launches}, expected {want}")
 
 
-def run_e2e(kernels, dev, card, legs, ticks, paced):
-    """Phase 5: the e2e bench in megakernel mode; returns (result, the
-    launches of its run, the ticks it dispatched)."""
+def run_e2e(kernels, dev, card, legs, ticks, paced, srtp=False):
+    """Phase 5: the e2e bench in megakernel mode (``srtp``: every leg
+    protected on the edge); returns (result, the launches of its run, the
+    ticks it dispatched)."""
     from mediastreamer2_tpu_torch import Factory
     from mediastreamer2_tpu_torch.core.rtgc import paused_gc
     from mediastreamer2_tpu_torch.models.e2e_bench import (WARMUP_TICKS,
                                                            E2EConferenceBench)
-    b = E2EConferenceBench(Factory(), legs, dev)
+    b = E2EConferenceBench(Factory(), legs, dev, srtp=srtp)
     try:
         b.warm()                    # first launches outside the counted run
         t0 = b._t
@@ -391,12 +510,14 @@ def run_e2e(kernels, dev, card, legs, ticks, paced):
     finally:
         b.close()
     ph = " ".join(f"{k} {v:.3f}" for k, v in res.phases_ms.items() if not k.endswith("_max"))
-    print(f"e2e {'paced' if paced else 'unpaced'}: {legs} legs x {res.ticks} measured ticks "
+    print(f"e2e {'paced' if paced else 'unpaced'}{' SRTP' if srtp else ''}: {legs} legs x "
+          f"{res.ticks} measured ticks "
           f"({dispatched} dispatched), K=1 D=2, megakernel AEC (Ws {ws_dtype}), "
           f"{res.ms_per_tick:.3f} ms/tick, late ticks {res.late_ticks}, loss "
           f"{res.loss_rate:.5f}, fidelity {res.fidelity:.5f}, mouth-to-ear "
           f"{res.mouth_to_ear_ms:.0f} ms, edge threads {b.edge_threads}, UDP GSO {b.gso}, "
-          f"out finite {res.out_finite}, state finite {state_finite}, launches {launches}; "
+          f"out finite {res.out_finite}, state finite {state_finite}, launches {launches}, "
+          f"SRTP auth failures {res.auth_failures}; "
           f"host ms/tick by phase: {ph} [{card}]", flush=True)
     want = {"fused_volume": dispatched, "mdf_apply": dispatched,
             "mdf_update": dispatched, "mdf_update_fused": 0}
@@ -405,6 +526,8 @@ def run_e2e(kernels, dev, card, legs, ticks, paced):
         raise AssertionError(f"megakernel mode needs an f32 shadow, got {ws_dtype}")
     if not (res.out_finite and state_finite):
         raise AssertionError("e2e graph output or state holds non-finite values")
+    if res.auth_failures:
+        raise AssertionError(f"e2e SRTP: {res.auth_failures} authentication failures")
     return res, launches, dispatched
 
 
@@ -436,28 +559,44 @@ def e2e_cross(dev, legs, ticks):
 
 
 # -- phase 7: the session layer ----------------------------------------------
-class Session:
-    """Echo-cancelling G.711 clients (AEC + AGC) against a conference
-    server, both ``AudioStreamBatch`` on ``dev``: legs 4k..4k+3 form
-    conference k (``AudioConferenceControl``), leg 4k talks. The clients'
-    push is tapped for the talkers' sent codes and for finite speakers."""
+def _tree_finite(tree):
+    return all(_tree_finite(v) if isinstance(v, dict) else
+               (not v.is_floating_point() or bool(torch.isfinite(v).all()))
+               for v in tree.values())
 
-    def __init__(self, dev, legs, ticks, seed=3):
-        from mediastreamer2_tpu_torch import Factory
+
+class Session:
+    """Echo-cancelling clients (AEC + AGC) against a conference server, both
+    ``AudioStreamBatch`` on ``dev``, G.711 mu-law at 8 kHz or G.722 at
+    16 kHz: legs 4k..4k+3 form conference k (``AudioConferenceControl``),
+    leg 4k talks. The clients' push is tapped for the talkers' sent codes
+    and for finite speakers."""
+
+    def __init__(self, dev, legs, ticks, seed=3, codec="ulaw", rate=8000):
+        """G.722 is stateful: its decoders start on the jitter buffers'
+        empty ticks (code 0, as in the JAX package) and play a loud
+        transient until the first packets have re-synchronised their
+        predictors (~10 ticks), which the clients' echo cancellers and
+        AGC then take ~30 more ticks to shed; ``settle`` = 40 ticks are left
+        out of the bars (``bars``) and of the talker samples."""
+        from mediastreamer2_tpu_torch import Factory, tick_samples
         from mediastreamer2_tpu_torch.models.audio_stream import (AudioStreamBatch,
                                                                   AudioStreamFeatures)
         from mediastreamer2_tpu_torch.models.conference import AudioConferenceControl
         from mediastreamer2_tpu_torch.utils.signals import make_speechlike
-        self.legs, self.ticks = legs, ticks
-        n = S8 * (ticks + 60)
+        self.legs, self.ticks, self.codec, self.rate = legs, ticks, codec, rate
+        self.S = tick_samples(rate)
+        self.settle = 40 if codec == "g722" else 0
+        n = self.S * (ticks + 60)
         self.mic = np.zeros((legs, n), np.float32)
         for k in range(legs // 4):
-            self.mic[4 * k] = make_speechlike(n, 8000, seed=seed + k)
+            self.mic[4 * k] = make_speechlike(n, rate, seed=seed + k)
         f = Factory()
         self.clients = AudioStreamBatch(
-            f, legs, mic_signal=self.mic, record_ticks=ticks + 60, device=dev,
-            features=AudioStreamFeatures(echo_canceller=True, agc=True))
-        self.server = AudioStreamBatch(f, legs, conference=True, device=dev)
+            f, legs, codec=codec, rate=rate, mic_signal=self.mic, record_ticks=ticks + 60,
+            device=dev, features=AudioStreamFeatures(echo_canceller=True, agc=True))
+        self.server = AudioStreamBatch(f, legs, codec=codec, rate=rate, conference=True,
+                                       device=dev)
         self.ctl = AudioConferenceControl(self.server.ticker)
         for leg in range(legs):
             self.ctl.add_member(leg, leg // 4)
@@ -483,52 +622,82 @@ class Session:
             self.clients.set_transport(leg, pair.endpoint(0))
             self.server.set_transport(leg, pair.endpoint(1))
 
-    def alternate(self, ticks, sample_every=0):
+    def alternate(self, ticks, sample_every=0, iterate_every=0):
         """``ticks`` rounds of clients.do_tick() then server.do_tick();
         returns host ms per round and the active talkers sampled every
-        ``sample_every`` rounds."""
+        ``sample_every`` rounds. ``iterate_every``: each side's iterate()
+        once in that many rounds, the server's half a period after the
+        clients' (so each side's report answers the other's latest SR)."""
         samples = []
         t0 = time.perf_counter()
         for t in range(ticks):
             self.clients.ticker.do_tick()
             self.server.ticker.do_tick()
-            if sample_every and t % sample_every == sample_every - 1:
+            if sample_every and t % sample_every == sample_every - 1 and t >= self.settle:
                 samples.append(self.ctl.active_talkers())
+            if iterate_every and t % iterate_every == iterate_every // 2 - 1:
+                self.clients.iterate()
+            if iterate_every and t % iterate_every == iterate_every - 1:
+                self.server.iterate()
         return 1e3 * (time.perf_counter() - t0) / ticks, samples
 
     def state_finite(self):
         for s in (self.clients, self.server):
             s.ticker.sync()
-        return all(bool(torch.isfinite(v).all())
-                   for s in (self.clients, self.server)
-                   for entry in s.ticker.state.values() if entry
-                   for v in entry.values() if v.is_floating_point())
+        return all(_tree_finite(entry) for s in (self.clients, self.server)
+                   for entry in s.ticker.state.values() if entry)
 
-    def bars(self, conf_step):
+    def said(self, conferences):
+        """Each sampled talker's speech as sent: its wire codes decoded by
+        the plain codec on the CPU ([len(conferences), ticks * S])."""
+        sent = np.stack(self.sent)[:self.ticks][:, conferences]       # [ticks, n, 80]
+        codes = torch.from_numpy(np.ascontiguousarray(
+            sent.transpose(1, 0, 2).reshape(len(conferences), -1).astype(np.int32)))
+        from mediastreamer2_tpu_torch.ops.g711 import pcm16_to_float, ulaw_decode
+        if self.codec == "g722":
+            from mediastreamer2_tpu_torch.ops.g722 import g722_state
+            from mediastreamer2_tpu_torch.ops.kernels import g722_decode_reference
+            pcm, _ = g722_decode_reference(codes, g722_state(len(conferences)))
+        else:
+            pcm = ulaw_decode(codes)
+        return pcm16_to_float(pcm).numpy()
+
+    def bars(self, conf_step, skip=()):
         """Every ``conf_step``-th conference: each listener's recording
         against its talker's speech as sent (the talker's codes on the
         wire, decoded: the talker's own AEC and AGC shape it) and as
         spoken (its mic signal), and the talker's own energy against its
-        listeners' (mix-minus)."""
-        from mediastreamer2_tpu_torch.ops.g711 import pcm16_to_float, ulaw_decode
+        listeners' (mix-minus). Legs in ``skip`` are left out. With a
+        ``settle`` window, a listener's recording from that tick on is held
+        to the part of the speech it plays, found by the lag over the whole
+        signals."""
         from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
-        n = S8 * self.ticks
+        n = self.S * self.ticks
+        start = self.S * self.settle
+
+        def sim(ref, rec):
+            got, lag = audio_diff(ref, rec)
+            if not start:
+                return got
+            lag = max(0, min(lag, start))
+            return audio_diff(ref[start - lag:n - lag], rec[start:])[0]
         rec = self.clients.get_recording()[:, :n]
-        sent = np.stack(self.sent)[:self.ticks]                  # [ticks, legs/4, 80]
-        sent = pcm16_to_float(ulaw_decode(torch.from_numpy(sent.astype(np.int32)))).numpy()
+        confs = list(range(0, self.legs // 4, conf_step))
+        said = self.said(confs)
         sim_sent, sim_mic, ratio = [], [], []
-        for k in range(0, self.legs // 4, conf_step):
-            said = sent[:, k].reshape(-1)
-            e_talker = float((rec[4 * k] ** 2).mean())
+        for j, k in enumerate(confs):
+            e_talker = float((rec[4 * k, start:] ** 2).mean())
             for leg in range(4 * k + 1, 4 * k + 4):
-                sim_sent.append(audio_diff(said, rec[leg])[0])
-                sim_mic.append(audio_diff(self.mic[4 * k, :n], rec[leg])[0])
-                ratio.append(e_talker / (float((rec[leg] ** 2).mean()) + 1e-20))
+                if leg in skip:
+                    continue
+                sim_sent.append(sim(said[j], rec[leg]))
+                sim_mic.append(sim(self.mic[4 * k, :n], rec[leg]))
+                ratio.append(e_talker / (float((rec[leg, start:] ** 2).mean()) + 1e-20))
         return min(sim_sent), min(sim_mic), max(ratio), rec
 
-    def check(self, conf_step):
+    def check(self, conf_step, skip=()):
         """(bars met, a line that states them)."""
-        sim_sent, sim_mic, ratio, _ = self.bars(conf_step)
+        sim_sent, sim_mic, ratio, _ = self.bars(conf_step, skip)
         ok = sim_sent > 0.85 and sim_mic > 0.7 and ratio < 0.05 and self.finite[0]
         return ok, (f"listeners vs talkers (every {conf_step}th conference): audio_diff min "
                     f"{sim_sent:.4f} against the speech sent, {sim_mic:.4f} against the "
@@ -536,11 +705,26 @@ class Session:
                     f"{self.finite[0]}, bars met {ok}")
 
 
-def session_edge(kernels, dev, card, legs, ticks):
-    """Phase 7a: the session pair at full width over localhost UDP through
-    the native batched edge (UDP GSO only where the kernel takes it)."""
+def session_launches(codec, ticks):
+    """The kernel launches of ``ticks`` session tick pairs (clients then
+    server): fused_volume 3 a pair (the clients' vol_send and vol_recv, the
+    server's vol_recv: a conference=True stream has no send volume, in the
+    JAX package too), the clients' AEC once (mdf_apply, mdf_update_fused),
+    and with G.722 each side's encode and decode once; no other."""
+    want = {"fused_volume": 3 * ticks, "mdf_apply": ticks, "mdf_update_fused": ticks}
+    if codec == "g722":
+        want.update(g722_encode=2 * ticks, g722_decode=2 * ticks)
+    return want
+
+
+def session_edge(kernels, dev, card, legs, ticks, phase="7a", codec="ulaw", rate=8000,
+                 srtp=False):
+    """Phases 7a and 8a: the session pair at full width over localhost UDP
+    through the native batched edge (UDP GSO only where the kernel takes
+    it); ``srtp``: AES_CM_128_HMAC_SHA1_80 on every leg, keys from a seeded
+    generator. Returns the launches of the counted run."""
     from mediastreamer2_tpu_torch import native
-    sess = Session(dev, legs, ticks)
+    sess = Session(dev, legs, ticks, codec=codec, rate=rate)
     socks = []
     for _ in range(2):
         sk = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
@@ -551,18 +735,24 @@ def session_edge(kernels, dev, card, legs, ticks):
                 sk.setsockopt(socket.SOL_SOCKET, opt, 1 << 24)
         socks.append(sk)
     srv, cli = socks
+    keys = None
+    if srtp:
+        rng = np.random.default_rng(8)
+        keys = [(rng.bytes(16), rng.bytes(14)) for _ in range(legs)]
     try:
         sess.clients.enable_batch_edge(rx_sock=cli, tx_sock=cli, remote=srv.getsockname(),
-                                       ssrc_base=0x6000)
+                                       ssrc_base=0x6000, srtp_keys=keys)
         sess.server.enable_batch_edge(rx_sock=srv, tx_sock=srv, remote=cli.getsockname(),
-                                      ssrc_base=0x6000)
+                                      ssrc_base=0x6000, srtp_keys=keys)
         sess.clients.ticker.warm_up()
         sess.server.ticker.warm_up()
         kernels.reset_launch_counts()
         ms, samples = sess.alternate(ticks, sample_every=10)
         launches = kernels.launch_counts()
-        recv = [min(s._edge_rx.stats(i)["recv"] for i in range(legs))
-                for s in (sess.server, sess.clients)]
+        sides = (sess.server, sess.clients)
+        recv = [min(s._edge_rx.stats(i)["recv"] for i in range(legs)) for s in sides]
+        auth = sum(s._edge_rx.auth_failures(i) for s in sides for i in range(legs))
+        replay = sum(s._edge_rx.replay_drops(i) for s in sides for i in range(legs))
     finally:
         srv.close()
         cli.close()
@@ -578,24 +768,27 @@ def session_edge(kernels, dev, card, legs, ticks):
             stray.update(leg for leg in who if leg % 4)
     missing = [k for k, who in named.items() if 4 * k not in who]
     state_finite = sess.state_finite()
-    print(f"session 7a: {legs} + {legs} legs (AEC+AGC clients, conference server, "
-          f"{legs // 4} four-party conferences) x {ticks} ticks over the batch edge, UDP GSO "
-          f"{sess.server.gso}: {ms:.3f} ms per tick pair (host clock); host ms/tick by phase: "
-          + " ".join(f"{k} {v:.3f}" for k, v in ph.items())
-          + f"; launches {launches}; edge recv min server {recv[0]} clients {recv[1]}; "
-          f"{line}; state finite {state_finite}; conferences whose talker was never named "
-          f"{len(missing)}, listeners named {len(stray)} [{card}]", flush=True)
-    # fused_volume: the clients' vol_send and vol_recv, and the server's
-    # vol_recv (a conference=True stream has no send volume, in the JAX
-    # package too)
-    want = {"fused_volume": 3 * ticks, "mdf_apply": ticks, "mdf_update": 0,
-            "mdf_update_fused": ticks}
-    _require_counts("session 7a", launches, want)
+    what = (f"{codec} at {rate // 1000} kHz" + (", AES_CM_128_HMAC_SHA1_80 on every leg "
+                                                f"(edge AES-NI {native.hw_crypto()})"
+                                                if srtp else ""))
+    print(f"session {phase}: {legs} + {legs} legs (AEC+AGC clients, conference server, "
+          f"{legs // 4} four-party conferences, {what}) x {ticks} ticks over the batch edge, "
+          f"UDP GSO {sess.server.gso}: {ms:.3f} ms per tick pair (host clock); host ms/tick by "
+          f"phase: " + " ".join(f"{k} {v:.3f}" for k, v in ph.items())
+          + f"; launches {launches}; edge recv min server {recv[0]} clients {recv[1]}, SRTP "
+          f"auth failures {auth}, replay drops {replay}; {line}; state finite "
+          f"{state_finite}; conferences whose talker was never named {len(missing)}, "
+          f"listeners named {len(stray)} [{card}]", flush=True)
+    _require_counts(f"session {phase}", launches, session_launches(codec, ticks))
     if min(recv) < ticks // 2:
-        raise AssertionError(f"session 7a: a leg received only {min(recv)} packets")
+        raise AssertionError(f"session {phase}: a leg received only {min(recv)} packets")
+    if auth or replay:
+        raise AssertionError(f"session {phase}: {auth} SRTP authentication failures, "
+                             f"{replay} replay drops")
     if missing or stray or not (state_finite and ok):
-        raise AssertionError(f"session 7a: talkers not named in conferences {missing[:8]}, "
-                             f"listeners named {sorted(stray)[:8]}, state finite {state_finite}")
+        raise AssertionError(f"session {phase}: talkers not named in conferences {missing[:8]}, "
+                             f"listeners named {sorted(stray)[:8]}, state finite "
+                             f"{state_finite}, bars met {ok}")
     return launches
 
 
@@ -651,6 +844,109 @@ def session_cross(dev, legs, ticks):
     return recs
 
 
+# -- phase 8: the secured wideband call ---------------------------------------
+def secure_session(dev, legs, max_ticks, wrong_key_leg=None, seed=90):
+    """Phase 8b's configuration: the G.722 session pair over LoopbackPair
+    with per-leg SRTP keyed by SDES (each side generates its key line, the
+    other parses it), RTCP every RTCP_INTERVAL_S, and on every leg a
+    quality indicator (counting the reports it was fed) and a bitrate
+    controller (whose ptime ladder drives ``set_ptime``). The clients'
+    ``wrong_key_leg`` gets a receive key that is not the server's.
+    Returns (session, {(side, leg): quality indicator})."""
+    from mediastreamer2_tpu_torch.models import qos
+    from mediastreamer2_tpu_torch.net.srtp import sdes_generate, sdes_parse
+
+    class Indicator(qos.QualityIndicator):
+        reports = 0
+
+        def update(self, stats):
+            self.reports += 1
+            return super().update(stats)
+
+    sess = Session(dev, legs, max_ticks, seed=seed, codec="g722", rate=16000)
+    sess.loopback()
+    for leg in range(legs):
+        offer, kc, sc = sdes_generate()
+        answer, ks, ss = sdes_generate()
+        _, rkc, rsc = sdes_parse("1 " + offer)           # the server reads the offer
+        _, rks, rss = sdes_parse("1 " + answer)          # the clients read the answer
+        if leg == wrong_key_leg:
+            rks = bytes(16)
+        sess.clients.enable_srtp(leg, kc, sc, rks, rss)
+        sess.server.enable_srtp(leg, ks, ss, rkc, rsc)
+    qis = {}
+    for side, stream in (("clients", sess.clients), ("server", sess.server)):
+        stream.enable_rtcp(interval_s=RTCP_INTERVAL_S)
+        for leg in range(legs):
+            qis[(side, leg)] = qi = Indicator()
+            stream.attach_quality_indicator(leg, qi)
+            stream.attach_bitrate_controller(leg, qos.BitrateController(
+                qos.SimpleQosAnalyzer(), qos.AudioBitrateDriver(
+                    lambda bps: None, lambda ms, st=stream, leg=leg: st.set_ptime(leg, ms))))
+    for stream in (sess.clients, sess.server):
+        stream.ticker.warm_up()
+    return sess, qis
+
+
+def session_secure(dev, card, legs):
+    """Phase 8b: 8b's configuration, alternating do_ticks with iterate()
+    every 10 rounds until SECURE_MIN_S of wall time and SECURE_MIN_TICKS
+    rounds have passed."""
+    wrong = 5                                             # a listener of conference 1
+    sess, qis = secure_session(dev, legs, SECURE_MAX_TICKS, wrong_key_leg=wrong)
+    t0, ran, ms = time.perf_counter(), 0, []
+    while ran < SECURE_MIN_TICKS or time.perf_counter() - t0 < SECURE_MIN_S:
+        ms.append(sess.alternate(10, iterate_every=10)[0])
+        ran += 10
+        if ran >= SECURE_MAX_TICKS:
+            raise AssertionError(f"session 8b: {ran} rounds in {time.perf_counter() - t0:.1f} s")
+    wall = time.perf_counter() - t0
+    sess.ticks = ran
+    ok, line = sess.check(conf_step=1, skip=(wrong,))
+    legs_ok = [(side, leg) for side in ("clients", "server") for leg in range(legs)
+               if leg != wrong]
+    unreported = [k for k in legs_ok if qis[k].reports == 0]
+    stream = {"clients": sess.clients, "server": sess.server}
+    rtts = {k: stream[k[0]].sessions[k[1]].rtcp.last_rtt_ms for k in legs_ok}
+    no_rtt = [k for k, v in rtts.items() if v is None]
+    rating = min(qis[k].rating for k in legs_ok)
+    bad = sess.clients.sessions[wrong]
+    auth = sum(s.sessions[leg].transport.auth_failures for s in stream.values()
+               for leg in range(legs) if leg != wrong)
+    known = sorted(v for v in rtts.values() if v is not None)
+    print(f"session 8b: {legs} + {legs} legs, G.722 at 16 kHz, per-leg SRTP (SDES), RTCP every "
+          f"{RTCP_INTERVAL_S} s, quality indicator and bitrate controller on every leg, "
+          f"{ran} rounds in {wall:.2f} s ({sum(ms) / len(ms):.3f} ms per tick pair, host "
+          f"clock), iterate() every 10: legs without a remote report {len(unreported)}, "
+          f"without an RTT {len(no_rtt)}, RTT ms min/median/max "
+          + (f"{known[0]:.3f}/{known[len(known) // 2]:.3f}/{known[-1]:.3f}" if known else "-")
+          + f", quality indicator min {rating:.3f}, SRTP auth failures {auth} (the wrong-key "
+          f"leg: received {bad.stats.recv_packets} packets, auth failures "
+          f"{bad.transport.auth_failures}); {line} [{card}]", flush=True)
+    if unreported or no_rtt or rating < 4.5 or auth:
+        raise AssertionError(f"session 8b: unreported {unreported[:4]}, no RTT {no_rtt[:4]}, "
+                             f"quality indicator min {rating}, auth failures {auth}")
+    if bad.stats.recv_packets or not bad.transport.auth_failures:
+        raise AssertionError("session 8b: the leg with the wrong key received media")
+    if not ok:
+        raise AssertionError("session 8b: listener bars not met")
+
+
+def session_secure_cross(dev, legs, ticks):
+    """Phase 8c: 8b's configuration on the CPU (plain versions) and on the
+    card (kernels), ``ticks`` rounds each; returns the clients'
+    recordings of the listeners, CPU then card. (8b holds the listener
+    bars of this configuration on the card; 8c holds the two backends to
+    each other.)"""
+    recs = []
+    for d in (torch.device("cpu"), dev):
+        sess, _ = secure_session(d, legs, ticks, seed=110)
+        sess.alternate(ticks, iterate_every=10)
+        rec = sess.clients.get_recording()[:, :sess.S * ticks]
+        recs.append(rec[[leg for leg in range(legs) if leg % 4]])
+    return recs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -663,25 +959,42 @@ def main():
 
     dev = torch.device("cuda", 0)
     card = card_line()
+    start = time.perf_counter()
+
+    def phase_done(n):
+        print(f"phase {n} done at {time.perf_counter() - start:.1f} s", flush=True)
+
     # phase 1: environment and build
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # nvcc and g++ side by side
+    with ThreadPoolExecutor(2) as pool:     # nvcc (one per source) and g++ side by side
         k_build = pool.submit(kernels.build)
         e_build = pool.submit(native.build)
-        lib, log = k_build.result()
+        libs, log = k_build.result()
         edge = e_build.result()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(lib, REPO)}, "
-          f"{os.path.relpath(edge, REPO)}", flush=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s -> "
+          + ", ".join(os.path.relpath(p, REPO) for p in (*libs, edge)), flush=True)
     if log.strip():
         print(log.strip(), flush=True)
+    print(f"edge AES: {'AES-NI/SHA-NI/PCLMUL' if native.hw_crypto() else 'libcrypto EVP'} "
+          f"(hw_crypto {native.hw_crypto()})", flush=True)
+    # which system libraries the host codecs would load (ctypes, as the JAX
+    # package's ops/host_codecs.py and ops/h264.py look them up)
+    print("system libraries: " + ", ".join(f"{name} {ctypes.util.find_library(name)}"
+                                           for name in SYSTEM_LIBRARIES), flush=True)
+
+    phase_done(1)
 
     # phase 2: kernels against their plain versions on the card, at the
-    # flagship's shapes and at the session's
+    # flagship's, the session's and the wideband call's shapes; G.722
     results = kernel_checks(kernels, dev, card, LEGS, S, P, F)
     session_results = kernel_checks(kernels, dev, card, SESSION_LEGS, S8, SP, SF, full=False)
+    wide_results = kernel_checks(kernels, dev, card, WIDE_LEGS, S16, SP, WF, full=False)
+    results.update(g722_checks(kernels, dev, card, WIDE_LEGS))
+
+    phase_done(2)
 
     # phase 3: the flagship at 4,096 legs, counted launches
     mic, far = echo_coupled_inputs(LEGS, TICKS, seed=11)
@@ -707,6 +1020,8 @@ def main():
         raise AssertionError(f"shadow filter converged on only {100 * conv:.1f}% of legs")
     del state, out
 
+    phase_done(3)
+
     # phase 4: the port on the CPU against the port on the card
     mic, far = echo_coupled_inputs(CROSS_LEGS, CROSS_TICKS, seed=7)
     _, out_cpu, fin_cpu, cpu_tick = run_flagship(CROSS_LEGS, CROSS_TICKS,
@@ -722,14 +1037,22 @@ def main():
     if not (bar["pass"] and fin_cpu and fin_gpu):
         raise AssertionError(f"cpu vs gpu quality bar failed: {bar}")
 
+    phase_done(4)
+
     # phase 5: the e2e leg over localhost UDP, megakernel AEC
     with environ(PALLAS_MDF="1"):
         res, e2e_launches, e2e_ticks = run_e2e(kernels, dev, card, E2E_LEGS, E2E_TICKS,
                                                paced=True)
         if not (res.loss_rate < 0.02 and res.fidelity >= 0.9):
             raise AssertionError(f"e2e bar failed: {res}")
+        res, srtp_launches, srtp_ticks = run_e2e(kernels, dev, card, E2E_LEGS, E2E_TICKS,
+                                                 paced=True, srtp=True)
+        if not (res.loss_rate < 0.02 and res.fidelity >= 0.9):
+            raise AssertionError(f"e2e SRTP bar failed: {res}")
         _, big_launches, big_ticks = run_e2e(kernels, dev, card, E2E_BIG_LEGS,
                                              E2E_BIG_TICKS, paced=False)
+
+    phase_done(5)
 
     # phase 6: the e2e graph without the network, the CPU against the card
     with environ(PALLAS_MDF="1"):
@@ -743,6 +1066,8 @@ def main():
           f"(cpu {1e3 * cpu_tick:.1f} ms/tick)", flush=True)
     if not (bar["pass"] and fin):
         raise AssertionError(f"e2e cpu vs gpu quality bar failed: {bar}")
+
+    phase_done(6)
 
     # phase 7: the session layer (AudioStreamBatch, Ticker, conference
     # control): 7a full width over the batch edge, 7b paced threads over
@@ -759,25 +1084,51 @@ def main():
     if not bar["pass"]:
         raise AssertionError(f"session cpu vs gpu quality bar failed: {bar}")
 
-    # launches over the main-path runs that were counted: the flagship, both
-    # e2e runs and the session at full width
+    phase_done(7)
+
+    # phase 8: the secured wideband call: 8a full width over the batch edge
+    # with SRTP on every leg, 8b per-leg SRTP + RTCP + QoS, 8c CPU vs card
+    wide_launches = session_edge(kernels, dev, card, WIDE_LEGS, WIDE_TICKS, phase="8a",
+                                 codec="g722", rate=16000, srtp=True)
+    phase_done("8a")
+    session_secure(dev, card, SECURE_LEGS)
+    phase_done("8b")
+    rec_cpu, rec_gpu = session_secure_cross(dev, CROSS_WIDE_LEGS, CROSS_WIDE_TICKS)
+    bar = quality_bar(rec_cpu, rec_gpu, leg_step=1)
+    print(f"session 8c: {CROSS_WIDE_LEGS} + {CROSS_WIDE_LEGS} legs x {CROSS_WIDE_TICKS} ticks, "
+          f"G.722 with per-leg SRTP and RTCP over LoopbackPair, the CPU against the card, the "
+          f"clients' recordings of every listener: audio_diff_min {bar['audio_diff_min']:.6f}, "
+          f"rms_err {bar['rms_err']:.3e}, max_abs_err {bar['max_abs_err']:.3e}, "
+          f"energy_gap_db_max {bar['energy_gap_db_max']:.4f}, pass {bar['pass']}", flush=True)
+    if not bar["pass"]:
+        raise AssertionError(f"session 8c cpu vs gpu quality bar failed: {bar}")
+
+    phase_done(8)
+
+    # launches over the main-path runs that were counted: the flagship, the
+    # three e2e runs, the session and the wideband call at full width
     runs = {"flagship": (launches, TICKS),
-            "e2e": ({k: e2e_launches[k] + big_launches[k] for k in launches},
-                    e2e_ticks + big_ticks),
-            "session": (session_launches, SESSION_TICKS)}
+            "e2e": ({k: e2e_launches[k] + srtp_launches[k] + big_launches[k] for k in launches},
+                    e2e_ticks + srtp_ticks + big_ticks),
+            "session": (session_launches, SESSION_TICKS),
+            "wideband": (wide_launches, WIDE_TICKS)}
     total = {k: sum(c[k] for c, _ in runs.values()) for k in launches}
     entries = []
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     for name in REPLACES:
         r = results[name]
-        entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        entry = {"name": name, "route": "cuda",
+                 "source": G722_SOURCE if name.startswith("g722") else KERNEL_SOURCE,
                  "replaces": REPLACES[name], "launches": total[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
                  "launches_per_tick": {path: c[name] / n for path, (c, n) in runs.items()}}
-        if name in session_results:
-            sr = session_results[name]
-            entry["session_shapes"] = {k: sr[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                         "bound_ms", "bound_by")}
+        if name.startswith("g722"):
+            entry.update(bound_bytes_ms=r["bound_bytes_ms"], bound_chain_ms=r["bound_chain_ms"])
+        for label, res_at in (("session_shapes", session_results),
+                              ("wideband_shapes", wide_results)):
+            if name in res_at:
+                entry[label] = {k: res_at[name][k] for k in keys}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

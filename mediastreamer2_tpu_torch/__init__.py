@@ -12,14 +12,15 @@ package's:
 
 * :mod:`mediastreamer2_tpu_torch.core`   -- formats, filters, factory, graph,
   the ticker and event queue, worker pools, paced-section GC
-* :mod:`mediastreamer2_tpu_torch.ops`    -- the filters (G.711, PLC, mixers,
-  tones, VAD, ...) and the kernels
+* :mod:`mediastreamer2_tpu_torch.ops`    -- the filters (G.711, G.722, PLC,
+  mixers, tones, VAD, ...) and the kernels
 * :mod:`mediastreamer2_tpu_torch.models` -- the flagship leg, the end-to-end
   G.711 conference bench over UDP, the audio stream session
-  (``AudioStreamBatch``) and the conference control
-* :mod:`mediastreamer2_tpu_torch.native` -- the batched RTP edge (C++, g++)
-* :mod:`mediastreamer2_tpu_torch.net`    -- RTP sessions and transports, jitter
-  buffers, the edge's jitter controller
+  (``AudioStreamBatch``), the conference control and the QoS controllers
+* :mod:`mediastreamer2_tpu_torch.native` -- the batched RTP edge with inline
+  SRTP, and the AES the port's SRTP uses (C++, g++)
+* :mod:`mediastreamer2_tpu_torch.net`    -- RTP sessions and transports, SRTP,
+  RTCP, bandwidth estimators, jitter buffers, the edge's jitter controller
 * :mod:`mediastreamer2_tpu_torch.utils`  -- tree conversion, audio oracle,
   test signals, JAX's threefry random numbers
 """

@@ -79,6 +79,13 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def _clone_tree(tree):
+    """A copy of a state entry (None, or a dict of tensors and dicts)."""
+    if tree is None:
+        return None
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
 class _FifoLock:
     """A lock granted in the order it was asked for."""
 
@@ -329,8 +336,7 @@ class Ticker(_PacedBeat):
         reference's ``preprocess`` before the first tick,
         msticker.c:145-185). The state is left as it was."""
         with self.on_stream():
-            state = {node: (None if st is None else {k: v.clone() for k, v in st.items()})
-                     for node, st in self.state.items()}
+            state = {node: _clone_tree(st) for node, st in self.state.items()}
             ext_in = {k: torch.zeros(shape, dtype=dtype, device=self.device)
                       for k, (shape, dtype) in self.graph.ext_inputs.items()}
             self.graph.step(state, self.params, ext_in)
@@ -452,19 +458,26 @@ class Ticker(_PacedBeat):
     def save_state(self) -> bytes:
         """The whole graph state as npz in the JAX package's format: keys
         ``node::leaf``, bf16 leaves stored as float32 under
-        ``node::leaf::bf16``, ``srk`` as uint32. A blob from either package
-        loads in the other."""
+        ``node::leaf::bf16``, ``srk`` as uint32. A nested state (the G.722
+        codec's bands) flattens to ``node::band::leaf``, which the JAX
+        package's ``save_state`` cannot write (it takes flat states only).
+        A flat blob from either package loads in the other."""
         self.sync()
         flat = {}
-        for node, st in self.state.items():
-            for k, v in (st or {}).items():
-                key = f"{node}::{k}"
-                if v.dtype == torch.bfloat16:
+
+        def walk(prefix, tree):
+            for k, v in tree.items():
+                key = f"{prefix}::{k}"
+                if isinstance(v, dict):
+                    walk(key, v)
+                elif v.dtype == torch.bfloat16:
                     flat[key + "::bf16"] = v.detach().float().cpu().numpy()
                 elif k in _UINT32_LEAVES:
                     flat[key] = (v.detach().cpu().numpy() & 0xFFFFFFFF).astype(np.uint32)
                 else:
                     flat[key] = v.detach().cpu().numpy()
+        for node, st in self.state.items():
+            walk(node, st or {})
         buf = io.BytesIO()
         np.savez(buf, **flat)
         return buf.getvalue()
@@ -476,22 +489,35 @@ class Ticker(_PacedBeat):
         tree: Dict[str, dict] = {}
         for key in data.files:
             parts = key.split("::")
+            bf16 = len(parts) > 2 and parts[-1] == "bf16"
+            if bf16:
+                parts = parts[:-1]
             a = data[key]
             if a.dtype == np.uint32:
                 a = a.astype(np.int64)
-            tree.setdefault(parts[0], {})[parts[1]] = (a, len(parts) == 3 and parts[2] == "bf16")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = (a, bf16)
+
+        def restore(saved, old, device):
+            # each leaf back on its device (host leaves: module docstring)
+            out = {}
+            for k, v in saved.items():
+                prev = old.get(k) if old else None
+                if isinstance(v, dict):
+                    out[k] = restore(v, prev, device)
+                else:
+                    a, bf16 = v
+                    out[k] = torch.from_numpy(a).to(
+                        prev.device if prev is not None else device,
+                        torch.bfloat16 if bf16 else None)
+            return out
 
         def apply(tk):
-            new = {}
-            for node, st in tk.state.items():
-                if st is None or node not in tree:
-                    new[node] = st
-                    continue
-                # each leaf back on its device (host leaves: module docstring)
-                new[node] = {k: torch.from_numpy(a).to(st[k].device if k in st else tk.device,
-                                                       torch.bfloat16 if bf16 else None)
-                             for k, (a, bf16) in tree[node].items()}
-            tk.state = new
+            tk.state = {node: (st if st is None or node not in tree
+                               else restore(tree[node], st, tk.device))
+                        for node, st in tk.state.items()}
         self.mutate(apply)
 
 

@@ -19,13 +19,18 @@ jitter buffers -> payload block + lost mask) or the native batched edge
 (``enable_batch_edge``: one recvmmsg drain and jitter-ring playout, one
 sendmmsg for all legs).
 
-Covered: the device byte codecs ``ulaw``, ``alaw`` and ``l16`` on both
-paths; directions, mic and speaker gains, ``mute_rtp``, ptime, recording
-(``record_mixed`` too), ``local_play`` / ``play_announcement``, RFC 4733
-DTMF send and receive, ``conference=True``, DTX with RFC 3389 CN, and a
-duck-typed sound card (``pull(tick, B)`` / ``push(tick, block)``).
-``device=None`` runs on ``cuda`` (raising without a card); tests pass
-``"cpu"``.
+Covered: the device codecs ``ulaw``, ``alaw``, ``l16`` and ``g722`` (16 kHz
+audio on an 8 kHz RTP clock, one code byte per slot, its recurrence in one
+kernel launch a tick) on both paths; SRTP per leg (``enable_srtp``,
+``enable_double_srtp`` with EKT) and on the batch edge (``srtp_keys``),
+with encryption-mandatory legs; RTCP (SR/RR + SDES every interval, BYE on
+``stop``), ``iterate`` and the QoS controllers (bitrate controller,
+quality indicator, bandwidth controller, TMMBR/REMB caps); directions, mic
+and speaker gains, ``mute_rtp``, ptime, recording (``record_mixed`` too),
+``local_play`` / ``play_announcement``, RFC 4733 DTMF send and receive,
+``conference=True``, DTX with RFC 3389 CN, and a duck-typed sound card
+(``pull(tick, B)`` / ``push(tick, block)``). ``device=None`` runs on
+``cuda`` (raising without a card); tests pass ``"cpu"``.
 
 Per-tick writes go into tensors the ticker already holds, on its
 stream: the PLC ``lost`` mask (``Ticker.write_param`` into the PLC's
@@ -42,11 +47,8 @@ GSO on unconditionally, which drops every packet under gVisor).
 
 Waiting, each raising ``NotImplementedError`` that names its wait: host
 codecs (opus, gsm, g729, speex, bv16, aac) wait for ``ops/host_codecs``;
-``g722`` and ``g726`` for their ops; SRTP (per leg and on the batch edge)
-for the key derivation without ``cryptography`` (ROADMAP.md Queue 1);
-Baudot for ``ops/baudot``; the video link and A/V recording for the video
-stream; RTCP, ``iterate`` and the QoS controllers for ``net/rtcp.py``,
-``net/bwe.py`` and ``models/qos.py``.
+``g726_32`` for its op; Baudot for ``ops/baudot``; the video link and A/V
+recording for the video stream.
 """
 from __future__ import annotations
 
@@ -59,7 +61,6 @@ import torch
 from mediastreamer2_tpu_torch.core.block import Format, tick_samples
 from mediastreamer2_tpu_torch.core.graph import GraphBuilder
 from mediastreamer2_tpu_torch.core.ticker import Ticker
-from mediastreamer2_tpu_torch.native import SRTP_NOT_PORTED
 from mediastreamer2_tpu_torch.net.jitter import JBParams, JitterBuffer
 from mediastreamer2_tpu_torch.net.rtp import RtpSession, Transport
 
@@ -68,21 +69,21 @@ PAYLOAD_TYPES = {"ulaw": 0, "alaw": 8, "l16": 11, "gsm": 3, "opus": 96,
                  "g722": 9, "g726_32": 97, "g729": 18, "aac": 98,
                  "bv16": 107, "speex": 110}
 CN_PT = 13   # RFC 3389 comfort noise
-CODEC_BYTES_PER_SAMPLE = {"ulaw": 1, "alaw": 1, "l16": 2}
-DEVICE_CODECS = ("ulaw", "alaw", "l16")
+CODEC_BYTES_PER_SAMPLE = {"ulaw": 1, "alaw": 1, "l16": 2, "g722": 1}
+# RFC 3551 quirk: G.722 runs 16 kHz audio on an 8 kHz RTP clock (4.5.2);
+# its payload and timestamps advance at half the sample rate (msg722.c:169)
+RTP_CLOCK = {"g722": 8000}
+DEVICE_CODECS = ("ulaw", "alaw", "l16", "g722")
 HOST_CODECS = ("opus", "gsm", "g729", "bv16", "speex", "aac")
 # codec byte that decodes to digital silence (RFC 3551 silence codes)
 SILENCE_CODE = {"ulaw": 0xFF, "alaw": 0xD5}
-QOS_NOT_PORTED = ("iterate, RTCP and the QoS controllers wait for net/rtcp.py, "
-                  "net/bwe.py and models/qos.py, not ported to "
-                  "mediastreamer2_tpu_torch yet")
 
 
 def _codec_wait(codec: str) -> str:
     if codec in HOST_CODECS:
         return (f"codec {codec!r}: host codecs wait for ops/host_codecs, not ported "
                 f"to mediastreamer2_tpu_torch yet")
-    if codec in ("g722", "g726_32"):
+    if codec == "g726_32":
         return f"codec {codec!r} waits for its op, not ported to mediastreamer2_tpu_torch yet"
     return f"unknown codec {codec!r}"
 
@@ -133,7 +134,7 @@ class AudioStreamBatch:
         self.rate = rate
         self.channels = channels
         self.S = tick_samples(rate) * channels
-        self.rtp_clock = rate
+        self.rtp_clock = RTP_CLOCK.get(codec, rate)
         self.S_rtp = tick_samples(self.rtp_clock)
         self.features = features or AudioStreamFeatures()
         ft = self.features
@@ -257,6 +258,12 @@ class AudioStreamBatch:
         self._max_ptime_ms = [100] * batch
         self._tx_tick_accum: List[list] = [[] for _ in range(batch)]
         self._rx_tick_fifo: List[list] = [[] for _ in range(batch)]
+        self._srtp_info: Dict[int, tuple] = {}    # leg -> (suite, key source)
+        self.bitrate_caps: Dict[int, int] = {}    # leg -> TMMBR/REMB cap, bps
+        self.on_tmmbr = None                      # cb(leg, bps)
+        self._brc: Dict[int, object] = {}         # leg -> BitrateController
+        self._qi: Dict[int, object] = {}          # leg -> QualityIndicator
+        self._bwc: Dict[int, object] = {}         # leg -> BandwidthController
 
     # ------------------------------------------------------------------
     def set_transport(self, leg: int, transport: Transport):
@@ -326,16 +333,61 @@ class AudioStreamBatch:
 
     save_av_recording = link_video
 
-    def enable_srtp(self, leg: int, *args, **kwargs):
-        raise NotImplementedError(SRTP_NOT_PORTED)
+    def enable_srtp(self, leg: int, tx_key: bytes, tx_salt: bytes,
+                    rx_key: bytes, rx_salt: bytes, suite: str = None,
+                    key_source: str = "sdes"):
+        """media_stream_enable_srtp: wrap the leg's transport in SRTP, and
+        its RTCP in SRTCP with the same keys (ms_srtp.cpp:1004-1019): a leg
+        that negotiated SRTP never emits plaintext SR/RR. On a leg already
+        encrypted, the contexts are swapped (a key change keeps one layer)."""
+        from mediastreamer2_tpu_torch.net.srtp import (AES_CM_128_HMAC_SHA1_80, SrtcpContext,
+                                                       SrtpContext, SrtpTransport)
+        sess = self.sessions[leg]
+        if sess is None:
+            raise RuntimeError("set_transport first")
+        suite = suite or AES_CM_128_HMAC_SHA1_80
+        ctxs = dict(tx=SrtpContext(tx_key, tx_salt, suite), rx=SrtpContext(rx_key, rx_salt, suite),
+                    tx_rtcp=SrtcpContext(tx_key, tx_salt, suite),
+                    rx_rtcp=SrtcpContext(rx_key, rx_salt, suite))
+        self._srtp_info[leg] = (suite, key_source)
+        if isinstance(sess.transport, SrtpTransport):
+            for k, v in ctxs.items():
+                setattr(sess.transport, k, v)
+            return
+        sess.transport = SrtpTransport(sess.transport, **ctxs)
 
-    enable_double_srtp = enable_srtp
+    def enable_double_srtp(self, leg: int, inner: tuple, outer: tuple,
+                           suite: str = None, ekt_key: bytes = None, ekt_spi: int = 0):
+        """Inner and outer SRTP on one leg (ms_srtp.cpp's double encryption);
+        ``inner`` / ``outer`` are (tx_key, tx_salt, rx_key, rx_salt). With
+        ``ekt_key``, RFC 8870 tags carry the inner key between the layers
+        for relayed conferences."""
+        from mediastreamer2_tpu_torch.net.srtp import (AES_CM_128_HMAC_SHA1_80, EktTransport,
+                                                       SrtcpContext, SrtpContext, SrtpTransport)
+        sess = self.sessions[leg]
+        if sess is None:
+            raise RuntimeError("set_transport first")
+        suite = suite or AES_CM_128_HMAC_SHA1_80
+        otk, ots, ork, ors = outer
+        itk, its, irk, irs = inner
+        t = SrtpTransport(sess.transport,
+                          tx=SrtpContext(otk, ots, suite), rx=SrtpContext(ork, ors, suite),
+                          tx_rtcp=SrtcpContext(otk, ots, suite),
+                          rx_rtcp=SrtcpContext(ork, ors, suite))
+        if ekt_key is not None:
+            t = EktTransport(t, ekt_key=ekt_key, spi=ekt_spi, send_master_key=itk)
+        sess.transport = SrtpTransport(t, tx=SrtpContext(itk, its, suite),
+                                       rx=SrtpContext(irk, irs, suite))
+        self._srtp_info[leg] = (suite, "sdes-double")
 
     def get_srtp_info(self, leg: int):
-        return None            # no leg is encrypted: SRTP is not ported
+        """(crypto suite, key source), or None when the leg is not
+        encrypted (media_stream_get_srtp_crypto_suite / _key_source)."""
+        return self._srtp_info.get(leg)
 
     def secured(self, leg: int) -> bool:
-        return False
+        """media_stream_secured."""
+        return leg in self._srtp_info
 
     def reclaim_sessions(self) -> List[Optional[RtpSession]]:
         """Detach the legs' RtpSessions for a replacement stream
@@ -353,8 +405,9 @@ class AudioStreamBatch:
         self.sessions[leg] = session
 
     def set_encryption_mandatory(self, leg: int, yesno: bool = True):
-        """While this leg's transport is not SRTP, media is dropped instead
-        of sent in clear, and inbound plaintext is discarded."""
+        """While this leg's transport is not SRTP, media and RTCP are
+        dropped instead of sent in clear, and inbound plaintext is
+        discarded (ms_srtp.cpp:1576)."""
         sess = self.sessions[leg]
         if sess is None:
             raise RuntimeError("set_transport first")
@@ -381,12 +434,17 @@ class AudioStreamBatch:
         """Replace the per-leg RTP path with the native batched edge: one
         send call for all legs (UDP GSO where the kernel takes it, else
         sendmmsg), one recvmmsg drain + jitter-ring playout per tick. Legs
-        transmit SSRC ssrc_base+i and expect the same SSRCs inbound."""
+        transmit SSRC ssrc_base+i and expect the same SSRCs inbound.
+
+        srtp_keys: per-leg [(master_key, master_salt), ...]; SRTP
+        (``srtp_suite``) then runs inline in the edge, protect on send and
+        authenticate + decrypt before the jitter ring, and ``secured``
+        reports those legs. A key the edge refuses raises."""
         from mediastreamer2_tpu_torch.native import (BatchRtpRx, BatchRtpTx,
                                                      udp_gso_supported)
         from mediastreamer2_tpu_torch.net.jitter import BatchEdgeJitterController
-        if srtp_keys is not None:
-            raise NotImplementedError(SRTP_NOT_PORTED)
+        if srtp_keys is not None and len(srtp_keys) != self.batch:
+            raise ValueError(f"srtp_keys: {len(srtp_keys)} legs, expected {self.batch}")
         psz = self.S_rtp * CODEC_BYTES_PER_SAMPLE[self.codec]
         self._edge_tx = BatchRtpTx(tx_sock, self.batch, psz)
         self._edge_rx = BatchRtpRx(self.batch, psz, ring_depth=64)
@@ -396,6 +454,11 @@ class AudioStreamBatch:
                                  pt=PAYLOAD_TYPES[self.codec])
             self._edge_rx.map_ssrc(ssrc_base + i, i)
             self._edge_rx.set_prefill(i, prefill)
+            if srtp_keys is not None:
+                mk, ms = srtp_keys[i]
+                self._edge_tx.set_srtp(i, mk, ms, srtp_suite)
+                self._edge_rx.set_srtp(i, mk, ms, srtp_suite)
+                self._srtp_info[i] = (srtp_suite, "sdes")
         self.gso = udp_gso_supported()
         if self.gso:
             self._edge_tx.enable_gso(remote)
@@ -555,6 +618,10 @@ class AudioStreamBatch:
         self.ticker.run(n_ticks)
 
     def stop(self):
+        # RTCP BYE per leg on teardown (rtp_session uninit)
+        for sess in self.sessions:
+            if sess is not None and sess.rtcp is not None:
+                sess.rtcp.send_bye(sess.transport)
         self.ticker.stop()
 
     # -- RFC 4733 DTMF over RTP -----------------------------------------
@@ -615,13 +682,72 @@ class AudioStreamBatch:
         self.ticker.mutate(do_load)
 
     def enable_rtcp(self, interval_s: float = 5.0):
-        raise NotImplementedError(QOS_NOT_PORTED)
+        """rtcp-mux SR/RR + SDES on every leg with a session, every
+        ``interval_s`` (oRTP's RTCP scheduler; emitted from ``iterate``)."""
+        for sess in self.sessions:
+            if sess is not None and sess.rtcp is None:
+                sess.attach_rtcp(interval_s)
+
+    def attach_bitrate_controller(self, leg: int, controller):
+        """audio_stream_enable_adaptive_bitrate_control: ``controller``
+        (``models/qos.BitrateController``) is fed each remote report."""
+        self._brc[leg] = controller
+
+    def attach_quality_indicator(self, leg: int, qi):
+        self._qi[leg] = qi
+
+    def attach_bandwidth_controller(self, leg: int, bc):
+        """ms_bandwidth_controller_add_stream: the leg's packet-cluster
+        bandwidth estimator feeds ``bc`` each ``iterate()`` (enabled here
+        if it was not)."""
+        self._bwc[leg] = bc
+        sess = self.sessions[leg]
+        if sess is not None and sess.abe is None:
+            sess.enable_audio_bandwidth_estimator()
 
     def iterate(self):
-        raise NotImplementedError(QOS_NOT_PORTED)
+        """media_stream_iterate (src/voip/mediastream.c:542), the app
+        thread's pump: events, the batch edge's playout depth, RTCP
+        emission, and the QoS reaction to remote reports and feedback.
+        Returns the number of events handled."""
+        from mediastreamer2_tpu_torch.models.qos import QosStats
+        n = self.ticker.event_queue.pump()
+        if getattr(self, "_edge_jitter_ctrl", None) is not None:
+            self._edge_jitter_ctrl.control()
+        for leg, bc in self._bwc.items():
+            sess = self.sessions[leg]
+            if sess is None:
+                continue
+            if sess.abe is not None and sess.abe.measurements:
+                bc.update_estimate(sess.abe.available_bw_bps(), kind="audio")
+            if sess.vbe is not None and sess.vbe.measurements:
+                bc.update_estimate(sess.vbe.available_bw_bps(), kind="video")
+        for leg, sess in enumerate(self.sessions):
+            if sess is None or sess.rtcp is None:
+                continue
+            sess.rtcp.maybe_emit(sess.transport)
+            if sess.rtcp.remote_reports:
+                rb = sess.rtcp.remote_reports[-1]
+                stats = QosStats(loss_rate=rb.fraction_lost / 256.0,
+                                 rtt_ms=sess.rtcp.last_rtt_ms or 0.0)
+                for ctl in (self._brc.get(leg), self._qi.get(leg)):
+                    if ctl is not None:
+                        ctl.update(stats)
+                sess.rtcp.remote_reports.clear()
+            # an inbound TMMBR/REMB caps the sender's bitrate
+            # (media_stream_process_rtcp, mediastream.c:983-1078)
+            for fb in sess.rtcp.feedback_in:
+                if fb.kind in ("tmmbr", "remb"):
+                    self._apply_bitrate_cap(leg, fb.value)
+            sess.rtcp.feedback_in.clear()
+        return n
 
-    attach_bitrate_controller = attach_quality_indicator = \
-        attach_bandwidth_controller = enable_rtcp
+    def _apply_bitrate_cap(self, leg: int, bps: int):
+        """Record a TMMBR/REMB cap and tell ``on_tmmbr``. The device codecs
+        have fixed rates: only the host codecs (not ported) retarget."""
+        self.bitrate_caps[leg] = bps
+        if self.on_tmmbr is not None:
+            self.on_tmmbr(leg, bps)
 
     # -- observability ------------------------------------------------------
     def get_stats(self, leg: int):

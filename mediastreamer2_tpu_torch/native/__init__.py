@@ -1,23 +1,28 @@
 """The batched native RTP edge (port of ``mediastreamer2_tpu/native``'s
-``BatchRtpTx`` / ``BatchRtpRx`` bindings).
+``BatchRtpTx`` / ``BatchRtpRx`` bindings) and the port's AES.
 
-``rtp_edge.cpp`` and ``aesni_crypto.h`` are copies of the JAX package's
-sources: header pack + sendmmsg, recvmmsg drain + jitter-ring insert, and
-per-tick playout, three C calls per tick for N legs. At first use g++
-compiles them into ``mediastreamer2_tpu_torch/_build/`` (named by a hash of
-the sources, the flags and the CPU's features; nothing is built when this
-module is imported) and
-``ctypes`` loads the library.
+``rtp_edge.cpp`` and ``aesni_crypto.h`` started as copies of the JAX
+package's sources: header pack + sendmmsg, recvmmsg drain + jitter-ring
+insert, and per-tick playout, three C calls per tick for N legs, with
+per-leg SRTP inline. At first use g++ compiles them into
+``mediastreamer2_tpu_torch/_build/`` (named by a hash of the sources, the
+flags and the CPU's features; nothing is built when this module is
+imported) and ``ctypes`` loads the library.
 
 Differences from the JAX package:
 
+* the port's ``rtp_edge.cpp`` adds two C exports, ``ms2_aes_ecb`` and
+  ``ms2_aes_gcm``: one-shot AES-ECB (both ways) and AEAD-GCM seal/open over
+  the crypto layer ``SrtpLeg`` already uses (AES-NI/PCLMUL when the build
+  has them, libcrypto's EVP otherwise). They give ``net/srtp.py`` its AES
+  without the ``cryptography`` package, which the machine with the card
+  does not have: the key derivation, the AES-CM keystream, the EKT key wrap
+  and GCM. ``aesni_crypto.h`` is unchanged;
 * no silent fallback: a failed build raises with g++'s output (the JAX
   package returns None and its callers skip). ``-O3 -march=native`` is
   retried as ``-O2`` on a g++ that rejects it;
-* SRTP is not ported: its key derivation needs the ``cryptography``
-  package, which the machine with the card does not have, so ``set_srtp``
-  raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1, "SRTP without
-  cryptography");
+* ``set_srtp`` raises on a suite or key the edge refuses (a leg is never
+  sent in plaintext); the session keys come from the port's ``derive_key``;
 * ``NativeIoPump`` (``io_pump.cpp``) is not on the port's path and is not
   ported yet.
 """
@@ -40,9 +45,6 @@ _DIR = Path(__file__).resolve().parent
 _SOURCES = (_DIR / "rtp_edge.cpp", _DIR / "aesni_crypto.h")
 BUILD_DIR = _DIR.parent / "_build"
 _FLAG_SETS = (("-O3", "-march=native"), ("-O2",))
-SRTP_NOT_PORTED = ("SRTP is not ported to mediastreamer2_tpu_torch: its key "
-                   "derivation needs the 'cryptography' package (ROADMAP.md, "
-                   "Queue 1, 'SRTP without cryptography')")
 
 _UDP_SEGMENT = 103          # linux/udp.h
 _GSO_PROBE_SEG = 12
@@ -117,6 +119,15 @@ def _load():
             lib.ms2_rtprx_poll.argtypes = [vp]
             lib.ms2_rtprx_read_tick.argtypes = [vp, vp, vp]
             lib.ms2_rtprx_stats.argtypes = [vp, i, u64p, u64p, u64p, u64p]
+            srtp_args = [vp, i, ctypes.c_char_p, i, ctypes.c_char_p, ctypes.c_char_p, i, i]
+            lib.ms2_rtptx_set_srtp.argtypes = srtp_args
+            lib.ms2_rtprx_set_srtp.argtypes = srtp_args
+            for fn in (lib.ms2_rtprx_auth_failures, lib.ms2_rtprx_replay_drops):
+                fn.argtypes = [vp, i]
+                fn.restype = ctypes.c_uint64
+            lib.ms2_aes_ecb.argtypes = [ctypes.c_char_p, i, i, ctypes.c_char_p, vp, i]
+            lib.ms2_aes_gcm.argtypes = [ctypes.c_char_p, i, i, ctypes.c_char_p,
+                                        ctypes.c_char_p, i, ctypes.c_char_p, vp, i, vp]
             _lib = lib
     return _lib
 
@@ -138,6 +149,67 @@ def udp_gso_supported() -> bool:
                 return False
             raise
     return True
+
+
+def hw_crypto() -> bool:
+    """True when the edge's library carries the AES-NI/SHA-NI/PCLMUL path
+    (``aesni_crypto.h``), False when its AES is libcrypto's EVP."""
+    return bool(_load().ms2_rtp_hw_crypto())
+
+
+def aes_ecb(key: bytes, data: bytes, decrypt: bool = False) -> bytes:
+    """AES-128/256 over whole 16-byte blocks, each on its own (the CM
+    keystream's counter blocks, the key wrap)."""
+    if len(data) % 16:
+        raise ValueError(f"aes_ecb: {len(data)} bytes is not whole blocks")
+    out = ctypes.create_string_buffer(len(data))
+    rc = _load().ms2_aes_ecb(key, len(key), int(decrypt), data, out, len(data) // 16)
+    if rc != 0:
+        raise RuntimeError(f"aes_ecb failed ({rc}): bad key length or no AES backend")
+    return out.raw
+
+
+def aes_gcm(key: bytes, iv: bytes, data: bytes, aad: bytes, tag: bytes = None):
+    """AEAD-GCM with a 12-byte IV. Seal (``tag`` None): returns (ciphertext,
+    16-byte tag). Open: returns the plaintext, or None when the tag does
+    not authenticate."""
+    if len(iv) != 12:
+        raise ValueError("aes_gcm: the IV is 12 bytes")
+    out = ctypes.create_string_buffer(len(data) or 1)
+    tbuf = ctypes.create_string_buffer(tag if tag is not None else bytes(16), 16)
+    rc = _load().ms2_aes_gcm(key, len(key), int(tag is None), iv, aad, len(aad), data,
+                             out, len(data), tbuf)
+    if rc < 0:
+        raise RuntimeError(f"aes_gcm failed ({rc}): bad key length or no AES backend")
+    if tag is None:
+        return out.raw[:len(data)], tbuf.raw
+    return out.raw[:len(data)] if rc == 0 else None
+
+
+def _srtp_session_keys(master_key: bytes, master_salt: bytes, suite: str):
+    """(k_e, k_s, k_a, tag_len, gcm) of one SRTP direction, by the port's
+    RFC 3711 KDF (``net/srtp.derive_key``; RFC 7714 §11 pads 96-bit GCM
+    master salts inside it). Raises on an unknown suite or a key or salt of
+    the wrong length."""
+    from mediastreamer2_tpu_torch.net.srtp import (LABEL_RTP_AUTH, LABEL_RTP_ENCRYPTION,
+                                                   LABEL_RTP_SALT, SUITES, derive_key)
+    if suite not in SUITES:
+        raise ValueError(f"unknown SRTP suite {suite!r}")
+    kind, klen, slen, tag = SUITES[suite]
+    if len(master_key) != klen or len(master_salt) != slen:
+        raise ValueError(f"{suite}: need a {klen}-byte key and a {slen}-byte salt")
+    k_e = derive_key(master_key, master_salt, LABEL_RTP_ENCRYPTION, klen)
+    if kind == "gcm":
+        return k_e, derive_key(master_key, master_salt, LABEL_RTP_SALT, 12), bytes(20), tag, 1
+    return (k_e, derive_key(master_key, master_salt, LABEL_RTP_SALT, 14),
+            derive_key(master_key, master_salt, LABEL_RTP_AUTH, 20), tag, 0)
+
+
+def _set_srtp(fn, handle, leg, master_key, master_salt, suite):
+    k_e, k_s, k_a, tag, gcm = _srtp_session_keys(master_key, master_salt, suite)
+    if not fn(handle, leg, k_e, len(k_e), k_s, k_a, tag, gcm):
+        raise RuntimeError(f"leg {leg}: the edge refused SRTP suite {suite} (no AES "
+                           f"backend, or a payload too large for its counter scratch)")
 
 
 def rtp_edge_available() -> bool:
@@ -167,7 +239,10 @@ class BatchRtpTx:
 
     def set_srtp(self, leg: int, master_key: bytes, master_salt: bytes,
                  suite: str = "AES_CM_128_HMAC_SHA1_80"):
-        raise NotImplementedError(SRTP_NOT_PORTED)
+        """Protect the leg's packets inline (AES-CM + HMAC-SHA1 or AEAD-GCM)
+        with session keys derived from the master key and salt. Raises
+        when the edge refuses them."""
+        _set_srtp(self._lib.ms2_rtptx_set_srtp, self._h, leg, master_key, master_salt, suite)
 
     def set_threads(self, t: int):
         """Shard pack + send over ``t`` native worker threads (legs in
@@ -240,7 +315,19 @@ class BatchRtpRx:
 
     def set_srtp(self, leg: int, master_key: bytes, master_salt: bytes,
                  suite: str = "AES_CM_128_HMAC_SHA1_80"):
-        raise NotImplementedError(SRTP_NOT_PORTED)
+        """Authenticate, check for replay and decrypt the leg's packets
+        before the jitter-ring insert. Raises when the edge refuses the
+        keys."""
+        _set_srtp(self._lib.ms2_rtprx_set_srtp, self._h, leg, master_key, master_salt, suite)
+
+    def auth_failures(self, leg: int) -> int:
+        """Packets of the leg that failed authentication (dropped)."""
+        return self._lib.ms2_rtprx_auth_failures(self._h, leg)
+
+    def replay_drops(self, leg: int) -> int:
+        """Authenticated packets of the leg dropped as replays (RFC 3711
+        §3.3.2, a 64-packet sliding window)."""
+        return self._lib.ms2_rtprx_replay_drops(self._h, leg)
 
     def set_threads(self, t: int):
         """Shard insert and playout over ``t`` native worker threads

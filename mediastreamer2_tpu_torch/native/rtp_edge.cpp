@@ -486,6 +486,146 @@ extern "C" int ms2_rtp_hw_crypto() {
 #endif
 }
 
+// ---------------------------------------------------------------------------
+// One-shot AES for the Python SRTP layer (net/srtp.py): the key
+// derivation, the AES-CM keystream (ECB over counter blocks), the EKT key
+// wrap (ECB both ways) and AEAD-GCM seal/open, each keyed per call. The
+// same two backends as SrtpLeg: AES-NI/PCLMUL when the build has
+// MS2_HW_CRYPTO, else libcrypto's EVP.
+// ---------------------------------------------------------------------------
+#if defined(MS2_HW_CRYPTO)
+void aes_dec_blocks_hw(const uint8_t* key, int key_len, const uint8_t* in,
+                       uint8_t* out, int n) {
+  ms2hw::AesKey k;
+  ms2hw::aes_expand(key, key_len, &k);
+  __m128i dk[15];                        // equivalent inverse cipher keys
+  dk[0] = k.rk[k.rounds];
+  for (int r = 1; r < k.rounds; r++) dk[r] = _mm_aesimc_si128(k.rk[k.rounds - r]);
+  dk[k.rounds] = k.rk[0];
+  for (int i = 0; i < n; i++) {
+    __m128i b = _mm_loadu_si128((const __m128i*)(in + 16 * i));
+    b = _mm_xor_si128(b, dk[0]);
+    for (int r = 1; r < k.rounds; r++) b = _mm_aesdec_si128(b, dk[r]);
+    _mm_storeu_si128((__m128i*)(out + 16 * i), _mm_aesdeclast_si128(b, dk[k.rounds]));
+  }
+}
+
+// GCM of any length (ms2hw::gcm_crypt stops at 64 blocks): counters from
+// inc32(J0) in chunks of 64 blocks, GHASH over each chunk in order.
+void gcm_hw(const uint8_t* key, int key_len, const uint8_t* iv,
+            const uint8_t* aad, int aad_len, const uint8_t* in, uint8_t* out,
+            int len, bool encrypt, uint8_t* tag) {
+  ms2hw::GcmKey g;
+  ms2hw::gcm_expand(key, key_len, &g);
+  uint8_t ctr[16 * 64], ks[16 * 64];
+  memcpy(ctr, iv, 12);
+  ctr[12] = ctr[13] = ctr[14] = 0;
+  ctr[15] = 1;
+  uint8_t ek_j0[16];
+  ms2hw::aes_enc_blocks(g.aes, ctr, ek_j0, 1);
+  __m128i y = ms2hw::ghash_update(_mm_setzero_si128(), g.h, aad, aad_len);
+  uint32_t c = 2;
+  for (int off = 0; off < len; off += 16 * 64) {
+    const int n = len - off < 16 * 64 ? len - off : 16 * 64;
+    const int nb = (n + 15) / 16;
+    for (int b = 0; b < nb; b++, c++) {
+      memcpy(ctr + 16 * b, iv, 12);
+      ctr[16 * b + 12] = uint8_t(c >> 24);
+      ctr[16 * b + 13] = uint8_t(c >> 16);
+      ctr[16 * b + 14] = uint8_t(c >> 8);
+      ctr[16 * b + 15] = uint8_t(c);
+    }
+    ms2hw::aes_enc_blocks(g.aes, ctr, ks, nb);
+    if (!encrypt) y = ms2hw::ghash_update(y, g.h, in + off, n);
+    for (int i = 0; i < n; i++) out[off + i] = in[off + i] ^ ks[i];
+    if (encrypt) y = ms2hw::ghash_update(y, g.h, out + off, n);
+  }
+  uint8_t lens[16];
+  const uint64_t abits = uint64_t(aad_len) * 8, cbits = uint64_t(len) * 8;
+  for (int i = 0; i < 8; i++) {
+    lens[i] = uint8_t(abits >> (56 - 8 * i));
+    lens[8 + i] = uint8_t(cbits >> (56 - 8 * i));
+  }
+  y = ms2hw::ghash_update(y, g.h, lens, 16);
+  _mm_storeu_si128((__m128i*)tag, _mm_xor_si128(ms2hw::bswap16_(y),
+                                                 _mm_loadu_si128((const __m128i*)ek_j0)));
+}
+#endif
+
+// 0 = done; -1 = no AES backend; -2 = EVP refused.
+int aes_ecb_oneshot(const uint8_t* key, int key_len, int decrypt,
+                    const uint8_t* in, uint8_t* out, int nblocks) {
+#if defined(MS2_HW_CRYPTO)
+  if (decrypt) {
+    aes_dec_blocks_hw(key, key_len, in, out, nblocks);
+  } else {
+    ms2hw::AesKey k;
+    ms2hw::aes_expand(key, key_len, &k);
+    ms2hw::aes_enc_blocks(k, in, out, nblocks);
+  }
+  return 0;
+#else
+  const CryptoApi& c = crypto_api();
+  if (!c.ok) return -1;
+  EVP_CIPHER_CTX_* ctx = c.ctx_new();
+  if (!ctx) return -2;
+  const EVP_CIPHER_* ciph = key_len == 16 ? c.aes128ecb() : c.aes256ecb();
+  int outl = 0, finl = 0, ok;
+  if (decrypt) {
+    ok = c.dec_init(ctx, ciph, nullptr, key, nullptr) == 1 && c.set_padding(ctx, 0) == 1 &&
+         c.dec_update(ctx, out, &outl, in, 16 * nblocks) == 1 &&
+         c.dec_final(ctx, out + outl, &finl) == 1;
+  } else {
+    ok = c.enc_init(ctx, ciph, nullptr, key, nullptr) == 1 && c.set_padding(ctx, 0) == 1 &&
+         c.enc_update(ctx, out, &outl, in, 16 * nblocks) == 1 &&
+         c.enc_final(ctx, out + outl, &finl) == 1;
+  }
+  c.ctx_free(ctx);
+  return ok && outl + finl == 16 * nblocks ? 0 : -2;
+#endif
+}
+
+// 0 = done (open: authentic); 1 = open: tag mismatch; -1 / -2 as above.
+int aes_gcm_oneshot(const uint8_t* key, int key_len, int encrypt,
+                    const uint8_t* iv, const uint8_t* aad, int aad_len,
+                    const uint8_t* in, uint8_t* out, int len, uint8_t* tag) {
+#if defined(MS2_HW_CRYPTO)
+  if (encrypt) {
+    gcm_hw(key, key_len, iv, aad, aad_len, in, out, len, true, tag);
+    return 0;
+  }
+  uint8_t want[16];
+  gcm_hw(key, key_len, iv, aad, aad_len, in, out, len, false, want);
+  return ms2hw::tag_eq(want, tag) ? 0 : 1;
+#else
+  const CryptoApi& c = crypto_api();
+  if (!c.ok) return -1;
+  EVP_CIPHER_CTX_* ctx = c.ctx_new();
+  if (!ctx) return -2;
+  const EVP_CIPHER_* ciph = key_len == 16 ? c.aes128gcm() : c.aes256gcm();
+  int outl = 0, finl = 0, rc;
+  uint8_t fin[16];
+  if (encrypt) {
+    const bool ok = c.enc_init(ctx, ciph, nullptr, key, iv) == 1 &&
+                    (aad_len == 0 || c.enc_update(ctx, nullptr, &outl, aad, aad_len) == 1) &&
+                    c.enc_update(ctx, out, &outl, in, len) == 1 &&
+                    c.enc_final(ctx, fin, &finl) == 1 &&
+                    c.ctx_ctrl(ctx, kCtrlGcmGetTag, 16, tag) == 1;
+    rc = ok ? 0 : -2;
+  } else {
+    uint8_t t[16];
+    memcpy(t, tag, 16);
+    const bool set = c.dec_init(ctx, ciph, nullptr, key, iv) == 1 &&
+                     c.ctx_ctrl(ctx, kCtrlGcmSetTag, 16, t) == 1 &&
+                     (aad_len == 0 || c.dec_update(ctx, nullptr, &outl, aad, aad_len) == 1) &&
+                     c.dec_update(ctx, out, &outl, in, len) == 1;
+    rc = !set ? -2 : (c.dec_final(ctx, fin, &finl) == 1 ? 0 : 1);
+  }
+  c.ctx_free(ctx);
+  return rc;
+#endif
+}
+
 struct TxLeg {
   sockaddr_in dest{};
   uint32_t ssrc = 0;
@@ -1238,6 +1378,22 @@ uint64_t ms2_rtprx_auth_failures(void* p, int leg) {
 }
 uint64_t ms2_rtprx_replay_drops(void* p, int leg) {
   return static_cast<RtpRx*>(p)->replay_drops(leg);
+}
+
+// One-shot AES for net/srtp.py (see aes_ecb_oneshot / aes_gcm_oneshot):
+// ECB over nblocks 16-byte blocks (decrypt = 1 runs the inverse cipher),
+// and AEAD-GCM with a 12-byte IV (encrypt = 1 writes out and tag; 0 checks
+// tag and writes the plaintext, to be discarded unless it returns 0).
+int ms2_aes_ecb(const uint8_t* key, int key_len, int decrypt, const uint8_t* in,
+                uint8_t* out, int nblocks) {
+  if ((key_len != 16 && key_len != 32) || nblocks < 0) return -3;
+  return aes_ecb_oneshot(key, key_len, decrypt, in, out, nblocks);
+}
+int ms2_aes_gcm(const uint8_t* key, int key_len, int encrypt, const uint8_t* iv,
+                const uint8_t* aad, int aad_len, const uint8_t* in, uint8_t* out,
+                int len, uint8_t* tag) {
+  if ((key_len != 16 && key_len != 32) || aad_len < 0 || len < 0) return -3;
+  return aes_gcm_oneshot(key, key_len, encrypt, iv, aad, aad_len, in, out, len, tag);
 }
 
 }  // extern "C"

@@ -10,11 +10,8 @@ Transports: real UDP sockets or an in-process loopback pair. A
 ``shape(now, data) -> [(deliver_at, data), ...]`` method; ``net/netsim.py``
 itself is not ported yet.
 
-Left out, each raising ``NotImplementedError`` that names its wait:
-``RtpSession.enable_video_bandwidth_estimator`` and
-``enable_audio_bandwidth_estimator`` wait for ``net/bwe.py``;
-``RtpSession.attach_rtcp`` waits for ``net/rtcp.py``; ``UdpTransport``'s
-native epoll pump waits for ``native/io_pump.cpp``.
+Left out, raising ``NotImplementedError`` that names its wait:
+``UdpTransport``'s native epoll pump waits for ``native/io_pump.cpp``.
 """
 from __future__ import annotations
 
@@ -36,10 +33,6 @@ _HDR = struct.Struct("!BBHII")      # V/P/X/CC, M/PT, seq, timestamp, ssrc
 TELEPHONE_EVENT_PT = 101            # common dynamic PT for telephone-event
 DTMF_DIGITS = "0123456789*#ABCD"    # event codes 0..15 (RFC 4733 §3.2)
 DTMF_END_REDUNDANCY = 3             # end packet sent 3x (RFC 4733 §5)
-BWE_NOT_PORTED = ("the RTP bandwidth estimators wait for net/bwe.py, which is not "
-                  "ported to mediastreamer2_tpu_torch yet (ROADMAP.md Queue 1)")
-RTCP_NOT_PORTED = ("RTCP waits for net/rtcp.py, which is not ported to "
-                   "mediastreamer2_tpu_torch yet (ROADMAP.md Queue 1)")
 
 
 @dataclasses.dataclass
@@ -477,14 +470,21 @@ class RtpSession:
 
     def enable_video_bandwidth_estimator(self, params=None):
         """cf. rtp_session_enable_video_bandwidth_estimator."""
-        raise NotImplementedError(BWE_NOT_PORTED)
+        from mediastreamer2_tpu_torch.net.bwe import VideoBandwidthEstimator
+        self.vbe = VideoBandwidthEstimator(params)
+        return self.vbe
 
     def enable_audio_bandwidth_estimator(self, params=None):
         """cf. rtp_session_enable_audio_bandwidth_estimator — measures on
         the receive side AND arms the sender's duplicate machinery (clusters
         only flow once set_abe_duplicates(True), mirroring the reference
         where duplicates start when the sender is bitrate-capped)."""
-        raise NotImplementedError(BWE_NOT_PORTED)
+        from mediastreamer2_tpu_torch.net.bwe import (AudioBandwidthEstimator,
+                                                      BweParams)
+        p = params or BweParams()
+        self.abe = AudioBandwidthEstimator(p)
+        self._abe_dup_every = max(2, p.duplicate_every)
+        return self.abe
 
     def set_abe_duplicates(self, active: bool):
         self._abe_dup_active = bool(active)
@@ -799,4 +799,6 @@ class RtpSession:
 
     def attach_rtcp(self, interval_s: float = 5.0):
         """Enable rtcp-mux SR/RR on this session's transport."""
-        raise NotImplementedError(RTCP_NOT_PORTED)
+        from mediastreamer2_tpu_torch.net.rtcp import RtcpSession
+        self.rtcp = RtcpSession(self, interval_s=interval_s)
+        return self.rtcp

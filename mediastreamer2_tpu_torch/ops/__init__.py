@@ -6,6 +6,7 @@ from mediastreamer2_tpu_torch.ops import volume    # noqa: F401
 from mediastreamer2_tpu_torch.ops import mixer     # noqa: F401
 from mediastreamer2_tpu_torch.ops import aec       # noqa: F401
 from mediastreamer2_tpu_torch.ops import g711      # noqa: F401
+from mediastreamer2_tpu_torch.ops import g722      # noqa: F401
 from mediastreamer2_tpu_torch.ops import misc      # noqa: F401
 from mediastreamer2_tpu_torch.ops import plc       # noqa: F401
 from mediastreamer2_tpu_torch.ops import fileio    # noqa: F401

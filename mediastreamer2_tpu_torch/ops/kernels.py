@@ -1,22 +1,28 @@
-"""The conference leg's hand-written CUDA kernels: build, loader, wrappers,
-plain versions and launch counters (port of ``mediastreamer2_tpu/ops/pallas_kernels.py``).
+"""The hand-written CUDA kernels of the port: build, loader, wrappers, plain
+versions and launch counters.
 
-Four kernels, all in ``csrc/ms2_kernels.cu``, one for each function of the
-JAX package that reaches ``pl.pallas_call``:
+Four kernels in ``csrc/ms2_kernels.cu``, one for each function of the JAX
+package that reaches ``pl.pallas_call``
+(``mediastreamer2_tpu/ops/pallas_kernels.py``), and the G.722 codec's two in
+``csrc/g722_kernels.cu``, which replace a ``lax.scan`` (eager PyTorch would
+launch each code slot's integer operations one by one):
 
 ================  =======================================================
-wrapper           replaces (``mediastreamer2_tpu/ops/pallas_kernels.py``)
+wrapper           replaces
 ================  =======================================================
 fused_volume      ``fused_volume`` / ``_fused_volume_kernel`` (:38-84)
 mdf_apply         ``mdf_apply`` / ``_mdf_apply_kernel`` (:113-150)
 mdf_update        ``mdf_update`` / ``_mdf_update_kernel`` (:153-201)
 mdf_update_fused  ``mdf_update_fused`` / ``_mdf_update_fused_kernel`` (:227-310)
+g722_encode       ``g722_encode``, ``mediastreamer2_tpu/ops/g722.py:213``
+g722_decode       ``g722_decode``, ``mediastreamer2_tpu/ops/g722.py:221``
 ================  =======================================================
 
-Build: at first use, ``nvcc`` compiles the source for ``sm_90a`` into a
+Build: at first use, ``nvcc`` compiles each source for ``sm_90a`` into a
 shared library with a plain C interface under ``_build/``, named by a hash
-of the source and the flags, and ``ctypes`` loads it. Nothing is compiled or
-loaded when this module is imported.
+of the source and the flags (the sources build side by side), and
+``ctypes`` loads them. Nothing is compiled or loaded when this module is
+imported.
 
 Each wrapper takes tensors on one device. On a CPU tensor it runs its plain
 PyTorch version (``*_reference``), the version the CPU tests hold to the JAX
@@ -32,12 +38,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ms2_kernels.cu"
+SOURCES = (_PKG / "csrc" / "ms2_kernels.cu", _PKG / "csrc" / "g722_kernels.cu")
 BUILD_DIR = _PKG / "_build"
 MDF_MAX_P = 16          # partitions one mdf_apply thread holds (csrc MDF_MAX_P)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,38 +66,48 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
-def build() -> tuple:
-    """Compile the kernels unless a build of this exact source and these
-    flags exists. Returns (library path, nvcc's output; empty when the
-    library was already built)."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libms2_kernels_{key}.so"
+def _build_one(source: Path) -> tuple:
+    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{source.stem}_{key}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     log = res.stdout + res.stderr
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed on {source.name} ({res.returncode}):\n{log}")
     os.replace(tmp, out)
     return out, log
+
+
+def build() -> tuple:
+    """Compile each source unless a build of that exact source and these
+    flags exists, one nvcc per source, started together. Returns (library
+    paths, nvcc's output; empty for libraries already built)."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        done = list(pool.map(_build_one, SOURCES))
+    return tuple(p for p, _ in done), "".join(log for _, log in done)
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()[0]))
+        paths, _ = build()
+        main, g722 = (ctypes.CDLL(str(p)) for p in paths)
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.ms2_fused_volume.argtypes = [I] + [P] * 8 + [I, I, P]
-        lib.ms2_mdf_apply.argtypes = [I, I] + [P] * 12 + [I, I, I, P]
-        lib.ms2_mdf_update.argtypes = [I] + [P] * 15 + [I, I, I, P]
-        lib.ms2_mdf_update_fused.argtypes = [I, I] + [P] * 17 + [I, I, I, P]
-        for fn in (lib.ms2_fused_volume, lib.ms2_mdf_apply, lib.ms2_mdf_update,
-                   lib.ms2_mdf_update_fused):
+        main.ms2_fused_volume.argtypes = [I] + [P] * 8 + [I, I, P]
+        main.ms2_mdf_apply.argtypes = [I, I] + [P] * 12 + [I, I, I, P]
+        main.ms2_mdf_update.argtypes = [I] + [P] * 15 + [I, I, I, P]
+        main.ms2_mdf_update_fused.argtypes = [I, I] + [P] * 17 + [I, I, I, P]
+        g722.ms2_g722_encode.argtypes = [I, P, P, P, I, I, P]
+        g722.ms2_g722_decode.argtypes = [I, P, P, P, I, I, P]
+        fns = (main.ms2_fused_volume, main.ms2_mdf_apply, main.ms2_mdf_update,
+               main.ms2_mdf_update_fused, g722.ms2_g722_encode, g722.ms2_g722_decode)
+        for fn in fns:
             fn.restype = I
-        _lib = lib
+        _lib = types.SimpleNamespace(**{fn.__name__: fn for fn in fns})
     return _lib
 
 
@@ -123,7 +141,7 @@ _ptr = torch.Tensor.data_ptr
 
 
 def _wrappers():
-    return (fused_volume, mdf_apply, mdf_update, mdf_update_fused)
+    return (fused_volume, mdf_apply, mdf_update, mdf_update_fused, g722_encode, g722_decode)
 
 
 def launch_counts() -> dict:
@@ -402,3 +420,207 @@ def mdf_update_fused(cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i, Er, Ei,
 
 
 mdf_update_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# g722_encode / g722_decode
+# ---------------------------------------------------------------------------
+_BAND_KEYS = ("s", "sp", "sz", "r", "a", "p", "d", "b", "nb", "det")
+_I32 = torch.int32
+
+
+def g722_state_leaves(state) -> list:
+    """The 21 leaves of a ``g722_state`` tree in the kernels' order:
+    lo.{s, sp, sz, r, a, p, d, b, nb, det}, hi.{the same}, x."""
+    return [state[band][k] for band in ("lo", "hi") for k in _BAND_KEYS] + [state["x"]]
+
+
+def _g722_sat16(x):
+    return torch.clamp(x, -32768, 32767)
+
+
+# The plain versions carry both ADPCM bands in one set of tensors: every
+# leaf stacked as [B, 2, ...], the lower band at index 0 and the higher at
+# 1, so that block 4 and the log scale factor run once for both bands (the
+# slot's arithmetic is the same; half the operations to launch). Per-band
+# constants of _scalel (nb's clamp, the shift base) become [2] tensors, and
+# its WL / WH tables one table with the higher band's at offset 8.
+def _g722_scalel(z, il4, T):
+    """LOGSCL/LOGSCH + SCALEL/SCALEH (``g722.py:128-136``), both bands:
+    il4 [B, 2] -> z's nb and det, updated."""
+    nb = torch.minimum(torch.clamp(((z["nb"] * 127) >> 7) + T["wl_wh"][il4 + T["wl_off"]],
+                                   min=0), T["nb_max"])
+    v = T["ilb"][(nb >> 6) & 31]
+    wd2 = T["shift_base"] - (nb >> 11)
+    # both shifts by a count >= 0 (a negative count is not a shift)
+    wd3 = torch.where(wd2 < 0, v << torch.clamp(-wd2, min=0), v >> torch.clamp(wd2, min=0))
+    z["nb"], z["det"] = nb, wd3 << 2
+
+
+def _g722_block4(z, d):
+    """ITU G.722 block 4 (``g722.py:83-125``), both bands: the pole/zero
+    predictor's adaptation with the quantized differences d [B, 2] and the
+    next prediction."""
+    r, a, p, dd, b = z["r"], z["a"], z["p"], z["d"], z["b"]
+    r0 = _g722_sat16(z["s"] + d)                                 # RECONS
+    p0 = _g722_sat16(z["sz"] + d)                                # PARREC
+    sg0 = p0 >> 15
+    same1 = sg0 == (p[..., 1] >> 15)
+    # UPPOL2
+    wd1 = _g722_sat16(a[..., 1] << 2)
+    wd2 = torch.clamp(torch.where(same1, -wd1, wd1), max=32767)
+    wd3 = ((sg0 == (p[..., 2] >> 15)).to(_I32) * 256 - 128 + (wd2 >> 7)
+           + ((a[..., 2] * 32512) >> 15))
+    ap2 = torch.clamp(wd3, -12288, 12288)
+    # UPPOL1
+    ap1 = _g722_sat16(same1.to(_I32) * 384 - 192 + ((a[..., 1] * 32640) >> 15))
+    wd3 = _g722_sat16(15360 - ap2)
+    ap1 = torch.minimum(torch.maximum(ap1, -wd3), wd3)
+    # UPZERO
+    step = ((d != 0).to(_I32) * 128)[..., None]
+    wd2 = torch.where((dd[..., 1:7] >> 15) == (d >> 15)[..., None], step, -step)
+    bp = _g722_sat16(wd2 + ((b[..., 1:7] * 32640) >> 15))
+    # DELAYA
+    dd = torch.cat([d[..., None], d[..., None], dd[..., 1:6]], dim=-1)
+    b = torch.cat([b[..., :1], bp], dim=-1)
+    r2 = r[..., 1]
+    z.update(r=torch.stack([r0, r0, r2], dim=-1), p=torch.stack([p0, p0, p[..., 1]], dim=-1),
+             a=torch.stack([a[..., 0], ap1, ap2], dim=-1), d=dd, b=b)
+    # FILTEP
+    sp = _g722_sat16(((ap1 * _g722_sat16(r0 + r0)) >> 15) + ((ap2 * _g722_sat16(r2 + r2)) >> 15))
+    # FILTEZ (torch.sum of int32 would return int64: keep int32, as jnp.sum)
+    sz = _g722_sat16(((b[..., 1:7] * _g722_sat16(dd[..., 1:7] + dd[..., 1:7])) >> 15)
+                     .sum(dim=-1, dtype=_I32))
+    z.update(s=_g722_sat16(sp + sz), sp=sp, sz=sz)
+
+
+def _g722_stack(state):
+    return {k: torch.stack([state["lo"][k], state["hi"][k]], dim=1) for k in _BAND_KEYS}
+
+
+def _g722_store(state, z, x):
+    """Write the loop's final state into ``state``'s tensors, in place (as
+    the kernels do)."""
+    for k in _BAND_KEYS:
+        state["lo"][k].copy_(z[k][:, 0])
+        state["hi"][k].copy_(z[k][:, 1])
+    state["x"].copy_(x)
+
+
+def g722_encode_reference(pcm, state):
+    """Plain version: the 80-slot loop of ``_enc_step`` (``g722.py:139-178``)
+    in torch int32, the two bands stacked. pcm int32 [B, S] (S even) ->
+    codes int32 [B, S/2]; updates ``state``'s tensors in place."""
+    from mediastreamer2_tpu_torch.ops.g722 import g722_tables
+    T = g722_tables(pcm.device)
+    B, S = pcm.shape
+    z, x = _g722_stack(state), state["x"]
+    codes = []
+    for j in range(S // 2):
+        # QMF transmit: shift in the two new samples, split the bands
+        x = torch.cat([x[:, 2:], pcm[:, 2 * j:2 * j + 2]], dim=1)
+        sumodd = (x[:, 0::2] * T["qmf"]).sum(dim=1, dtype=_I32)
+        sumeven = (x[:, 1::2] * T["qmf_rev"]).sum(dim=1, dtype=_I32)
+        xband = torch.stack([sumeven + sumodd, sumeven - sumodd], dim=1) >> 13   # xlow, xhigh
+        e = _g722_sat16(xband - z["s"])                          # el, eh [B, 2]
+        wd = torch.where(e >= 0, e, -(e + 1))
+        det_lo, det_hi = z["det"][:, 0], z["det"][:, 1]
+        # lower band (6-bit)
+        th = (T["q6"][None, 1:30] * det_lo[:, None]) >> 12
+        i = 1 + (wd[:, :1] >= th).sum(dim=1)
+        ilow = torch.where(e[:, 0] < 0, T["iln"][i], T["ilp"][i])
+        ril = ilow >> 2
+        # higher band (2-bit)
+        mih = (wd[:, 1] >= ((564 * det_hi) >> 12)).long() + 1
+        ihigh = torch.where(e[:, 1] < 0, T["ihn"][mih], T["ihp"][mih])
+        d = torch.stack([(det_lo * T["qm4"][ril]) >> 15, (det_hi * T["qm2"][ihigh]) >> 15], dim=1)
+        _g722_scalel(z, torch.stack([T["rl42"][ril], T["rh2"][ihigh]], dim=1), T)
+        _g722_block4(z, d)
+        codes.append((ihigh << 6) | ilow)
+    _g722_store(state, z, x)
+    return torch.stack(codes, dim=1), state
+
+
+def g722_decode_reference(codes, state):
+    """Plain version: the loop of ``_dec_step`` (``g722.py:181-210``) in
+    torch int32. codes int32 [B, C] -> pcm int32 [B, 2C] (16 kHz), wrapped
+    to int16 as the reference's cast does; updates ``state`` in place."""
+    from mediastreamer2_tpu_torch.ops.g722 import g722_tables
+    T = g722_tables(codes.device)
+    B, C = codes.shape
+    z, x = _g722_stack(state), state["x"]
+    out = []
+    for j in range(C):
+        code = codes[:, j]
+        ilow = code & 0x3F
+        ihigh = (code >> 6) & 3
+        det_lo, s = z["det"][:, 0], z["s"]
+        # lower band: 6-bit inverse quantizer for the signal, 4-bit for the
+        # adaptation; higher band: 2-bit
+        rlow = torch.clamp(s[:, 0] + ((det_lo * T["qm6"][ilow]) >> 15), -16384, 16383)
+        d = (z["det"] * T["qm4_qm2"][torch.stack([ilow >> 2, ihigh], dim=1) + T["qm_off"]]) >> 15
+        rhigh = torch.clamp(d[:, 1] + s[:, 1], -16384, 16383)
+        _g722_scalel(z, torch.stack([T["rl42"][ilow >> 2], T["rh2"][ihigh]], dim=1), T)
+        _g722_block4(z, d)
+        # QMF receive: recombine into two 16 kHz samples
+        x = torch.cat([x[:, 2:], (rlow + rhigh)[:, None], (rlow - rhigh)[:, None]], dim=1)
+        xout2 = (x[:, 0::2] * T["qmf"]).sum(dim=1, dtype=_I32)
+        xout1 = (x[:, 1::2] * T["qmf_rev"]).sum(dim=1, dtype=_I32)
+        out.append(torch.stack([xout1 >> 12, xout2 >> 12], dim=1))
+    _g722_store(state, z, x)
+    pcm = torch.stack(out, dim=1).reshape(B, 2 * C)
+    return ((pcm + 32768) & 0xFFFF) - 32768, state
+
+
+_G722_LEAF_SHAPES = {"s": (), "sp": (), "sz": (), "r": (3,), "a": (3,), "p": (3,),
+                     "d": (7,), "b": (7,), "nb": (), "det": ()}
+
+
+def _g722_launch(fn, inp, out, state, dev, C):
+    B = inp.shape[0]
+    for band in ("lo", "hi"):
+        for k in _BAND_KEYS:
+            _check(f"{band}.{k}", state[band][k], torch.int32,
+                   (B,) + _G722_LEAF_SHAPES[k], dev)
+    _check("x", state["x"], torch.int32, (B, 24), dev)
+    ptrs = (ctypes.c_void_p * 21)(*map(_ptr, g722_state_leaves(state)))
+    _launch(fn, dev, _ptr(inp), _ptr(out), ptrs, B, C)
+
+
+def g722_encode(pcm, state):
+    """G.722 encode of one tick for every leg: pcm int32 [B, S] (16 kHz,
+    S even) -> codes int32 [B, S/2]. ``state`` (``ops/g722.g722_state``) is
+    updated in place and returned."""
+    if pcm.device.type == "cpu":
+        return g722_encode_reference(pcm, state)
+    dev = _cuda_device(pcm)
+    B, S = pcm.shape
+    if S % 2:
+        raise ValueError(f"g722_encode: {S} samples a tick, expected an even count")
+    _check("pcm", pcm, torch.int32, (B, S), dev)
+    if pcm.data_ptr() % 8:
+        raise ValueError("g722_encode: pcm must be 8-byte aligned (read as sample pairs)")
+    codes = torch.empty((B, S // 2), dtype=torch.int32, device=dev)
+    _g722_launch(_load().ms2_g722_encode, pcm, codes, state, dev, S // 2)
+    g722_encode.launches += 1
+    return codes, state
+
+
+g722_encode.launches = 0
+
+
+def g722_decode(codes, state):
+    """G.722 decode of one tick for every leg: codes int32 [B, C] -> pcm
+    int32 [B, 2C] (16 kHz). ``state`` is updated in place and returned."""
+    if codes.device.type == "cpu":
+        return g722_decode_reference(codes, state)
+    dev = _cuda_device(codes)
+    B, C = codes.shape
+    _check("codes", codes, torch.int32, (B, C), dev)
+    pcm = torch.empty((B, 2 * C), dtype=torch.int32, device=dev)
+    _g722_launch(_load().ms2_g722_decode, codes, pcm, state, dev, C)
+    g722_decode.launches += 1
+    return pcm, state
+
+
+g722_decode.launches = 0

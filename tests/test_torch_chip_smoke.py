@@ -1,7 +1,8 @@
 """The bound arithmetic of ``chip_smoke.py`` (phase 2) on the CPU: the bytes
 each kernel must move at the flagship's shapes (B = 4096, S = 480,
-P = 8, F = 481), against the figures worked out by hand from the
-kernels' operands."""
+P = 8, F = 481), the G.722 kernels' bytes and serial chain at B = 1,024,
+against the figures worked out by hand from the kernels' operands; and
+the launches phase 8a expects a tick pair."""
 import importlib.util
 import os
 
@@ -65,3 +66,41 @@ def test_rotation_spills_the_l2(smoke):
     assert smoke.rotation(300 * MB) == 1
     n = smoke.rotation(smoke.mdf_apply_cost(1024, 8, 81, 2)[0])
     assert n * smoke.mdf_apply_cost(1024, 8, 81, 2)[0] > 2 * smoke.L2_BYTES
+
+
+def test_g722_bounds(smoke):
+    """G.722 at B = 1,024: pcm [B, 160] and codes [B, 80] int32, one in and
+    one out, and the 80-int32 codec state (two bands of 28, the 24-sample
+    QMF line) read and written: 1,600 bytes a leg, 1.64 MB, 0.49 us at
+    3.35 TB/s. The serial chain: 80 slots of 42 (encode) or 27 (decode)
+    dependent operations at 4 cycles and 1.98 GHz: 6.79 and 4.36 us, the
+    larger bound each time."""
+    for name, ops in (("g722_encode", 42), ("g722_decode", 27)):
+        nbytes, chain = smoke.g722_cost(1024, name)
+        assert nbytes == 1024 * (160 * 4 + 80 * 4 + 2 * (2 * 28 + 24) * 4) == 1024 * 1600
+        assert chain == 80 * ops
+        ms, by, bytes_ms, chain_ms = smoke.g722_bound((nbytes, chain))
+        assert bytes_ms == pytest.approx(1024 * 1600 / 3.35e12 * 1e3)
+        assert chain_ms == pytest.approx(80 * ops * 4 / 1.98e9 * 1e3)
+        assert (ms, by) == (chain_ms, "operations")
+    assert smoke.g722_bound(smoke.g722_cost(1024, "g722_encode"))[0] == pytest.approx(
+        0.00679, abs=1e-5)
+    assert smoke.g722_bound(smoke.g722_cost(1024, "g722_decode"))[0] == pytest.approx(
+        0.00436, abs=1e-5)
+
+
+def test_phase_8a_launches_a_tick_pair(smoke):
+    """The wideband pair: g722_encode and g722_decode twice (clients and
+    server), fused_volume 3, mdf_apply 1, mdf_update_fused 1, mdf_update
+    none; the G.711 pair of 7a the same without G.722."""
+    assert smoke.session_launches("g722", 1) == {
+        "fused_volume": 3, "mdf_apply": 1, "mdf_update_fused": 1,
+        "g722_encode": 2, "g722_decode": 2}
+    assert smoke.session_launches("ulaw", 200) == {
+        "fused_volume": 600, "mdf_apply": 200, "mdf_update_fused": 200}
+    launches = {"fused_volume": 3, "mdf_apply": 1, "mdf_update": 0, "mdf_update_fused": 1,
+                "g722_encode": 2, "g722_decode": 2}
+    smoke._require_counts("8a", launches, smoke.session_launches("g722", 1))
+    with pytest.raises(AssertionError, match="mdf_update"):
+        smoke._require_counts("8a", dict(launches, mdf_update=1),
+                              smoke.session_launches("g722", 1))

@@ -111,8 +111,23 @@ def test_e2e_bench_megakernel_state(monkeypatch):
 
 
 def test_e2e_bench_srtp_raises():
-    with pytest.raises(NotImplementedError, match="cryptography"):
-        E2EConferenceBench(Factory(), n_legs=4, device="cpu", srtp=True)
+    """srtp=True with a suite the edge does not know raises before a leg
+    is sent (the run with SRTP: test_e2e_bench_srtp_runs)."""
+    with pytest.raises(KeyError, match="AES_CM_64"):
+        E2EConferenceBench(Factory(), n_legs=4, device="cpu", srtp=True,
+                           srtp_suite="AES_CM_64_HMAC_SHA1_80")
+
+
+def test_e2e_bench_srtp_runs():
+    """The self-looped bench with SRTP on every leg, unpaced: no loss after
+    the warmup, no authentication failure, the probe legs' audio back."""
+    b = E2EConferenceBench(Factory(), n_legs=8, device="cpu", srtp=True)
+    try:
+        res = b.run(n_ticks=WARMUP_TICKS + 20, paced=False)
+    finally:
+        b.close()
+    assert res.srtp and res.auth_failures == 0
+    assert res.loss_rate == 0.0 and res.fidelity > 0.9 and res.out_finite
 
 
 # --- the port's copy of the native edge (tests/test_rtp_edge.py's cases) ----
@@ -186,11 +201,14 @@ def test_native_edge_loss_flags_missing():
 
 
 def test_native_edge_srtp_raises():
+    """A suite or key the edge cannot take raises: no leg goes out in
+    plaintext by mistake."""
     tx, rx, s1, s2 = _mk_pair(1)
     try:
-        with pytest.raises(NotImplementedError, match="cryptography"):
-            tx.set_srtp(0, b"\x00" * 16, b"\x00" * 14)
-        with pytest.raises(NotImplementedError, match="cryptography"):
-            rx.set_srtp(0, b"\x00" * 16, b"\x00" * 14)
+        for edge in (tx, rx):
+            with pytest.raises(ValueError, match="16-byte key"):
+                edge.set_srtp(0, b"\x00" * 15, b"\x00" * 14)
+            with pytest.raises(ValueError, match="unknown SRTP suite"):
+                edge.set_srtp(0, b"\x00" * 16, b"\x00" * 14, "NULL_HMAC_SHA1_80")
     finally:
         s1.close(); s2.close(); tx.close(); rx.close()

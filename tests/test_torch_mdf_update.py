@@ -119,7 +119,8 @@ def test_launch_counts_name_all_four_kernels_and_cpu_launches_none():
         t[k] = t[k].to(BF16)
     kernels.mdf_update(torch.tensor(2, dtype=torch.int32), *(t[k] for k in _ORDER))
     assert kernels.launch_counts() == {"fused_volume": 0, "mdf_apply": 0,
-                                       "mdf_update": 0, "mdf_update_fused": 0}
+                                       "mdf_update": 0, "mdf_update_fused": 0,
+                                       "g722_encode": 0, "g722_decode": 0}
 
 
 def test_mdf_update_rejects_other_devices():
