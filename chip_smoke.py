@@ -3,9 +3,10 @@
 NVIDIA GPU: builds its kernels and its native RTP edge from source, checks
 each kernel against its plain PyTorch version on the card, drives the
 flagship conference leg, the end-to-end G.711 leg over localhost UDP (in
-clear and with SRTP), the session layer and the secured wideband call
-(G.722, SRTP, RTCP and QoS), and compares the port on the card with the
-port on the CPU.
+clear and with SRTP), the session layer, the secured wideband call
+(G.722, SRTP, RTCP and QoS) and the gateway transcoder (G.711 <-> G.726-32,
+the DVI4 and G.726 codec chains, Baudot TTY), and compares the port on the
+card with the port on the CPU.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,12 @@ Phases, in order (any failure raises and the script exits non-zero):
    around 50 launches, over input sets that spill the L2), its bound
    (bytes over 3.35 TB/s or operations over 67 TFLOP/s, the larger; for
    G.722 the serial chain of its 80 code slots instead of the throughput)
-   and its share of the bound;
+   and its share of the bound; dvi4_encode / dvi4_decode (bit-exact) and
+   g726_encode / g726_decode at 16, 24, 32 and 40 kbit/s at B = 1,024 over
+   three ticks of speech (the codes that differ are counted: the bar is
+   none; decoded samples within 0.05 of an int16 step and every state leaf
+   within 1e-5 of its largest magnitude), and at a ragged shape (77 legs,
+   200 samples), each beside its serial-chain and bytes bounds;
 3. the flagship at 4,096 legs (1,024 four-party conferences) for 100
    ticks of echo-coupled input: fused_volume, mdf_apply and
    mdf_update_fused launched once per tick and mdf_update never, all
@@ -50,7 +56,7 @@ Phases, in order (any failure raises and the script exits non-zero):
 7. the session layer (AudioStreamBatch, Ticker, AudioConferenceControl):
    echo-cancelling (AEC + AGC) mu-law clients against a conference
    server, legs 4k..4k+3 in conference k, leg 4k talking. 7a: 1,024 +
-   1,024 legs over the batch edge, 200 alternating do_ticks: fused_volume
+   1,024 legs over the batch edge, 150 alternating do_ticks: fused_volume
    3 (the clients' two volumes, the server's receive volume: a conference
    stream has no send volume), mdf_apply 1 and mdf_update_fused 1
    launches per tick pair and mdf_update none, finite outputs and state, each leg's edge recv >=
@@ -66,7 +72,7 @@ Phases, in order (any failure raises and the script exits non-zero):
 8. the secured wideband call: phase 7's clients and server with G.722 at
    16 kHz (AEC P = 8, F = 161). 8a: 1,024 + 1,024 legs over the batch
    edge with AES_CM_128_HMAC_SHA1_80 on every leg (keys from a seeded
-   generator), 200 alternating do_ticks: launches per tick pair
+   generator), 150 alternating do_ticks: launches per tick pair
    g722_encode 2, g722_decode 2, fused_volume 3, mdf_apply 1,
    mdf_update_fused 1, every leg >= ticks/2 packets, no authentication
    failure and no replay drop, phase 7a's listener, mix-minus and talker
@@ -79,7 +85,24 @@ Phases, in order (any failure raises and the script exits non-zero):
    remote report and has an RTT, every quality indicator >= 4.5, one leg
    given a wrong receive key receives nothing, the listener bars; 8c: 8 +
    8 legs of 8b's configuration on the CPU against the card, the bar of
-   phase 4 on the listeners' recordings over 60 ticks.
+   phase 4 on the listeners' recordings over 60 ticks;
+9. the gateway transcoder. 9a: file_player -> X_enc -> X_dec ->
+   file_recorder through a free-running Ticker at 1,024 legs x 100 ticks of
+   speech for dvi4 and each G.726 rate: exactly one encode and one decode
+   launch a tick and no other kernel, finite state, audio_diff of legs 0,
+   37, ... against the signal above CHAIN_BARS at shift 0; 9b: four
+   batches of 1,024 legs (mu-law talkers, TranscodeBatch ulaw -> g726_32,
+   TranscodeBatch g726_32 -> ulaw, mu-law listeners) over a LoopbackPair
+   per leg and hop, 150 rounds of do_tick in turn: launches a round
+   g726_encode 1, g726_decode 1, fused_volume 4, the sampled listeners'
+   recordings above 0.85 against the speech sent from round 40 on (the
+   G.726 decoders play a transient on the jitter buffers' empty first
+   ticks), every listener at least half of its packets, finite state; 9c:
+   8 legs of 9b's gateway with Baudot on talkers and listeners, every
+   talker typing "SOS 911", on the CPU against the card: the listeners'
+   recordings to phase 4's audio_diff and energy bars and an rms error of
+   2e-2 (the two G.726 codings differ by the codec's quantisation noise:
+   CROSS_GATEWAY_RMS), and the text read exactly on both.
 
 Each phase prints the seconds elapsed when it ends. The last two lines of
 standard output are the kernels' JSON and the result's JSON; the card's
@@ -102,6 +125,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "mediastreamer2_tpu_torch/csrc/ms2_kernels.cu"
 G722_SOURCE = "mediastreamer2_tpu_torch/csrc/g722_kernels.cu"
+ADPCM_SOURCE = "mediastreamer2_tpu_torch/csrc/adpcm_kernels.cu"
 REPLACES = {  # the TPU kernel (or lax.scan) each CUDA kernel replaces
     "fused_volume": "mediastreamer2_tpu/ops/pallas_kernels.py:56",
     "mdf_apply": "mediastreamer2_tpu/ops/pallas_kernels.py:133",
@@ -109,7 +133,12 @@ REPLACES = {  # the TPU kernel (or lax.scan) each CUDA kernel replaces
     "mdf_update_fused": "mediastreamer2_tpu/ops/pallas_kernels.py:278",
     "g722_encode": "mediastreamer2_tpu/ops/g722.py:213",
     "g722_decode": "mediastreamer2_tpu/ops/g722.py:221",
+    "dvi4_encode": "mediastreamer2_tpu/ops/adpcm.py:78",
+    "dvi4_decode": "mediastreamer2_tpu/ops/adpcm.py:84",
+    "g726_encode": "mediastreamer2_tpu/ops/g726.py:172",
+    "g726_decode": "mediastreamer2_tpu/ops/g726.py:180",
 }
+SOURCES = {"g722": G722_SOURCE, "dvi4": ADPCM_SOURCE, "g726": ADPCM_SOURCE}   # by name prefix
 SYSTEM_LIBRARIES = ("opus", "gsm", "avcodec", "ssl", "crypto")
 LEGS = 4096
 TICKS = 100
@@ -120,13 +149,13 @@ E2E_TICKS = 300
 E2E_BIG_LEGS = 4096
 E2E_BIG_TICKS = 100
 SESSION_LEGS = 1024           # phase 7a: clients and server, each
-SESSION_TICKS = 200
+SESSION_TICKS = 150
 PACED_LEGS = 64               # phase 7b
 PACED_TICKS = 300
 CROSS_SESSION_LEGS = 8        # phase 7c
 CROSS_SESSION_TICKS = 150
 WIDE_LEGS = 1024              # phase 8a: clients and server, each
-WIDE_TICKS = 200
+WIDE_TICKS = 150
 SECURE_LEGS = 64              # phase 8b
 SECURE_MIN_S = 3.0            # 8b's least wall time: several RTCP intervals
 SECURE_MIN_TICKS = 150
@@ -134,6 +163,29 @@ SECURE_MAX_TICKS = 600
 RTCP_INTERVAL_S = 0.5
 CROSS_WIDE_LEGS = 8           # phase 8c
 CROSS_WIDE_TICKS = 60
+CHAIN_LEGS = 1024             # phase 9a: each codec chain
+CHAIN_TICKS = 100
+# 9a's audio_diff floors on legs 0, 37, 74, ...: 0.90 as the JAX package's
+# fixture test holds dvi4 and g726_32 to; the two low rates from the same
+# graph on the CPU, which read 0.9948 (16 kbit/s) and 0.9958 (24 kbit/s) at
+# least over these legs and signals
+CHAIN_BARS = {"dvi4": 0.90, "g726_16": 0.98, "g726_24": 0.98, "g726_32": 0.90, "g726_40": 0.90}
+GATEWAY_LEGS = 1024           # phase 9b: each of the four batches
+GATEWAY_ROUNDS = 150
+GATEWAY_SETTLE = 40           # the listener bar starts here
+CROSS_GATEWAY_LEGS = 8        # phase 9c
+CROSS_GATEWAY_ROUNDS = 240
+# 9c's bar: phase 4's audio_diff (>= 0.999) and energy gap (<= 1.5 dB), and
+# an rms error of 2e-2 in place of 5e-3. The two backends' FSK differs in
+# the last float32 bits (the generator's phase is a cumsum, summed in
+# another order on the card), a mu-law code flips where a sample sits on a
+# decision level, and from there the two G.726-32 encoders code
+# near-equal signals with different codes: the listeners' recordings then
+# differ by the codec's own quantisation noise (~30 dB under the 0.4 tone:
+# ~1.3e-2 rms for two independent codings; 6.4e-3 was measured), with
+# bursts where the tone / transition detector fires on one side only.
+CROSS_GATEWAY_RMS = 2e-2
+TTY_TEXT = "SOS 911"
 P, F, S = 8, 481, 480         # the flagship's AEC at 48 kHz
 SP, SF, S8 = 8, 81, 80        # the session's AEC at 8 kHz
 WF, S16 = 161, 160            # the wideband call's AEC at 16 kHz
@@ -240,13 +292,63 @@ def g722_cost(B, name):
             G722_SLOTS * G722_CHAIN_OPS[name])
 
 
-def g722_bound(cost):
-    """(bound ms, what bounds it, bytes bound ms, chain bound ms): the serial
-    chain's latency against the bytes over 3.35 TB/s."""
-    nbytes, chain = cost
-    t_bytes, t_chain = nbytes / HBM_BYTES_PER_S, chain * DEP_OP_CYCLES / SM_CLOCK_HZ
+def chain_bound(nbytes, cycles):
+    """(bound ms, what bounds it, bytes bound ms, chain bound ms): a serial
+    chain of ``cycles`` at 1.98 GHz against the bytes over 3.35 TB/s."""
+    t_bytes, t_chain = nbytes / HBM_BYTES_PER_S, cycles / SM_CLOCK_HZ
     return (1e3 * max(t_bytes, t_chain), "bytes" if t_bytes >= t_chain else "operations",
             1e3 * t_bytes, 1e3 * t_chain)
+
+
+def g722_bound(cost):
+    """``chain_bound`` of a (bytes, dependent operations) pair, each
+    operation DEP_OP_CYCLES."""
+    return chain_bound(cost[0], cost[1] * DEP_OP_CYCLES)
+
+
+# DVI4 and G.726 (csrc/adpcm_kernels.cu): one thread per leg runs the tick's
+# samples one after another, as G.722. The chains, hand-counted from the
+# kernels as the longest loop from one sample's state to the next's, each
+# add, multiply, compare, select, min, max or table load one step of
+# DEP_OP_CYCLES, sums as binary trees:
+# - dvi4_encode 15: pred -> diff -> abs -> three compare / subtract-select
+#   rounds against step, step/2, step/4 -> vpdiff -> pred +- vpdiff ->
+#   clamp; dvi4_decode 4: the codes come from the wire, so only index ->
+#   step load -> add -> clamp (and pred -> +- -> clamp beside it) carries;
+# - g726_encode 37 steps plus the threshold count's (1 compare and a tree
+#   over 1, 3, 7 or 15 thresholds: 1, 3, 4, 5), one log2f and one exp2f:
+#   se -> d -> |d| -> log2f -> dln -> count -> code -> mag -> dqln load ->
+#   dql -> exp2f -> dq -> p0 -> sign -> a2's update and clamp -> a1's
+#   clamp against a2 -> a1*sr1 -> se;
+# - g726_decode 16 steps and one exp2f: the codes come from the wire, so
+#   the loop is y -> dql -> exp2f -> dq -> |dq| > threshold (the
+#   transition detector) -> ap -> al -> y.
+# log2f and exp2f are the accurate library functions: assumed 26 cycles
+# each on the chain (an operand-range step, the MUFU.LG2 / MUFU.EX2 special
+# function at ~18 cycles, a rescale step). G.726 has no true division:
+# every divisor is a power of two, which compiles to a multiply.
+DVI4_CHAIN_OPS = {"dvi4_encode": 15, "dvi4_decode": 4}
+G726_RATES = {2: 16, 3: 24, 4: 32, 5: 40}         # bits a sample -> kbit/s
+G726_ENCODE_OPS = {2: 38, 3: 40, 4: 41, 5: 42}
+G726_DECODE_OPS = 16
+SPECIAL_FN_CYCLES = 26
+DVI4_STATE_INTS = 2
+G726_STATE_FLOATS = 24
+
+
+def adpcm_cost(B, S, name, bits=None):
+    """(bytes, cycles of one leg's serial chain) of a DVI4 or G.726 kernel:
+    samples [B, S] and codes [B, S], 4 bytes each, one in and one out, and
+    the codec state read and written; the chain is S samples of the counts
+    above."""
+    if name in DVI4_CHAIN_OPS:
+        words, cycles = DVI4_STATE_INTS, DVI4_CHAIN_OPS[name] * DEP_OP_CYCLES
+    elif name == "g726_encode":
+        words = G726_STATE_FLOATS
+        cycles = G726_ENCODE_OPS[bits] * DEP_OP_CYCLES + 2 * SPECIAL_FN_CYCLES
+    else:
+        words, cycles = G726_STATE_FLOATS, G726_DECODE_OPS * DEP_OP_CYCLES + SPECIAL_FN_CYCLES
+    return B * (2 * 4 * S + 2 * 4 * words), S * cycles
 
 
 def bound(cost):
@@ -431,6 +533,166 @@ def g722_checks(kernels, dev, card, B):
               f"bytes {r['bytes'] / 1e6:.2f} MB = {r['bound_bytes_ms']:.4f} ms), "
               f"{100 * r['bound_ms'] / r['ms']:.0f}% of bound; plain {r['plain_ms']:.4f} ms "
               f"[{card}]", flush=True)
+    return results
+
+
+# G.726 on the card, kernel against plain version (float32 through log2f and
+# exp2f). The bar, chosen from the measurement this check prints (PERF.md §5):
+# no code may differ; decoded samples within G726_PCM_ATOL of an int16 step;
+# every state leaf within G726_STATE_RTOL of the leaf's largest magnitude.
+G726_CODES_DIFFERING_MAX = 0
+G726_PCM_ATOL = 0.05
+G726_STATE_RTOL = 1e-5
+ADPCM_CHECK_TICKS = 3
+
+
+def speech_fixture(legs, n, seed=0) -> np.ndarray:
+    """int32 [legs, n] at 8 kHz: two tones and filtered noise (the fixture
+    of the G.726 tests), the first tone, the level and the noise varied
+    per leg."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 8000
+    tone = rng.uniform(200.0, 1800.0, (legs, 1))
+    level = rng.uniform(0.05, 1.5, (legs, 1))
+    noise = rng.standard_normal((legs, n + 5))
+    noise = sum(noise[:, k:k + n] for k in range(6)) / 6
+    sig = 7000 * np.sin(2 * np.pi * tone * t) + 2500 * np.sin(2 * np.pi * 1100 * t) + 800 * noise
+    return np.clip(sig * level, -32000, 32000).astype(np.int32)
+
+
+def g726_compare(kernels, blocks, bits, dev):
+    """Run ``blocks`` (int32 [B, S] ticks of samples) through the G.726
+    kernels and their plain versions on ``dev``, the state carried. Returns
+    ``measured`` = (codes that differ between the encoders, the decoders'
+    largest sample difference when both are fed the plain encoder's codes,
+    the largest state difference of the encoders and of the decoders, each
+    leaf's over its largest magnitude), the codes' largest difference, the
+    plain codes per tick, and the kernels' final encoder and decoder
+    states."""
+    from mediastreamer2_tpu_torch.ops.g726 import g726_state
+    B = blocks[0].shape[0]
+
+    def state_err(a, b):
+        return max(float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp(min=1e-3))
+                   for k in kernels.G726_KEYS)
+
+    ek, ep, dk, dp = (g726_state(B, dev) for _ in range(4))
+    differing, pcm_err, e_err, d_err, code_err, codes = 0, 0.0, 0.0, 0.0, 0.0, []
+    for x in blocks:
+        got = kernels.g726_encode(x, ek, bits)[0]
+        want = kernels.g726_encode_reference(x, ep, bits)[0]
+        differing += int((got != want).sum())
+        code_err = max(code_err, _max_err(got, want))
+        e_err = max(e_err, state_err(ek, ep))
+        codes.append(want)
+        pcm_err = max(pcm_err, _max_err(kernels.g726_decode(want, dk, bits)[0],
+                                        kernels.g726_decode_reference(want, dp, bits)[0]))
+        d_err = max(d_err, state_err(dk, dp))
+    return (differing, pcm_err, e_err, d_err), code_err, codes, ek, dk
+
+
+def g726_bar_met(differing, pcm_err, e_err, d_err) -> bool:
+    return (differing <= G726_CODES_DIFFERING_MAX and pcm_err <= G726_PCM_ATOL
+            and max(e_err, d_err) <= G726_STATE_RTOL)
+
+
+def _adpcm_row(name, label, B, bits, kfn, pfn, make_set, err, tolerance, card, what):
+    """Time one DVI4 / G.726 kernel and its plain version over input sets
+    that spill the L2, beside its bounds; print the row."""
+    cost = adpcm_cost(B, S8, name, bits)
+    sets = [make_set() for _ in range(rotation(cost[0]))]
+    r = {"max_abs_err": err, "tolerance": tolerance,
+         "ms": device_ms(lambda i: kfn(*sets[i % len(sets)])),
+         "plain_ms": device_ms(lambda i: pfn(*sets[i % len(sets)]), n=3), "bytes": cost[0]}
+    r["bound_ms"], r["bound_by"], r["bound_bytes_ms"], r["bound_chain_ms"] = chain_bound(*cost)
+    print(f"kernel {label} [B={B}, {S8} samples]: {what}; device {r['ms']:.4f} ms per launch, "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: serial chain {cost[1]} cycles = "
+          f"{r['bound_chain_ms']:.4f} ms, bytes {r['bytes'] / 1e6:.2f} MB = "
+          f"{r['bound_bytes_ms']:.4f} ms), {100 * r['bound_ms'] / r['ms']:.0f}% of bound; plain "
+          f"{r['plain_ms']:.4f} ms [{card}]", flush=True)
+    return r
+
+
+def adpcm_checks(kernels, dev, card, B):
+    """Phase 2 for DVI4 and G.726 at B legs, ADPCM_CHECK_TICKS ticks of the
+    speech fixture with the state carried, each kernel against its plain
+    version on the card. DVI4: codes, samples and both state leaves bit for
+    bit. G.726, per rate: the codes that differ are counted, the decoder
+    (fed the plain encoder's codes) and every state leaf are held to the
+    bar above. Then each is timed beside its bounds. Returns the rows:
+    dvi4_encode, dvi4_decode, and g726_encode / g726_decode keyed
+    ``"g726_encode@32"`` by kbit/s."""
+    ticks = ADPCM_CHECK_TICKS
+    pcm = torch.from_numpy(speech_fixture(B, S8 * ticks, seed=2)).to(dev)
+    tick = lambda a, t: a[:, t * S8:(t + 1) * S8].contiguous()          # noqa: E731
+    zeros = lambda: torch.zeros((B,), dtype=torch.int32, device=dev)    # noqa: E731
+    results = {}
+
+    # DVI4: bit-exact
+    codes = []
+    ks, ps = (zeros(), zeros()), (zeros(), zeros())
+    for t in range(ticks):
+        got, want = kernels.dvi4_encode(tick(pcm, t), *ks)[0], \
+            kernels.dvi4_encode_reference(tick(pcm, t), *ps)[0]
+        _require_equal(f"dvi4_encode tick {t}", got, want)
+        for name, a, b in zip(("pred", "index"), ks, ps):
+            _require_equal(f"dvi4_encode {name} after tick {t}", a, b)
+        codes.append(want)
+    enc_state = ks
+    ks, ps = (zeros(), zeros()), (zeros(), zeros())
+    for t in range(ticks):
+        _require_equal(f"dvi4_decode tick {t}", kernels.dvi4_decode(codes[t], *ks)[0],
+                       kernels.dvi4_decode_reference(codes[t], *ps)[0])
+        for name, a, b in zip(("pred", "index"), ks, ps):
+            _require_equal(f"dvi4_decode {name} after tick {t}", a, b)
+    what = f"matches plain (bit-exact: output, pred and index, {ticks} ticks)"
+    results["dvi4_encode"] = _adpcm_row(
+        "dvi4_encode", "dvi4_encode", B, None, kernels.dvi4_encode,
+        kernels.dvi4_encode_reference,
+        lambda: (tick(pcm, ticks - 1), *(s.clone() for s in enc_state)), 0.0, "bit-exact",
+        card, what)
+    results["dvi4_decode"] = _adpcm_row(
+        "dvi4_decode", "dvi4_decode", B, None, kernels.dvi4_decode,
+        kernels.dvi4_decode_reference,
+        lambda: (codes[-1], *(s.clone() for s in ks)), 0.0, "bit-exact", card, what)
+
+    # a ragged block and a tick longer than the kernels' 80-sample chunk
+    # (77 legs x 200 samples, one tick): DVI4 bit for bit, G.726-32 to its bar
+    rb, rs = 77, 200
+    x = torch.from_numpy(speech_fixture(rb, rs, seed=3)).to(dev)
+    zr = lambda: torch.zeros((rb,), dtype=torch.int32, device=dev)      # noqa: E731
+    c = kernels.dvi4_encode_reference(x, zr(), zr())[0]
+    _require_equal("dvi4_encode ragged", kernels.dvi4_encode(x, zr(), zr())[0], c)
+    _require_equal("dvi4_decode ragged", kernels.dvi4_decode(c, zr(), zr())[0],
+                   kernels.dvi4_decode_reference(c, zr(), zr())[0])
+    measured = g726_compare(kernels, [x], 4, dev)[0]
+    if not g726_bar_met(*measured):
+        raise AssertionError(f"g726 ragged: codes differing, sample and state errors {measured}")
+
+    # G.726 at each rate: measure, then hold to the bar
+    for bits, kbps in G726_RATES.items():
+        measured, code_err, codes, ek, dk = g726_compare(
+            kernels, [tick(pcm, t) for t in range(ticks)], bits, dev)
+        differing, pcm_err, e_err, d_err = measured
+        total = B * S8 * ticks
+        what = (f"against plain over {ticks} ticks of speech: codes differing {differing} of "
+                f"{total} (bar {G726_CODES_DIFFERING_MAX}), decoded samples max abs err "
+                f"{pcm_err:.3e} (bar {G726_PCM_ATOL}), state max rel err encoder {e_err:.3e} "
+                f"decoder {d_err:.3e} (bar {G726_STATE_RTOL})")
+        if not g726_bar_met(*measured):
+            raise AssertionError(f"g726 at {kbps} kbit/s {what}")
+        tol = (f"codes equal, samples atol {G726_PCM_ATOL}, state rtol {G726_STATE_RTOL}")
+        results[f"g726_encode@{kbps}"] = _adpcm_row(
+            "g726_encode", f"g726_encode ({kbps} kbit/s)", B, bits,
+            lambda x, st, bits=bits: kernels.g726_encode(x, st, bits),
+            lambda x, st, bits=bits: kernels.g726_encode_reference(x, st, bits),
+            lambda: (tick(pcm, ticks - 1), _clone_tree(ek)), code_err, tol,
+            card, what)
+        results[f"g726_decode@{kbps}"] = _adpcm_row(
+            "g726_decode", f"g726_decode ({kbps} kbit/s)", B, bits,
+            lambda x, st, bits=bits: kernels.g726_decode(x, st, bits),
+            lambda x, st, bits=bits: kernels.g726_decode_reference(x, st, bits),
+            lambda: (codes[-1], _clone_tree(dk)), pcm_err, tol, card, what)
     return results
 
 
@@ -947,6 +1209,183 @@ def session_secure_cross(dev, legs, ticks):
     return recs
 
 
+# -- phase 9: the gateway transcoder ------------------------------------------
+def speech_legs(legs, n, seed):
+    """float32 [legs, n]: each leg its own speech-like signal at 8 kHz."""
+    from mediastreamer2_tpu_torch.utils.signals import make_speechlike
+    return np.stack([make_speechlike(n, 8000, seed=seed + leg) for leg in range(legs)])
+
+
+def codec_chain(kernels, dev, card, codec, sig, ticks):
+    """Phase 9a, one codec: file_player -> enc -> dec -> file_recorder
+    through a free-running Ticker, every leg playing its row of ``sig``.
+    Returns the launches of the run."""
+    from mediastreamer2_tpu_torch import Factory, Format, GraphBuilder
+    from mediastreamer2_tpu_torch.core.ticker import Ticker
+    from mediastreamer2_tpu_torch.ops.fileio import recorder_get_audio
+    from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
+    legs = sig.shape[0]
+    g = GraphBuilder(Factory(), batch=legs)
+    p = g.add("file_player", "play", fmt=Format(rate=8000), signal=sig)
+    g.chain(p, g.add(f"{codec}_enc", "enc"), g.add(f"{codec}_dec", "dec"),
+            g.add("file_recorder", "rec", max_ticks=ticks))
+    tk = Ticker(g.build(), device=dev, name=f"chain[{codec}]", realtime=False)
+    tk.warm_up()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tk.run(ticks)
+    tk.sync()
+    ms = 1e3 * (time.perf_counter() - t0) / ticks
+    launches = kernels.launch_counts()
+    rec = recorder_get_audio(tk.state["rec"], ticks, S8)
+    sims = [audio_diff(sig[leg, :ticks * S8], rec[leg]) for leg in range(0, legs, 37)]
+    sim, shifts = min(s for s, _ in sims), {k for _, k in sims}
+    finite = all(_tree_finite(entry) for entry in tk.state.values() if entry)
+    kind = codec.split("_")[0]
+    print(f"chain 9a {codec}: {legs} legs x {ticks} ticks, file_player -> {codec}_enc -> "
+          f"{codec}_dec -> file_recorder through Ticker: {ms:.3f} ms/tick (host clock), "
+          f"launches {launches}, audio_diff min {sim:.4f} over legs 0, 37, ... (bar "
+          f"{CHAIN_BARS[codec]}), shifts {sorted(shifts)}, state finite {finite} [{card}]",
+          flush=True)
+    _require_counts(f"chain {codec}", launches, {f"{kind}_encode": ticks, f"{kind}_decode": ticks})
+    if not (sim > CHAIN_BARS[codec] and shifts == {0} and finite
+            and bool(np.isfinite(rec).all())):
+        raise AssertionError(f"chain {codec}: audio_diff {sim}, shifts {shifts}, finite {finite}")
+    return launches
+
+
+class Gateway:
+    """Phase 9b's path: mu-law talkers -> TranscodeBatch(ulaw -> g726_32) ->
+    TranscodeBatch(g726_32 -> ulaw) -> mu-law listeners, ``legs`` legs in
+    each of the four batches on ``dev``, every hop a LoopbackPair per leg
+    (the per-leg RtpSession path: TranscodeBatch has no batch edge, in the
+    JAX package neither). The listeners only receive. ``tty`` builds
+    talkers and listeners with the Baudot feature and a silent mic, and
+    every talker types ``tty``."""
+
+    def __init__(self, dev, legs, rounds, seed, tty=None):
+        from mediastreamer2_tpu_torch import Factory, TranscodeBatch
+        from mediastreamer2_tpu_torch.models.audio_stream import (AudioStreamBatch,
+                                                                  AudioStreamFeatures)
+        from mediastreamer2_tpu_torch.net.rtp import LoopbackPair
+        self.legs, self.rounds = legs, rounds
+        n = S8 * rounds
+        self.mic = (np.zeros((legs, n), np.float32) if tty else speech_legs(legs, n, seed))
+        f = Factory()
+        feats = AudioStreamFeatures(baudot=bool(tty))
+        self.talkers = AudioStreamBatch(f, legs, codec="ulaw", mic_signal=self.mic,
+                                        features=feats, device=dev)
+        self.up = TranscodeBatch(f, legs, codec_in="ulaw", rate_in=8000,
+                                 codec_out="g726_32", rate_out=8000, device=dev)
+        self.down = TranscodeBatch(f, legs, codec_in="g726_32", rate_in=8000,
+                                   codec_out="ulaw", rate_out=8000, device=dev)
+        self.listeners = AudioStreamBatch(f, legs, codec="ulaw", record_ticks=rounds,
+                                          features=feats, device=dev)
+        self.batches = (self.talkers, self.up, self.down, self.listeners)
+        for leg in range(legs):
+            a, m, b = LoopbackPair(), LoopbackPair(), LoopbackPair()
+            self.talkers.set_transport(leg, a.endpoint(0))
+            self.up.set_transports(leg, rx=a.endpoint(1), tx=m.endpoint(0))
+            self.down.set_transports(leg, rx=m.endpoint(1), tx=b.endpoint(0))
+            self.listeners.set_transport(leg, b.endpoint(1))
+            self.listeners.set_direction(leg, "recvonly")
+            if tty:
+                self.talkers.send_baudot_string(leg, tty)
+        self.sent = []                       # the sampled talkers' codes on the wire
+        push = self.talkers.ticker._io_push
+
+        def tapped(tick, out):
+            self.sent.append(out["rtp_tx"][::37].copy())
+            push(tick, out)
+        self.talkers.ticker.set_io(pull=self.talkers.ticker._io_pull, push=tapped)
+        for s in self.batches:
+            s.ticker.realtime = False
+            s.ticker.warm_up()
+
+    def run(self):
+        """``rounds`` rounds of one do_tick of each batch in turn (the
+        listeners pump their events each round); host ms per round."""
+        t0 = time.perf_counter()
+        for _ in range(self.rounds):
+            for s in self.batches:
+                s.ticker.do_tick()
+            if self.talkers.features.baudot:
+                self.listeners.iterate()
+        for s in self.batches:
+            s.ticker.sync()
+        return 1e3 * (time.perf_counter() - t0) / self.rounds
+
+    def heard(self, settle):
+        """The sampled listeners' recordings (legs 0, 37, ...) against their
+        talkers' speech as sent (the wire codes decoded), from round
+        ``settle`` on, aligned by the lag over the whole signals: the least
+        audio_diff, and the lags."""
+        from mediastreamer2_tpu_torch.ops.g711 import pcm16_to_float, ulaw_decode
+        from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
+        n, start = S8 * self.rounds, S8 * settle
+        rec = self.listeners.get_recording()[::37, :n]
+        sent = np.stack(self.sent)[:self.rounds]                       # [rounds, k, 80]
+        said = pcm16_to_float(ulaw_decode(torch.from_numpy(np.ascontiguousarray(
+            sent.transpose(1, 0, 2).reshape(rec.shape[0], -1).astype(np.int32))))).numpy()
+        sims, lags = [], []
+        for ref, got in zip(said, rec):
+            lag = max(0, min(audio_diff(ref, got)[1], start))
+            sims.append(audio_diff(ref[start - lag:n - lag], got[start:])[0])
+            lags.append(lag)
+        return min(sims), sorted(set(lags))
+
+    def state_finite(self):
+        return all(_tree_finite(entry) for s in self.batches
+                   for entry in s.ticker.state.values() if entry)
+
+
+def gateway_launches(rounds):
+    """The kernel launches of ``rounds`` gateway rounds: the two G.726
+    launches (the transcoders' encode and decode) and the four volumes of
+    the talkers and the listeners (each stream's vol_send and vol_recv)."""
+    return {"g726_encode": rounds, "g726_decode": rounds, "fused_volume": 4 * rounds}
+
+
+def gateway_full(kernels, dev, card, legs, rounds):
+    """Phase 9b. Returns the launches of the counted run."""
+    t0 = time.perf_counter()
+    gw = Gateway(dev, legs, rounds, seed=200)
+    setup_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    ms = gw.run()
+    launches = kernels.launch_counts()
+    sim, lags = gw.heard(GATEWAY_SETTLE)
+    recv = min(s.stats.recv_packets for s in gw.listeners.sessions)
+    finite = gw.state_finite()
+    ph = " ".join(f"{who} {k} {v / rounds:.3f}" for who, s in (("up", gw.up), ("down", gw.down))
+                  for k, v in s.ticker.phase_ms.items() if not k.endswith("_max"))
+    print(f"gateway 9b: 4 x {legs} legs (mu-law talkers -> ulaw->g726_32 -> g726_32->ulaw -> "
+          f"mu-law listeners, a LoopbackPair per leg and hop) x {rounds} rounds: {ms:.3f} ms "
+          f"per round (host clock; set-up {setup_s:.1f} s); transcoders' host ms/tick by "
+          f"phase: {ph}; launches {launches}; listeners vs the speech sent from round "
+          f"{GATEWAY_SETTLE} on (legs 0, 37, ...): audio_diff min {sim:.4f} (bar 0.85), lags "
+          f"{lags} samples; packets received min {recv} of {rounds}; state finite {finite} "
+          f"[{card}]", flush=True)
+    _require_counts("gateway 9b", launches, gateway_launches(rounds))
+    if not (sim > 0.85 and recv >= rounds // 2 and finite):
+        raise AssertionError(f"gateway 9b: audio_diff {sim}, received {recv}, finite {finite}")
+    return launches
+
+
+def gateway_cross(dev, legs, rounds):
+    """Phase 9c: the gateway with Baudot on talkers and listeners, every
+    talker typing TTY_TEXT, on the CPU (plain versions) and on the card
+    (kernels); returns the listeners' recordings, CPU then card, and the
+    texts read on each."""
+    recs, texts = [], []
+    for d in (torch.device("cpu"), dev):
+        gw = Gateway(d, legs, rounds, seed=300, tty=TTY_TEXT)
+        gw.run()
+        recs.append(gw.listeners.get_recording()[:, :S8 * rounds])
+        texts.append([gw.listeners.get_baudot_text(leg) for leg in range(legs)])
+    return recs, texts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -993,6 +1432,7 @@ def main():
     session_results = kernel_checks(kernels, dev, card, SESSION_LEGS, S8, SP, SF, full=False)
     wide_results = kernel_checks(kernels, dev, card, WIDE_LEGS, S16, SP, WF, full=False)
     results.update(g722_checks(kernels, dev, card, WIDE_LEGS))
+    adpcm_results = adpcm_checks(kernels, dev, card, GATEWAY_LEGS)
 
     phase_done(2)
 
@@ -1105,26 +1545,61 @@ def main():
 
     phase_done(8)
 
+    # phase 9: the gateway transcoder: 9a the five codec chains at full
+    # width, 9b the G.711 <-> G.726-32 gateway, 9c its TTY legs CPU vs card
+    sig = speech_legs(CHAIN_LEGS, S8 * CHAIN_TICKS, seed=100)
+    chain_launches = {codec: codec_chain(kernels, dev, card, codec, sig, CHAIN_TICKS)
+                      for codec in CHAIN_BARS}
+    del sig
+    phase_done("9a")
+    gw_launches = gateway_full(kernels, dev, card, GATEWAY_LEGS, GATEWAY_ROUNDS)
+    phase_done("9b")
+    (rec_cpu, rec_gpu), texts = gateway_cross(dev, CROSS_GATEWAY_LEGS, CROSS_GATEWAY_ROUNDS)
+    bar = quality_bar(rec_cpu, rec_gpu, leg_step=1)
+    print(f"gateway 9c: 4 x {CROSS_GATEWAY_LEGS} legs x {CROSS_GATEWAY_ROUNDS} rounds, every "
+          f"talker typing {TTY_TEXT!r} as Baudot FSK through G.711 and G.726-32, the CPU "
+          f"against the card, the listeners' recordings: audio_diff_min "
+          f"{bar['audio_diff_min']:.6f}, rms_err {bar['rms_err']:.3e}, max_abs_err "
+          f"{bar['max_abs_err']:.3e}, energy_gap_db_max {bar['energy_gap_db_max']:.4f} (bars: "
+          f"audio_diff >= 0.999, rms_err <= {CROSS_GATEWAY_RMS}, energy gap <= 1.5 dB); text "
+          f"read on the CPU {sorted(set(texts[0]))}, on the card "
+          f"{sorted(set(texts[1]))}", flush=True)
+    if not (bar["audio_diff_min"] >= 0.999 and bar["energy_gap_db_max"] <= 1.5
+            and bar["rms_err"] <= CROSS_GATEWAY_RMS):
+        raise AssertionError(f"gateway 9c cpu vs gpu bar failed: {bar}")
+    if any(t != TTY_TEXT for side in texts for t in side):
+        raise AssertionError(f"gateway 9c: Baudot text read {texts}, expected {TTY_TEXT!r}")
+
+    phase_done(9)
+
     # launches over the main-path runs that were counted: the flagship, the
     # three e2e runs, the session and the wideband call at full width
     runs = {"flagship": (launches, TICKS),
             "e2e": ({k: e2e_launches[k] + srtp_launches[k] + big_launches[k] for k in launches},
                     e2e_ticks + srtp_ticks + big_ticks),
             "session": (session_launches, SESSION_TICKS),
-            "wideband": (wide_launches, WIDE_TICKS)}
+            "wideband": (wide_launches, WIDE_TICKS),
+            "gateway": (gw_launches, GATEWAY_ROUNDS)}
+    runs.update({f"chain_{codec}": (c, CHAIN_TICKS) for codec, c in chain_launches.items()})
     total = {k: sum(c[k] for c, _ in runs.values()) for k in launches}
     entries = []
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    results.update({k: v for k, v in adpcm_results.items() if "@" not in k})
+    for name in ("g726_encode", "g726_decode"):      # the gateway's rate leads the entry
+        results[name] = adpcm_results[f"{name}@32"]
     for name in REPLACES:
         r = results[name]
         entry = {"name": name, "route": "cuda",
-                 "source": G722_SOURCE if name.startswith("g722") else KERNEL_SOURCE,
+                 "source": SOURCES.get(name.split("_")[0], KERNEL_SOURCE),
                  "replaces": REPLACES[name], "launches": total[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
                  "launches_per_tick": {path: c[name] / n for path, (c, n) in runs.items()}}
-        if name.startswith("g722"):
+        if "bound_chain_ms" in r:
             entry.update(bound_bytes_ms=r["bound_bytes_ms"], bound_chain_ms=r["bound_chain_ms"])
+        if name.startswith("g726"):
+            entry["rates_kbps"] = {kbps: {k: adpcm_results[f"{name}@{kbps}"][k] for k in keys}
+                                   for kbps in G726_RATES.values()}
         for label, res_at in (("session_shapes", session_results),
                               ("wideband_shapes", wide_results)):
             if name in res_at:

@@ -12,17 +12,21 @@ package's:
 
 * :mod:`mediastreamer2_tpu_torch.core`   -- formats, filters, factory, graph,
   the ticker and event queue, worker pools, paced-section GC
-* :mod:`mediastreamer2_tpu_torch.ops`    -- the filters (G.711, G.722, PLC,
-  mixers, tones, VAD, ...) and the kernels
+* :mod:`mediastreamer2_tpu_torch.ops`    -- the filters (G.711, G.722, G.726,
+  DVI4, PLC, mixers, tones, Baudot TTY, flow control, VAD, ...) and the
+  kernels
 * :mod:`mediastreamer2_tpu_torch.models` -- the flagship leg, the end-to-end
   G.711 conference bench over UDP, the audio stream session
-  (``AudioStreamBatch``), the conference control and the QoS controllers
+  (``AudioStreamBatch``), the conference control and the QoS controllers,
+  the gateway transcoder (``TranscodeBatch``) and the ring stream
+  (``RingStreamBatch``)
 * :mod:`mediastreamer2_tpu_torch.native` -- the batched RTP edge with inline
   SRTP, and the AES the port's SRTP uses (C++, g++)
 * :mod:`mediastreamer2_tpu_torch.net`    -- RTP sessions and transports, SRTP,
   RTCP, bandwidth estimators, jitter buffers, the edge's jitter controller
 * :mod:`mediastreamer2_tpu_torch.utils`  -- tree conversion, audio oracle,
-  test signals, JAX's threefry random numbers
+  test signals, JAX's threefry random numbers, the inter-ticker bridge
+  (``ItcBridge``)
 """
 
 __version__ = "0.1.0"
@@ -34,3 +38,6 @@ from mediastreamer2_tpu_torch.core.graph import GraphBuilder  # noqa: F401
 from mediastreamer2_tpu_torch.models.flagship import build_flagship  # noqa: F401
 from mediastreamer2_tpu_torch.models.e2e_bench import (  # noqa: F401
     E2EConferenceBench, build_e2e_graph)
+from mediastreamer2_tpu_torch.models.transcode import TranscodeBatch  # noqa: F401
+from mediastreamer2_tpu_torch.models.ring_stream import RingStreamBatch  # noqa: F401
+from mediastreamer2_tpu_torch.utils.itc import ItcBridge  # noqa: F401

@@ -14,6 +14,12 @@ import dataclasses
 
 import torch
 
+# encoded audio whose tick block holds int32 codes (the JAX package's list
+# leaves the G.726 kinds out, and nothing there casts a block; the port's
+# ticker casts every host input to its block dtype, so they are named here)
+_CODE_KINDS = ("ulaw", "alaw", "g722", "gsm", "l16", "dvi4",
+               "g726_16", "g726_24", "g726_32", "g726_40")
+
 TICK_MS = 10  # reference: src/base/msticker.c:46 TICKER_INTERVAL
 
 
@@ -29,8 +35,9 @@ def tick_samples(rate: int, tick_ms: int = TICK_MS) -> int:
 class Format:
     """Static per-edge media format, resolved at graph-build time.
 
-    kind: 'pcm' (float32 audio), 'ulaw'/'alaw'/'l16'/'g722'/'gsm' (encoded,
-          still fixed-rate so shapes stay static), 'yuv420'/'rgb' (video).
+    kind: 'pcm' (float32 audio), 'ulaw'/'alaw'/'l16'/'g722'/'gsm'/'dvi4'/
+          'g726_16'..'g726_40' (encoded, still fixed-rate so shapes stay
+          static), 'yuv420'/'rgb' (video).
     """
     kind: str = "pcm"
     rate: int = 8000
@@ -56,7 +63,7 @@ class Format:
 def block_dtype(fmt: Format) -> torch.dtype:
     """Torch dtype of a tick block: float32 PCM/video, int32 for encoded
     codes (host narrows to uint8/int16 at the RTP boundary)."""
-    if fmt.kind in ("ulaw", "alaw", "g722", "gsm", "l16", "dvi4"):
+    if fmt.kind in _CODE_KINDS:
         return torch.int32
     return torch.float32
 

@@ -7,8 +7,8 @@ One AudioStreamBatch hosts N call legs that share one graph and one
 stream. Feature flags select which nodes are built; per-leg params switch
 them at run time.
 
-    recv:  rtp_rx -> decoder -> plc -> dtmf_gen -> vol_recv ==> spk
-    send:  mic -> ec(near=mic, far=spk) -> vol_send -> vad -> enc -> rtp_tx
+    recv:  rtp_rx -> decoder -> [baudot_det] -> plc -> dtmf_gen -> vol_recv ==> spk
+    send:  mic -> ec(near=mic, far=spk) -> vol_send -> vad -> [baudot_gen] -> enc -> rtp_tx
 
 ``conference=True`` builds the server shape: each leg's decoded audio goes
 through ``audio_levels`` into the deployment-wide ``conf_mixer`` and the
@@ -28,7 +28,9 @@ with encryption-mandatory legs; RTCP (SR/RR + SDES every interval, BYE on
 quality indicator, bandwidth controller, TMMBR/REMB caps); directions, mic
 and speaker gains, ``mute_rtp``, ptime, recording (``record_mixed`` too),
 ``local_play`` / ``play_announcement``, RFC 4733 DTMF send and receive,
-``conference=True``, DTX with RFC 3389 CN, and a duck-typed sound card
+``conference=True``, DTX with RFC 3389 CN, Baudot TTY
+(``features.baudot``: ``send_baudot_string``, ``get_baudot_text``,
+``set_baudot_mode``), and a duck-typed sound card
 (``pull(tick, B)`` / ``push(tick, block)``). ``device=None`` runs on
 ``cuda`` (raising without a card); tests pass ``"cpu"``.
 
@@ -47,8 +49,11 @@ GSO on unconditionally, which drops every packet under gVisor).
 
 Waiting, each raising ``NotImplementedError`` that names its wait: host
 codecs (opus, gsm, g729, speex, bv16, aac) wait for ``ops/host_codecs``;
-``g726_32`` for its op; Baudot for ``ops/baudot``; the video link and A/V
-recording for the video stream.
+the video link and A/V recording for the video stream. ``g726_32`` is
+refused too, as in the JAX package, whose stream has no payload packing
+for it (``_decode_payload`` / ``_encode_payload`` and
+``CODEC_BYTES_PER_SAMPLE`` know ulaw, alaw, g722 and l16 only): G.726 runs
+over RTP through ``models/transcode.TranscodeBatch``, as 16-bit codes.
 """
 from __future__ import annotations
 
@@ -84,7 +89,8 @@ def _codec_wait(codec: str) -> str:
         return (f"codec {codec!r}: host codecs wait for ops/host_codecs, not ported "
                 f"to mediastreamer2_tpu_torch yet")
     if codec == "g726_32":
-        return f"codec {codec!r} waits for its op, not ported to mediastreamer2_tpu_torch yet"
+        return (f"codec {codec!r}: the audio stream has no payload packing for it (in the JAX "
+                f"package neither); it runs over RTP through models/transcode.TranscodeBatch")
     return f"unknown codec {codec!r}"
 
 
@@ -98,7 +104,7 @@ class AudioStreamFeatures:
     vad_dtx: bool = False
     dtmf: bool = False
     volume: bool = True
-    baudot: bool = False       # waits for ops/baudot
+    baudot: bool = False       # TTY tones: baudot_gen (send) + baudot_det (recv)
     local_play: bool = False   # announcement mixer into the send path
     mic_eq_gains: Optional[list] = None     # [(hz, gain, width_hz), ...]
     spk_eq_gains: Optional[list] = None
@@ -138,9 +144,6 @@ class AudioStreamBatch:
         self.S_rtp = tick_samples(self.rtp_clock)
         self.features = features or AudioStreamFeatures()
         ft = self.features
-        if ft.baudot:
-            raise NotImplementedError("Baudot TTY waits for ops/baudot, not ported to "
-                                      "mediastreamer2_tpu_torch yet")
         self.record_ticks = record_ticks
         self.snd_card = snd_card
         fmt = Format(kind="pcm", rate=rate, channels=channels)
@@ -150,6 +153,10 @@ class AudioStreamBatch:
         rx = g.add("ext_source", "rtp_rx", fmt=fmt.with_(kind=codec, rate=self.rtp_clock))
         last = g.add(f"{codec}_dec", "dec")
         g.link(rx, 0, last, 0)
+        if ft.baudot:
+            # detector before the PLC (audiostream.c:1812-1832 places
+            # baudot_det between local_mixer and plc)
+            last = self._append(g, last, "baudot_det", "baudot_det")
         if ft.plc:
             last = self._append(g, last, "generic_plc", "plc")
         if ft.dtmf:
@@ -204,6 +211,10 @@ class AudioStreamBatch:
             last = self._append(g, last, "volume", "vol_send")
         if ft.vad_dtx:
             last = self._append(g, last, "vad_dtx", "vad")
+        if ft.baudot:
+            # tone generator after the VAD (audiostream.c:1796-1810, the
+            # [dtmfgen_rtp] -> [baudot_gen] position)
+            last = self._append(g, last, "baudot_gen", "baudot_gen")
         if ft.local_play:
             # announcement player mixed into the outgoing audio
             player = g.add("file_player", "announce", fmt=fmt,
@@ -235,6 +246,8 @@ class AudioStreamBatch:
         self.device = self.ticker.device
         self.ticker.set_io(pull=self._pull, push=self._push)
         tk = self.ticker
+        if ft.baudot:
+            self._init_baudot()
         if ft.vad_dtx:
             tk.readback_state += [("vad", "voice"), ("vad", "floor")]
         if "vol_send" in tk.state:
@@ -286,6 +299,51 @@ class AudioStreamBatch:
 
     def get_direction(self, leg: int) -> str:
         return self._direction[leg]
+
+    # -- Baudot TTY (audio_stream_send_baudot_* / enable_baudot_decoding) --
+    def _init_baudot(self):
+        from mediastreamer2_tpu_torch.ops.baudot import BaudotFramer
+        self._baudot_framers = [BaudotFramer() for _ in range(self.batch)]
+        self._baudot_mark: Dict[tuple, np.ndarray] = {}
+
+        def on_mark(ev):
+            self._baudot_mark[(ev.tick, ev.leg)] = np.asarray(ev.value)
+
+        def on_space(ev):
+            mark = self._baudot_mark.pop((ev.tick, ev.leg), None)
+            if mark is not None:
+                self._baudot_framers[ev.leg].push_envelopes(mark, np.asarray(ev.value))
+
+        self.ticker.event_queue.set_handler("baudot_det.mark_env", on_mark)
+        self.ticker.event_queue.set_handler("baudot_det.space_env", on_space)
+
+    def set_baudot_mode(self, leg: int, mode: str):
+        """audio_stream_set_baudot_sending_mode: 'us' (45.45 baud) or
+        'europe' (50 baud), a per-leg runtime param, at both chain
+        positions."""
+        baud = {"us": 45.45, "europe": 50.0}[mode]
+
+        def fn(tk, leg=leg, baud=baud):
+            tk.params["baudot_gen"]["baud"][leg] = baud
+        self.ticker.mutate(fn)
+        if hasattr(self, "_baudot_framers"):
+            from mediastreamer2_tpu_torch.ops.baudot import BaudotFramer
+            self._baudot_framers[leg] = BaudotFramer(baud=baud)
+
+    def send_baudot_string(self, leg: int, text: str):
+        """audio_stream_send_baudot_string: queue TTY FSK for this leg's
+        send path (baudot_generator_filter.cpp role)."""
+        if not self.features.baudot:
+            raise RuntimeError("stream built without baudot feature")
+        from mediastreamer2_tpu_torch.ops.baudot import load_text
+
+        def fn(tk, leg=leg, text=text):
+            tk.state["baudot_gen"] = load_text(tk.state["baudot_gen"], {leg: text}, self.batch)
+        self.ticker.mutate(fn)
+
+    def get_baudot_text(self, leg: int) -> str:
+        """Decoded TTY characters received so far on this leg."""
+        return self._baudot_framers[leg].text()
 
     # -- per-leg control surface (audio_stream_* setters) -----------------
     def _set_vol_param(self, node: str, key: str, leg: int, value):

@@ -4,8 +4,9 @@ versions and launch counters.
 Four kernels in ``csrc/ms2_kernels.cu``, one for each function of the JAX
 package that reaches ``pl.pallas_call``
 (``mediastreamer2_tpu/ops/pallas_kernels.py``), and the G.722 codec's two in
-``csrc/g722_kernels.cu``, which replace a ``lax.scan`` (eager PyTorch would
-launch each code slot's integer operations one by one):
+``csrc/g722_kernels.cu`` and the DVI4 and G.726 codecs' four in
+``csrc/adpcm_kernels.cu``, which replace ``lax.scan`` loops (eager PyTorch
+would launch each sample's operations one by one):
 
 ================  =======================================================
 wrapper           replaces
@@ -16,6 +17,10 @@ mdf_update        ``mdf_update`` / ``_mdf_update_kernel`` (:153-201)
 mdf_update_fused  ``mdf_update_fused`` / ``_mdf_update_fused_kernel`` (:227-310)
 g722_encode       ``g722_encode``, ``mediastreamer2_tpu/ops/g722.py:213``
 g722_decode       ``g722_decode``, ``mediastreamer2_tpu/ops/g722.py:221``
+dvi4_encode       ``adpcm_encode``, ``mediastreamer2_tpu/ops/adpcm.py:78``
+dvi4_decode       ``adpcm_decode``, ``mediastreamer2_tpu/ops/adpcm.py:84``
+g726_encode       ``g726_encode``, ``mediastreamer2_tpu/ops/g726.py:172``
+g726_decode       ``g726_decode``, ``mediastreamer2_tpu/ops/g726.py:180``
 ================  =======================================================
 
 Build: at first use, ``nvcc`` compiles each source for ``sm_90a`` into a
@@ -45,7 +50,8 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "ms2_kernels.cu", _PKG / "csrc" / "g722_kernels.cu")
+SOURCES = (_PKG / "csrc" / "ms2_kernels.cu", _PKG / "csrc" / "g722_kernels.cu",
+           _PKG / "csrc" / "adpcm_kernels.cu")
 BUILD_DIR = _PKG / "_build"
 MDF_MAX_P = 16          # partitions one mdf_apply thread holds (csrc MDF_MAX_P)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -95,7 +101,7 @@ def _load():
     global _lib
     if _lib is None:
         paths, _ = build()
-        main, g722 = (ctypes.CDLL(str(p)) for p in paths)
+        main, g722, adpcm = (ctypes.CDLL(str(p)) for p in paths)
         P, I = ctypes.c_void_p, ctypes.c_int
         main.ms2_fused_volume.argtypes = [I] + [P] * 8 + [I, I, P]
         main.ms2_mdf_apply.argtypes = [I, I] + [P] * 12 + [I, I, I, P]
@@ -103,8 +109,14 @@ def _load():
         main.ms2_mdf_update_fused.argtypes = [I, I] + [P] * 17 + [I, I, I, P]
         g722.ms2_g722_encode.argtypes = [I, P, P, P, I, I, P]
         g722.ms2_g722_decode.argtypes = [I, P, P, P, I, I, P]
+        adpcm.ms2_dvi4_encode.argtypes = [I, P, P, P, P, I, I, P]
+        adpcm.ms2_dvi4_decode.argtypes = [I, P, P, P, P, I, I, P]
+        adpcm.ms2_g726_encode.argtypes = [I, I, P, P, P, I, I, P]
+        adpcm.ms2_g726_decode.argtypes = [I, I, P, P, P, I, I, P]
         fns = (main.ms2_fused_volume, main.ms2_mdf_apply, main.ms2_mdf_update,
-               main.ms2_mdf_update_fused, g722.ms2_g722_encode, g722.ms2_g722_decode)
+               main.ms2_mdf_update_fused, g722.ms2_g722_encode, g722.ms2_g722_decode,
+               adpcm.ms2_dvi4_encode, adpcm.ms2_dvi4_decode, adpcm.ms2_g726_encode,
+               adpcm.ms2_g726_decode)
         for fn in fns:
             fn.restype = I
         _lib = types.SimpleNamespace(**{fn.__name__: fn for fn in fns})
@@ -141,7 +153,8 @@ _ptr = torch.Tensor.data_ptr
 
 
 def _wrappers():
-    return (fused_volume, mdf_apply, mdf_update, mdf_update_fused, g722_encode, g722_decode)
+    return (fused_volume, mdf_apply, mdf_update, mdf_update_fused, g722_encode, g722_decode,
+            dvi4_encode, dvi4_decode, g726_encode, g726_decode)
 
 
 def launch_counts() -> dict:
@@ -624,3 +637,263 @@ def g722_decode(codes, state):
 
 
 g722_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dvi4_encode / dvi4_decode
+# ---------------------------------------------------------------------------
+def dvi4_encode_reference(pcm, pred, index):
+    """Plain version: the sample loop of ``_enc_step`` (``adpcm.py:35-58``) in
+    torch int32. pcm int32 [B, S] -> codes int32 [B, S] (0..15); updates
+    ``pred`` and ``index`` (int32 [B]) in place, as the kernel does."""
+    from mediastreamer2_tpu_torch.ops.adpcm import dvi4_tables
+    step_tab, idx_tab = dvi4_tables(pcm.device)
+    p, ix = pred, index
+    codes = []
+    for j in range(pcm.shape[1]):
+        step = step_tab[ix]
+        diff = pcm[:, j] - p
+        sign = (diff < 0).to(_I32) << 3
+        diff = diff.abs()
+        vpdiff = step >> 3
+        b2 = diff >= step
+        diff = torch.where(b2, diff - step, diff)
+        vpdiff = vpdiff + torch.where(b2, step, 0)
+        b1 = diff >= (step >> 1)
+        diff = torch.where(b1, diff - (step >> 1), diff)
+        vpdiff = vpdiff + torch.where(b1, step >> 1, 0)
+        b0 = diff >= (step >> 2)
+        vpdiff = vpdiff + torch.where(b0, step >> 2, 0)
+        delta = (b2.to(_I32) << 2) | (b1.to(_I32) << 1) | b0.to(_I32)
+        p = torch.clamp(torch.where(sign > 0, p - vpdiff, p + vpdiff), -32768, 32767)
+        ix = torch.clamp(ix + idx_tab[delta], 0, 88)
+        codes.append(sign | delta)
+    pred.copy_(p)
+    index.copy_(ix)
+    return torch.stack(codes, dim=1), pred, index
+
+
+def dvi4_decode_reference(codes, pred, index):
+    """Plain version: the loop of ``_dec_step`` (``adpcm.py:61-75``). codes
+    int32 [B, S] -> pcm int32 [B, S]; updates ``pred`` and ``index`` in
+    place."""
+    from mediastreamer2_tpu_torch.ops.adpcm import dvi4_tables
+    step_tab, idx_tab = dvi4_tables(codes.device)
+    p, ix = pred, index
+    out = []
+    for j in range(codes.shape[1]):
+        code = codes[:, j]
+        step = step_tab[ix]
+        delta = code & 7
+        vpdiff = ((step >> 3) + torch.where((delta & 4) != 0, step, 0)
+                  + torch.where((delta & 2) != 0, step >> 1, 0)
+                  + torch.where((delta & 1) != 0, step >> 2, 0))
+        p = torch.clamp(torch.where((code & 8) > 0, p - vpdiff, p + vpdiff), -32768, 32767)
+        ix = torch.clamp(ix + idx_tab[delta], 0, 88)
+        out.append(p)
+    pred.copy_(p)
+    index.copy_(ix)
+    return torch.stack(out, dim=1), pred, index
+
+
+def _dvi4_launch(fn, inp, out, pred, index, dev):
+    B, S = inp.shape
+    _check("pred", pred, torch.int32, (B,), dev)
+    _check("index", index, torch.int32, (B,), dev)
+    _launch(fn, dev, _ptr(inp), _ptr(out), _ptr(pred), _ptr(index), B, S)
+
+
+def dvi4_encode(pcm, pred, index):
+    """DVI4 (IMA ADPCM) encode of one tick for every leg: pcm int32 [B, S]
+    -> codes int32 [B, S] (0..15). ``pred`` and ``index`` (int32 [B]) are
+    updated in place and returned: (codes, pred, index)."""
+    if pcm.device.type == "cpu":
+        return dvi4_encode_reference(pcm, pred, index)
+    dev = _cuda_device(pcm)
+    _check("pcm", pcm, torch.int32, tuple(pcm.shape), dev)
+    codes = torch.empty_like(pcm)
+    _dvi4_launch(_load().ms2_dvi4_encode, pcm, codes, pred, index, dev)
+    dvi4_encode.launches += 1
+    return codes, pred, index
+
+
+dvi4_encode.launches = 0
+
+
+def dvi4_decode(codes, pred, index):
+    """DVI4 decode of one tick for every leg: codes int32 [B, S] -> pcm
+    int32 [B, S]. ``pred`` and ``index`` are updated in place and returned."""
+    if codes.device.type == "cpu":
+        return dvi4_decode_reference(codes, pred, index)
+    dev = _cuda_device(codes)
+    _check("codes", codes, torch.int32, tuple(codes.shape), dev)
+    pcm = torch.empty_like(codes)
+    _dvi4_launch(_load().ms2_dvi4_decode, codes, pcm, pred, index, dev)
+    dvi4_decode.launches += 1
+    return pcm, pred, index
+
+
+dvi4_decode.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# g726_encode / g726_decode
+# ---------------------------------------------------------------------------
+# the 14 leaves of a ``g726_state``, in the kernels' order
+G726_KEYS = ("b", "dq", "a1", "a2", "sr1", "sr2", "p1", "p2", "yu", "yl", "dms", "dml",
+             "ap", "td")
+
+
+# The plain versions keep the JAX package's association order in every
+# expression (``g726.py:86-167``), and so does the kernel: the codes hang on
+# float comparisons, where one ulp flips a code.
+def _g726_scale(z):
+    al = torch.clamp(z["ap"] / 256.0, 0.0, 1.0)
+    return al * z["yu"] + (1.0 - al) * (z["yl"] / 64.0)
+
+
+def _g726_estimate(z):
+    """(sez, se): the zero section's estimate, its six taps summed left to
+    right (a chain, so that no backend reduces in another order than the
+    kernel), and the whole predictor's."""
+    prod = z["b"] * z["dq"]
+    sez = prod[:, 0]
+    for k in range(1, 6):
+        sez = sez + prod[:, k]
+    return sez, sez + z["a1"] * z["sr1"] + z["a2"] * z["sr2"]
+
+
+def _g726_reconstruct(z, code, sez, se, y, T, half):
+    """``reconstruct`` + ``_adapt``: code [B] -> (the next state, sr)."""
+    # a code outside [0, 2^bits) reads the table's last entry, as JAX's
+    # clamped gather does
+    mag = torch.clamp(torch.where(code >= half, code - half, half - 1 - code), max=half - 1)
+    sign = torch.where(code >= half, 1.0, -1.0)
+    dql = T["dqln"][mag] + y / 4.0
+    dq = sign * torch.exp2(dql / 128.0)
+    dq = torch.where(dql < -1024, 0.0, dq)
+    sr = se + dq
+    yu = torch.clamp(y + (T["W"][mag] * 32.0 - y) / 32.0, 544.0, 5120.0)
+    yl = z["yl"] + (yu - z["yl"] / 64.0)
+    yl = torch.clamp(yl, 544.0 * 64, 5120.0 * 64)
+    f = T["F"][mag]
+    dms = z["dms"] + (f * 32.0 - z["dms"]) / 32.0
+    dml = z["dml"] + (f * 128.0 - z["dml"]) / 128.0
+    td = (z["a2"] < -0.71875).to(torch.float32)
+    tr = (z["td"] > 0) & (dq.abs() > 1.5 * torch.exp2(z["yl"] / 64.0 / 128.0))
+    ax = torch.where((y < 1536.0) | (td > 0)
+                     | ((dms / 4.0 - dml / 16.0).abs() >= dml / 128.0), 1.0, 0.0)
+    ap = torch.where(tr, 256.0, z["ap"] + (ax * 512.0 - z["ap"]) / 16.0)
+    sign_dq = torch.sign(dq)
+    b = torch.where(tr[:, None], 0.0,
+                    z["b"] * (1 - 1.0 / 256.0)
+                    + (1.0 / 128.0) * sign_dq[:, None] * torch.sign(z["dq"]))
+    p0 = dq + sez
+    sign_p0 = torch.sign(p0)
+    sign_p1 = torch.sign(z["p1"])
+    a2 = z["a2"] * (1 - 1.0 / 128.0) + (1.0 / 128.0) * (
+        sign_p0 * torch.sign(z["p2"])
+        - 4.0 * torch.clamp(z["a1"] * sign_p0 * sign_p1, -0.25, 0.25))
+    a2 = torch.clamp(a2, -0.75, 0.75)
+    a1 = z["a1"] * (1 - 1.0 / 256.0) + (3.0 / 256.0) * sign_p0 * sign_p1
+    lim = 1.0 - (1.0 / 16.0) - a2
+    a1 = torch.minimum(torch.maximum(a1, -lim), lim)
+    zero = torch.zeros_like(a1)
+    return {"b": b, "dq": torch.cat([dq[:, None], z["dq"][:, :5]], dim=1),
+            "a1": torch.where(tr, zero, a1), "a2": torch.where(tr, zero, a2),
+            "sr1": sr, "sr2": z["sr1"], "p1": p0, "p2": z["p1"],
+            "yu": yu, "yl": yl, "dms": dms, "dml": dml, "ap": ap, "td": td}, sr
+
+
+def _g726_store(state, z):
+    for k in G726_KEYS:
+        state[k].copy_(z[k])
+
+
+def g726_encode_reference(pcm, state, bits: int = 4):
+    """Plain version: the sample loop of ``enc_step`` (``g726.py:152-163``)
+    in torch float32. pcm int32 [B, S] (int16 range) -> codes int32 [B, S]
+    in [0, 2^bits); updates ``state``'s tensors in place."""
+    from mediastreamer2_tpu_torch.ops.g726 import g726_tables
+    T = g726_tables(bits, pcm.device)
+    half = (1 << bits) // 2
+    x = pcm.to(torch.float32) / 4.0                    # 14-bit domain
+    z = dict(state)
+    codes = []
+    for j in range(pcm.shape[1]):
+        sez, se = _g726_estimate(z)
+        d = x[:, j] - se
+        y = _g726_scale(z)
+        dl = torch.log2(torch.clamp(d.abs(), min=1e-6)) * 128.0
+        dln = dl - y / 4.0
+        mag = torch.clamp((dln[:, None] >= T["qtab"]).sum(dim=1, dtype=_I32), max=half - 1)
+        code = torch.where(d >= 0, half + mag, half - 1 - mag)
+        z, _ = _g726_reconstruct(z, code, sez, se, y, T, half)
+        codes.append(code)
+    _g726_store(state, z)
+    return torch.stack(codes, dim=1), state
+
+
+def g726_decode_reference(codes, state, bits: int = 4):
+    """Plain version: the loop of ``dec_step`` (``g726.py:165-167``). codes
+    int32 [B, S] -> pcm float32 [B, S] (the reconstruction times 4, clipped
+    to the int16 range); updates ``state`` in place."""
+    from mediastreamer2_tpu_torch.ops.g726 import g726_tables
+    T = g726_tables(bits, codes.device)
+    half = (1 << bits) // 2
+    z = dict(state)
+    out = []
+    for j in range(codes.shape[1]):
+        sez, se = _g726_estimate(z)
+        z, sr = _g726_reconstruct(z, codes[:, j], sez, se, _g726_scale(z), T, half)
+        out.append(sr)
+    _g726_store(state, z)
+    return torch.clamp(torch.stack(out, dim=1) * 4.0, -32768, 32767), state
+
+
+_G726_LEAF_SHAPES = {"b": (6,), "dq": (6,)}
+
+
+def _g726_launch(fn, bits, inp, out, state, dev):
+    if bits not in (2, 3, 4, 5):
+        raise ValueError(f"g726: {bits} bits a sample, expected 2, 3, 4 or 5")
+    B, S = inp.shape
+    for k in G726_KEYS:
+        _check(k, state[k], torch.float32, (B,) + _G726_LEAF_SHAPES.get(k, ()), dev)
+    ptrs = (ctypes.c_void_p * len(G726_KEYS))(*(_ptr(state[k]) for k in G726_KEYS))
+    _launch(fn, dev, bits, _ptr(inp), _ptr(out), ptrs, B, S)
+
+
+def g726_encode(pcm, state, bits: int = 4):
+    """G.726 encode of one tick for every leg at ``bits`` bits a sample (2,
+    3, 4, 5: 16, 24, 32, 40 kbit/s): pcm int32 [B, S] (int16 range) ->
+    codes int32 [B, S]. ``state`` (``ops/g726.g726_state``) is updated in
+    place and returned."""
+    if pcm.device.type == "cpu":
+        return g726_encode_reference(pcm, state, bits)
+    dev = _cuda_device(pcm)
+    _check("pcm", pcm, torch.int32, tuple(pcm.shape), dev)
+    codes = torch.empty_like(pcm)
+    _g726_launch(_load().ms2_g726_encode, bits, pcm, codes, state, dev)
+    g726_encode.launches += 1
+    return codes, state
+
+
+g726_encode.launches = 0
+
+
+def g726_decode(codes, state, bits: int = 4):
+    """G.726 decode of one tick for every leg: codes int32 [B, S] -> pcm
+    float32 [B, S] in the int16 range. ``state`` is updated in place and
+    returned."""
+    if codes.device.type == "cpu":
+        return g726_decode_reference(codes, state, bits)
+    dev = _cuda_device(codes)
+    _check("codes", codes, torch.int32, tuple(codes.shape), dev)
+    pcm = torch.empty(tuple(codes.shape), dtype=torch.float32, device=dev)
+    _g726_launch(_load().ms2_g726_decode, bits, codes, pcm, state, dev)
+    g726_decode.launches += 1
+    return pcm, state
+
+
+g726_decode.launches = 0

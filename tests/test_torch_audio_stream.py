@@ -456,11 +456,12 @@ def test_session_entry_points_run_on_the_card_unless_told_cpu(monkeypatch):
 def test_waiting_features_raise():
     """What still waits raises, naming its wait (G.722, SRTP, RTCP and
     iterate are ported now: tests/test_torch_g722.py, test_torch_srtp.py,
-    test_torch_rtcp_qos.py)."""
+    test_torch_rtcp_qos.py; Baudot too: tests/test_torch_baudot.py).
+    ``g726_32`` is refused as in the JAX package, whose stream cannot
+    carry it, and the message names the path that does."""
     f = Factory()
-    for kw in ({"codec": "opus"}, {"codec": "g726_32"},
-               {"features": t_as.AudioStreamFeatures(baudot=True)}):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for kw, why in (({"codec": "opus"}, "not ported"), ({"codec": "g726_32"}, "TranscodeBatch")):
+        with pytest.raises(NotImplementedError, match=why):
             t_as.AudioStreamBatch(f, 1, device="cpu", **kw)
     s = t_as.AudioStreamBatch(f, 1, device="cpu")
     s.set_transport(0, t_rtp.LoopbackPair().endpoint(0))

@@ -1,8 +1,9 @@
 """The bound arithmetic of ``chip_smoke.py`` (phase 2) on the CPU: the bytes
 each kernel must move at the flagship's shapes (B = 4096, S = 480,
 P = 8, F = 481), the G.722 kernels' bytes and serial chain at B = 1,024,
-against the figures worked out by hand from the kernels' operands; and
-the launches phase 8a expects a tick pair."""
+the DVI4 and G.726 kernels' the same, against the figures worked out by
+hand from the kernels' operands; the launches phases 8a and 9b expect a
+tick pair or round; and the loops that ``REPLACES`` names."""
 import importlib.util
 import os
 
@@ -104,3 +105,69 @@ def test_phase_8a_launches_a_tick_pair(smoke):
     with pytest.raises(AssertionError, match="mdf_update"):
         smoke._require_counts("8a", dict(launches, mdf_update=1),
                               smoke.session_launches("g722", 1))
+
+
+def test_dvi4_and_g726_bounds(smoke):
+    """DVI4 and G.726 at B = 1,024, S = 80: samples and codes [B, 80] of 4
+    bytes, one in and one out, and the state read and written (2 int32, or
+    24 float32: b[6], dq[6] and twelve scalars): 656 and 832 bytes a leg,
+    0.67 and 0.85 MB. The serial chains: DVI4 15 (encode) and 4 (decode)
+    steps a sample at 4 cycles; G.726 encode 38, 40, 41, 42 steps by rate
+    plus a log2f and an exp2f at 26 cycles each, decode 16 steps plus an
+    exp2f; at 1.98 GHz, the larger bound each time."""
+    nbytes, cycles = smoke.adpcm_cost(1024, 80, "dvi4_encode")
+    assert (nbytes, cycles) == (1024 * (2 * 320 + 2 * 2 * 4), 80 * 15 * 4) == (1024 * 656, 4800)
+    assert smoke.adpcm_cost(1024, 80, "dvi4_decode") == (1024 * 656, 80 * 4 * 4)
+    for bits, steps in ((2, 38), (3, 40), (4, 41), (5, 42)):
+        assert smoke.adpcm_cost(1024, 80, "g726_encode", bits) == (
+            1024 * (2 * 320 + 2 * 24 * 4), 80 * (steps * 4 + 2 * 26))
+        assert smoke.adpcm_cost(1024, 80, "g726_decode", bits) == (1024 * 832, 80 * (16 * 4 + 26))
+    ms, by, bytes_ms, chain_ms = smoke.chain_bound(*smoke.adpcm_cost(1024, 80, "g726_encode", 4))
+    assert bytes_ms == pytest.approx(1024 * 832 / 3.35e12 * 1e3)
+    assert chain_ms == pytest.approx(80 * 216 / 1.98e9 * 1e3) == pytest.approx(0.00873, abs=1e-5)
+    assert (ms, by) == (chain_ms, "operations")
+    assert smoke.chain_bound(*smoke.adpcm_cost(1024, 80, "dvi4_encode"))[0] == pytest.approx(
+        0.00242, abs=1e-5)
+    assert smoke.chain_bound(*smoke.adpcm_cost(1024, 80, "g726_decode", 4))[0] == pytest.approx(
+        0.00364, abs=1e-5)
+    # the chain helper is G.722's too
+    assert smoke.g722_bound((10, 5)) == smoke.chain_bound(10, 5 * smoke.DEP_OP_CYCLES)
+    assert smoke.chain_bound(3.35e9, 1)[1] == "bytes"
+
+
+def test_replaces_names_the_loop_each_kernel_replaces(smoke):
+    """Every kernel has its entry, and each file:line is the ``def`` (or
+    the Pallas wrapper) of that name in the JAX package."""
+    assert list(smoke.REPLACES) == [
+        "fused_volume", "mdf_apply", "mdf_update", "mdf_update_fused", "g722_encode",
+        "g722_decode", "dvi4_encode", "dvi4_decode", "g726_encode", "g726_decode"]
+    jax_name = {"dvi4_encode": "adpcm_encode", "dvi4_decode": "adpcm_decode"}
+    for name, where in smoke.REPLACES.items():
+        path, line = where.rsplit(":", 1)
+        with open(os.path.join(REPO, path)) as f:
+            text = f.readlines()[int(line) - 1]
+        assert text.startswith(f"def {jax_name.get(name, name)}("), (name, where, text)
+    for name in smoke.REPLACES:
+        source = smoke.SOURCES.get(name.split("_")[0], smoke.KERNEL_SOURCE)
+        assert os.path.exists(os.path.join(REPO, source)), source
+    assert smoke.SOURCES["dvi4"] == smoke.SOURCES["g726"] == smoke.ADPCM_SOURCE
+
+
+def test_phase_9_launches_and_fixture(smoke):
+    """A gateway round: the transcoders' G.726 encode and decode once, the
+    talkers' and listeners' four volumes; nothing else. The speech fixture
+    is int32 in the int16 range and repeats from its seed."""
+    assert smoke.gateway_launches(150) == {"g726_encode": 150, "g726_decode": 150,
+                                           "fused_volume": 600}
+    launches = dict.fromkeys(smoke.REPLACES, 0)
+    launches.update(g726_encode=1, g726_decode=1, fused_volume=4)
+    smoke._require_counts("9b", launches, smoke.gateway_launches(1))
+    with pytest.raises(AssertionError, match="g726_decode"):
+        smoke._require_counts("9b", dict(launches, g726_decode=2), smoke.gateway_launches(1))
+    x = smoke.speech_fixture(5, 240, seed=2)
+    assert x.shape == (5, 240) and x.dtype.name == "int32" and abs(x).max() <= 32000
+    assert (x == smoke.speech_fixture(5, 240, seed=2)).all()
+    assert len({int(abs(row).max()) for row in x}) == 5          # the level varies per leg
+    assert set(smoke.CHAIN_BARS) == {"dvi4", "g726_16", "g726_24", "g726_32", "g726_40"}
+    assert smoke.g726_bar_met(0, 0.0, 0.0, 0.0) and not smoke.g726_bar_met(1, 0.0, 0.0, 0.0)
+    assert not smoke.g726_bar_met(0, 0.06, 0.0, 0.0)

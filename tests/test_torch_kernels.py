@@ -67,7 +67,9 @@ def test_fused_volume_counts_no_cpu_launch():
     kernels.fused_volume(*map(torch.from_numpy, _fv_inputs()))
     assert kernels.launch_counts() == {"fused_volume": 0, "mdf_apply": 0,
                                        "mdf_update": 0, "mdf_update_fused": 0,
-                                       "g722_encode": 0, "g722_decode": 0}
+                                       "g722_encode": 0, "g722_decode": 0,
+                                       "dvi4_encode": 0, "dvi4_decode": 0,
+                                       "g726_encode": 0, "g726_decode": 0}
 
 
 def test_mdf_apply_matches_jax_default_path():

@@ -375,8 +375,10 @@ def test_mandatory_key_change():
 
 # -- the port's imports ----------------------------------------------------------
 def test_importing_the_port_loads_no_jax_and_no_cryptography():
-    """Every module of the port, imported in a fresh interpreter, leaves
-    jax, the JAX package and cryptography out of sys.modules."""
+    """Every module of the port (the gateway's among them: the codecs,
+    Baudot, flow control, the bridge, the transcoder and the ring stream),
+    imported in a fresh interpreter, leaves jax, the JAX package and
+    cryptography out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mediastreamer2_tpu_torch as m\n"
@@ -384,6 +386,9 @@ def test_importing_the_port_loads_no_jax_and_no_cryptography():
         "    importlib.import_module(info.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'mediastreamer2_tpu', 'cryptography'))\n"
+        "bad += ['missing ' + n for n in ('ops.adpcm', 'ops.g726', 'ops.baudot',\n"
+        "        'ops.flowcontrol', 'utils.itc', 'models.transcode', 'models.ring_stream')\n"
+        "        if 'mediastreamer2_tpu_torch.' + n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('mediastreamer2_tpu_torch')]), bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-S", "-c", f"import sys; sys.path[:0] = "
