@@ -14,15 +14,21 @@ Needs one CUDA card, nvcc, g++ and nvidia-smi; imports nothing of JAX.
 Phases, in order (any failure raises and the script exits non-zero):
 
 1. card, versions, build times (one nvcc per kernel source and g++ for the
-   edge, started together), the edge's AES path (``native.hw_crypto``) and
-   which system codec and crypto libraries the machine has (printed only);
+   edge, started together), the G.722 kernels' registers and spill bytes
+   from nvcc's ``-Xptxas -v`` report (a spill fails the run), the edge's
+   AES path (``native.hw_crypto``) and which system codec and crypto
+   libraries the machine has (printed only);
 2. each kernel against its plain version, at the flagship's shapes
    (fused_volume; mdf_apply with bf16 and with f32 shadow taps;
    mdf_update at cpos 0, 3, 7; mdf_update_fused, f32 and bf16 shadow)
    at the session's (B = 1,024, S = 80, F = 81: the three kernels of
    its path) and the wideband call's (B = 1,024, S = 160, F = 161), and
-   g722_encode / g722_decode at B = 1,024 (bit-exact, codes, samples and
-   every state leaf, over three ticks), with each one's device time per
+   g722_encode / g722_decode bit-exact (codes or samples and every state
+   leaf after every tick): the ITU vectors as one 1,600-slot tick on one
+   leg and on 1,024 (even legs equal to the vectors' codes and samples),
+   three ticks of random input and three of speech at B = 1,024, and
+   ragged shapes (1, 33 and 1,000 legs x 1, 7 and 160 slots, two ticks
+   each); each kernel with its device time per
    launch (the stream spins while the host enqueues, then one event pair
    around 50 launches, over input sets that spill the L2), its bound
    (bytes over 3.35 TB/s or operations over 67 TFLOP/s, the larger; for
@@ -113,6 +119,7 @@ import ctypes.util
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -191,6 +198,25 @@ SP, SF, S8 = 8, 81, 80        # the session's AEC at 8 kHz
 WF, S16 = 161, 160            # the wideband call's AEC at 16 kHz
 
 
+def ptxas_usage(log: str, fragment: str) -> dict:
+    """Registers and spill bytes of the kernel whose mangled name holds
+    ``fragment``, from nvcc's ``-Xptxas -v`` output: {"registers",
+    "spill_stores", "spill_loads"}; raises if the log has no such kernel."""
+    usage, current = {}, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = fragment in line
+        elif current and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                         line)):
+            usage["spill_stores"], usage["spill_loads"] = int(m[1]), int(m[2])
+        elif current and (m := re.search(r"Used (\d+) registers", line)):
+            usage["registers"] = int(m[1])
+            current = False
+    if set(usage) != {"registers", "spill_stores", "spill_loads"}:
+        raise AssertionError(f"no -Xptxas -v report of {fragment} in the build log")
+    return usage
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
@@ -267,16 +293,18 @@ def mdf_update_fused_cost(B, P, F, ws_bytes, wm_read_legs=0, wm_write_legs=0):
             40 * B * P * F)
 
 
-# G.722: one thread per leg runs the leg's 80 code slots one after another;
-# each slot's predictor needs the previous slot's. The least time is then
-# the slots' chain of dependent integer operations (hand-counted from
-# csrc/g722_kernels.cu: the longest path through one slot, each add,
-# shift, compare, select, multiply or table load one step, sums as binary
-# trees): encode 42 (the lower band: the quantizer needs the prediction s,
-# el -> wd -> 29 thresholds summed -> ilow -> dlow -> block 4 -> s),
-# decode 27 (the codes arrive from the wire, so the chain runs det -> dlowt
-# -> block 4 -> s). Each step waits for its operand: at least 4 cycles of
-# a dependent integer operation, at the H100's 1.98 GHz boost clock.
+# G.722: a leg's 80 code slots run one after another, whatever the
+# mapping (csrc/g722_kernels.cu gives a leg 16 lanes of a warp): each
+# slot's predictor needs the previous slot's. The least time is then the
+# slots' chain of dependent integer operations, counted from the work and
+# not from the mapping, so that the share stays comparable across designs
+# (hand-counted: the longest path through one slot, each add, shift,
+# compare, select, multiply or table load one step, sums as binary trees):
+# encode 42 (the lower band: the quantizer needs the prediction s, el ->
+# wd -> 29 thresholds summed -> ilow -> dlow -> block 4 -> s), decode 27
+# (the codes arrive from the wire, so the chain runs det -> dlowt -> block
+# 4 -> s). Each step waits for its operand: at least 4 cycles of a
+# dependent integer operation, at the H100's 1.98 GHz boost clock.
 G722_SLOTS = 80
 G722_CHAIN_OPS = {"g722_encode": 42, "g722_decode": 27}
 G722_STATE_INTS = 80          # two bands of 28 int32, the 24-sample QMF line
@@ -498,27 +526,81 @@ def _clone_tree(tree):
     return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
 
 
-def g722_checks(kernels, dev, card, B):
-    """Phase 2 for G.722: each kernel against its plain version on the card
-    at B legs over three ticks of the same inputs, the state carried (the
-    codes or samples and every state leaf, bit for bit), then timed beside
-    its bounds (the serial chain and the bytes)."""
+G722_VECTORS = "tests/data/g722_vectors.npz"   # the ITU vectors: pcm, code, dec
+G722_RAGGED = ((1, 33, 1000), (1, 7, 160))    # legs x code slots a tick, 2 ticks each
+
+
+def _g722_run(kernels, name, blocks, dev):
+    """Ticks ``blocks`` (int32 [B, n] each) through a G.722 kernel and its
+    plain version, each from a fresh state carried across the ticks: the
+    outputs and every state leaf bit for bit after each tick. Returns the
+    plain outputs and both final states."""
     from mediastreamer2_tpu_torch.ops.g722 import g722_state
+    kfn, pfn = getattr(kernels, name), getattr(kernels, f"{name}_reference")
+    B = blocks[0].shape[0]
+    st_k, st_p = g722_state(B, dev), g722_state(B, dev)
+    outs = []
+    for t, x in enumerate(blocks):
+        got, want = kfn(x, st_k)[0], pfn(x, st_p)[0]
+        _require_equal(f"{name} [B={B}, {x.shape[1]}] tick {t}", got, want)
+        for i, (a, b) in enumerate(zip(kernels.g722_state_leaves(st_k),
+                                       kernels.g722_state_leaves(st_p))):
+            _require_equal(f"{name} [B={B}, {x.shape[1]}] state leaf {i} after tick {t}", a, b)
+        outs.append(want)
+    return outs, st_k, st_p
+
+
+def g722_checks(kernels, dev, card, B):
+    """Phase 2 for G.722, each kernel bit for bit against its plain version
+    on the card (outputs and every state leaf after every tick): the ITU
+    vectors (3,200 samples as one tick of 1,600 slots) on one leg and on B
+    legs (even legs the vectors, equal to their codes and decoded samples;
+    odd legs speech), three ticks of random samples or codes and three of
+    speech (decoded from the plain encoder's codes) at B legs, and ragged
+    shapes (G722_RAGGED, two ticks each). Then each kernel is timed beside
+    its bounds (the serial chain and the bytes)."""
+    vec = np.load(os.path.join(REPO, G722_VECTORS))
+    n = vec["pcm"].shape[0]
+    speech = speech_fixture(B, n, seed=5)
+    for legs in (1, B):
+        pcm = np.where((np.arange(legs) % 2 == 0)[:, None], vec["pcm"][None], speech[:legs])
+        (enc,), _, _ = _g722_run(kernels, "g722_encode",
+                                 [torch.from_numpy(pcm.astype(np.int32)).to(dev)], dev)
+        if not (enc[0::2].cpu() == torch.from_numpy(vec["code"].astype(np.int32))).all():
+            raise AssertionError(f"g722_encode [B={legs}]: the ITU vector's codes differ")
+        c = np.where((np.arange(legs) % 2 == 0)[:, None], vec["code"][None], enc.cpu().numpy())
+        (pcm_out,), _, _ = _g722_run(kernels, "g722_decode",
+                                     [torch.from_numpy(c.astype(np.int32)).to(dev)], dev)
+        if not (pcm_out[0::2].cpu() == torch.from_numpy(vec["dec"].astype(np.int32))).all():
+            raise AssertionError(f"g722_decode [B={legs}]: the ITU vector's samples differ")
+    print(f"g722 ITU vectors ({n} samples, one tick of {n // 2} slots) on 1 and {B} legs: "
+          f"codes and decoded samples equal to the vectors, kernels equal to plain", flush=True)
+
     g = torch.Generator(device=dev).manual_seed(1)
     pcm = lambda: torch.randint(-32768, 32768, (B, S16), generator=g, device=dev,  # noqa: E731
                                 dtype=torch.int32)
     codes = lambda: torch.randint(0, 256, (B, G722_SLOTS), generator=g, device=dev,  # noqa: E731
                                   dtype=torch.int32)
+    speech = torch.from_numpy(speech_fixture(B, S16 * 3, seed=4)).to(dev)
+    speech_codes, _, _ = _g722_run(
+        kernels, "g722_encode",
+        [speech[:, t * S16:(t + 1) * S16].contiguous() for t in range(3)], dev)
+    _g722_run(kernels, "g722_decode", speech_codes, dev)
+    for legs in G722_RAGGED[0]:
+        for slots in G722_RAGGED[1]:
+            _g722_run(kernels, "g722_encode", [torch.randint(
+                -32768, 32768, (legs, 2 * slots), generator=g, device=dev, dtype=torch.int32)
+                for _ in range(2)], dev)
+            _g722_run(kernels, "g722_decode", [torch.randint(
+                0, 256, (legs, slots), generator=g, device=dev, dtype=torch.int32)
+                for _ in range(2)], dev)
+    print(f"g722 speech ({B} legs, 3 ticks) and ragged shapes (legs {G722_RAGGED[0]} x slots "
+          f"{G722_RAGGED[1]}, 2 ticks): kernels equal to plain", flush=True)
+
     results = {}
-    for name, make, kfn, pfn in (
-            ("g722_encode", pcm, kernels.g722_encode, kernels.g722_encode_reference),
-            ("g722_decode", codes, kernels.g722_decode, kernels.g722_decode_reference)):
-        st_k, st_p = g722_state(B, dev), g722_state(B, dev)
-        for t in range(3):
-            x = make()
-            _require_equal(f"{name} tick {t}", kfn(x, st_k)[0], pfn(x, st_p)[0])
-            for a, b in zip(kernels.g722_state_leaves(st_k), kernels.g722_state_leaves(st_p)):
-                _require_equal(f"{name} state after tick {t}", a, b)
+    for name, make in (("g722_encode", pcm), ("g722_decode", codes)):
+        kfn, pfn = getattr(kernels, name), getattr(kernels, f"{name}_reference")
+        _, st_k, _ = _g722_run(kernels, name, [make() for _ in range(3)], dev)
         cost = g722_cost(B, name)
         sets = [(make(), _clone_tree(st_k)) for _ in range(rotation(cost[0]))]
         r = {"max_abs_err": 0.0, "tolerance": "bit-exact",
@@ -1417,6 +1499,12 @@ def main():
           + ", ".join(os.path.relpath(p, REPO) for p in (*libs, edge)), flush=True)
     if log.strip():
         print(log.strip(), flush=True)
+    for name in ("g722_encode", "g722_decode"):
+        u = ptxas_usage(log, f"{name}_kernel")
+        print(f"{name}: {u['registers']} registers, spill stores {u['spill_stores']} bytes, "
+              f"spill loads {u['spill_loads']} bytes", flush=True)
+        if u["spill_stores"] or u["spill_loads"]:
+            raise AssertionError(f"{name} spills registers: {u}")
     print(f"edge AES: {'AES-NI/SHA-NI/PCLMUL' if native.hw_crypto() else 'libcrypto EVP'} "
           f"(hw_crypto {native.hw_crypto()})", flush=True)
     # which system libraries the host codecs would load (ctypes, as the JAX

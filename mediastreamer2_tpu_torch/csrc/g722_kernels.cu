@@ -12,20 +12,36 @@
 // launches on the stream it is given, allocates nothing, and returns
 // cudaGetLastError().
 //
-// Design: one thread per leg. The leg's codec state (two ADPCM bands of 28
-// int32 each and the 24-sample QMF delay line: 320 bytes) is loaded into
-// registers, the 80 slots run in a loop, and the state is stored back; the
-// slot loop is unrolled inside (the predictor's arrays stay in registers).
-// What bounds it is the serial chain: every slot's predictor depends on the
-// previous slot's, so a leg's 80 slots run one after another at the latency
-// of their dependent integer operations, not at the card's throughput (the
-// bytes, ~2 KB a leg, take well under a microsecond at 3.35 TB/s). The data-
-// dependent table lookups (quantizer levels, inverse quantizers, the log
-// scale factor table) read shared memory: the legs of a warp index them at
-// different entries, which the constant cache would serialise. The QMF and
-// threshold coefficients, indexed by unrolled loop counters (one entry for
-// the whole warp), stay in the constant bank. The next slot's input is
-// loaded one slot ahead, so the global load's latency stays off the chain.
+// Design: the lanes of a warp per leg (G722_LANES lanes a leg: 16 by
+// default, two legs a warp; 32 gives a leg the whole warp, 8 puts four
+// legs in one). Only the two ADPCM recurrences are serial: every slot's
+// predictor needs the previous slot's. Every lane of the leg runs them as
+// the same scalar code on the same values (the band state in registers;
+// the data-dependent tables in shared memory, read as broadcasts), so no
+// lane waits for another. What does not depend on the previous slot
+// leaves that chain:
+// - the QMF. Encode stages the tick's samples in shared memory behind the
+//   22 carried samples of the delay line (one coalesced fill, every load
+//   issued before the first store), and lane l splits the bands of slots
+//   l, l + G722_LANES, ... before the slot loop. Decode writes each slot's
+//   reconstructed pair into that line and recombines it over the lanes
+//   after the loop. Codes, samples and the new line are stored coalesced.
+// - the 6-bit quantizer's 29 threshold products and compares: each lane
+//   holds its kQ6 entries in registers and tests them; the count is the
+//   popc of a ballot (of the leg's segment of it).
+// What bounds it: integer issue within one warp. The slot loop is 364
+// (encode) and ~300 (decode) SASS instructions, nearly all integer, and
+// the integer pipes take a warp-instruction in 2 cycles; a warp's slots run
+// one after another. Lanes repeating a leg's scalar code cost no issue, but
+// warps do: at B = 1,024, 16 lanes give 512 warps (one a scheduler on 128
+// SMs), 32 lanes 1,024 (two a scheduler, each issuing the whole loop).
+// Measured on an H100 at 700 W (tools/g722_variants.py, one call), encode /
+// decode ms a launch at B = 1,024: 16 lanes 0.0314 / 0.0245, within 7% and
+// 2% of 2 cycles an instruction; 8 lanes 0.0335 / 0.0250; 32 lanes 0.0496 /
+// 0.0408; the earlier design, a thread per leg with the QMF and the
+// threshold count on that thread (544 / 391 instructions a slot, 32 warps
+// on 8 SMs), 0.0480 / 0.0360. A tick longer than G722_CHUNK slots runs in chunks, the
+// line carried between.
 //
 // Arithmetic is the JAX package's, bit for bit: int32 with wrap-around, an
 // arithmetic >>, the decoder's output wrapped (not saturated) to int16, and
@@ -35,9 +51,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define G722_THREADS 128
+#ifndef G722_LANES
+#define G722_LANES 16          // lanes a leg: 16, 8 or 32
+#endif
+#define G722_THREADS 128       // 4 warps a block
+#define G722_CHUNK 96          // code slots staged in shared memory at a time
 
 namespace {
+
+static_assert(G722_LANES == 8 || G722_LANES == 16 || G722_LANES == 32,
+              "G722_LANES must be 8, 16 or 32");
+static_assert(G722_CHUNK % 32 == 0, "G722_CHUNK must be a multiple of 32");
+constexpr int kLanes = G722_LANES;
+constexpr int kLegsPerBlock = G722_THREADS / kLanes;
+constexpr int kLegsPerWarp = 32 / kLanes;
+constexpr int kThresholdsPerLane = 32 / kLanes;   // the 29 thresholds over a leg's lanes
+constexpr int kChunk = G722_CHUNK;
+constexpr int kCarried = 11;                      // the line's 22 carried samples, as pairs
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
 // ITU G.722 tables (the same values as mediastreamer2_tpu/ops/g722.py)
 __device__ const int kILN[32] = {
@@ -65,8 +96,8 @@ __device__ const int kQM6[64] = {
     -1040, -728, 24808, 21904, 19008, 16704, 14984, 13512, 12280, 11192,
     10232, 9360, 8576, 7856, 7192, 6576, 6000, 5456, 4944, 4464, 4008, 3576,
     3168, 2776, 2400, 2032, 1688, 1360, 1040, 728, 432, 136, -432, -136};
-// indexed by unrolled loop counters only, the same entry for every thread:
-// the constant bank, read as instruction operands
+// kQ6 is read once a lane into a register; kQMF by unrolled loop counters
+// only (one entry for the whole warp): the constant bank
 __constant__ int kQ6[30] = {
     0, 35, 72, 110, 150, 190, 233, 276, 323, 370, 422, 473, 530, 587, 650,
     714, 786, 858, 940, 1023, 1121, 1219, 1339, 1458, 1612, 1765, 1980,
@@ -222,67 +253,191 @@ __device__ __forceinline__ void block4(Band& z, int d)
     z.s = sat16(z.sp + z.sz);
 }
 
+// A leg's staging area in shared memory. line: the QMF delay line as
+// sample pairs, the 22 carried samples and then the chunk's 2 samples a
+// slot (encode: the input; decode: rlow + rhigh, rlow - rhigh); band: the
+// split bands (xlow, xhigh) a slot; code: the codes a slot.
+struct EncodeLeg {
+    int2 line[kCarried + kChunk];
+    int2 band[kChunk];
+    int code[kChunk];
+};
+struct DecodeLeg {
+    int2 line[kCarried + kChunk];
+    int code[kChunk];
+};
+
+// Which leg a thread serves. A warp whose legs all lie past B returns as a
+// whole (the result); a leg past B in a live warp (when a warp holds
+// several legs) reads the last leg and stores nothing, so that every
+// ballot and __syncwarp of the warp sees all 32 lanes.
+struct LegMap {
+    int lane;     // lane within the leg
+    int local;    // leg within the block
+    int src;      // the leg read
+    bool live;    // the leg is < B: its results are stored
+};
+
+__device__ __forceinline__ bool map_leg(LegMap& m, int B)
+{
+    m.lane = threadIdx.x % kLanes;
+    m.local = threadIdx.x / kLanes;
+    const int leg = (int)blockIdx.x * kLegsPerBlock + m.local;
+    m.live = leg < B;
+    m.src = m.live ? leg : B - 1;
+    return (int)blockIdx.x * kLegsPerBlock + (int)(threadIdx.x / 32) * kLegsPerWarp < B;
+}
+
+// Stage n <= kChunk elements of a leg's row in shared memory: the leg's
+// lanes on consecutive elements, every load issued before the first store.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, int n, int lane)
+{
+    constexpr int kPer = kChunk / kLanes;
+    T v[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+        if (lane + k * kLanes < n) v[k] = __ldg(src + lane + k * kLanes);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+        if (lane + k * kLanes < n) dst[lane + k * kLanes] = v[k];
+}
+
+// The line's 22 carried samples from the state's delay line x[2..23].
+__device__ __forceinline__ void line_load(int2* line, const int* x, int lane)
+{
+    int* l = reinterpret_cast<int*>(line);
+    for (int k = lane; k < 2 * kCarried; k += kLanes) l[k] = x[2 + k];
+}
+
+// After a chunk of n slots: the tick's last chunk stores the new delay
+// line (the line's last 24 samples) into x; any other moves the line's
+// last 22 samples to its head for the next chunk.
+__device__ __forceinline__ void line_advance(int2* line, int n, bool last, int* x,
+                                             bool live, int lane)
+{
+    if (last) {
+        const int* l = reinterpret_cast<const int*>(line);
+        if (live)
+            for (int k = lane; k < 24; k += kLanes) x[k] = l[2 * n - 2 + k];
+        return;
+    }
+    constexpr int kPer = (kCarried + kLanes - 1) / kLanes;
+    int2 keep[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+        if (lane + k * kLanes < kCarried) keep[k] = line[n + lane + k * kLanes];
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+        if (lane + k * kLanes < kCarried) line[lane + k * kLanes] = keep[k];
+    __syncwarp();
+}
+
+// The QMF's two 12-tap sums over the 24 samples of line[j .. j + 11]:
+// .x the even-indexed samples by kQMF, .y the odd-indexed by kQMF reversed
+// (the reference's sumodd and sumeven; xout2 and xout1 when decoding).
+__device__ __forceinline__ int2 qmf_sums(const int2* line, int j)
+{
+    int even = 0, odd = 0;
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+        const int2 w = line[j + k];
+        even += w.x * kQMF[k];
+        odd += w.y * kQMF[11 - k];
+    }
+    return make_int2(even, odd);
+}
+
+// The 6-bit quantizer's index i = 1 + #{k in 1..29 : wd >= (kQ6[k] * det) >> 12}:
+// this lane tests kQ6[1 + lane * kThresholdsPerLane + t] (q6[t], where ok[t])
+// and a ballot counts the leg's lanes; seg is the leg's first lane in the warp.
+__device__ __forceinline__ int quantize6(const int* q6, const bool* ok, int wd, int det,
+                                         int seg)
+{
+    int i = 1;
+#pragma unroll
+    for (int t = 0; t < kThresholdsPerLane; ++t) {
+        const unsigned votes = __ballot_sync(kFullMask, ok[t] && wd >= ((q6[t] * det) >> 12));
+        if constexpr (kLanes == 32)
+            i += __popc(votes);
+        else
+            i += __popc((votes >> seg) & ((1u << kLanes) - 1));
+    }
+    return i;
+}
+
 __global__ void __launch_bounds__(G722_THREADS)
 g722_encode_kernel(const int* __restrict__ pcm, int* __restrict__ codes,
                    BandPtrs lo_p, BandPtrs hi_p, int* __restrict__ x_p, int B, int C)
 {
     __shared__ SharedTables t;
+    __shared__ EncodeLeg legs[kLegsPerBlock];
     load_tables(&t);
-    const int leg = blockIdx.x * blockDim.x + threadIdx.x;
-    if (leg >= B) return;
-    Band lo, hi;
-    band_load(lo, lo_p, leg);
-    band_load(hi, hi_p, leg);
-    int x[24];
+    LegMap m;
+    if (!map_leg(m, B)) return;
+    EncodeLeg& L = legs[m.local];
+    const int seg = (threadIdx.x % 32) / kLanes * kLanes;
+    int q6[kThresholdsPerLane];
+    bool ok[kThresholdsPerLane];
 #pragma unroll
-    for (int k = 0; k < 24; ++k) x[k] = x_p[24 * leg + k];
-    const int2* in = reinterpret_cast<const int2*>(pcm + (size_t)leg * 2 * C);
-    int* out = codes + (size_t)leg * C;
-    int2 next = C > 0 ? in[0] : make_int2(0, 0);
-    for (int j = 0; j < C; ++j) {
-        const int2 xt = next;
-        if (j + 1 < C) next = in[j + 1];               // one slot ahead
-        // QMF transmit: shift in the two new samples, split the bands
-#pragma unroll
-        for (int k = 0; k < 22; ++k) x[k] = x[k + 2];
-        x[22] = xt.x;
-        x[23] = xt.y;
-        int sumodd = 0, sumeven = 0;
-#pragma unroll
-        for (int k = 0; k < 12; ++k) {
-            sumodd += x[2 * k] * kQMF[k];
-            sumeven += x[2 * k + 1] * kQMF[11 - k];
-        }
-        const int xlow = (sumeven + sumodd) >> 13;
-        const int xhigh = (sumeven - sumodd) >> 13;
-
-        // lower band (6-bit)
-        const int el = sat16(xlow - lo.s);
-        int wd = el >= 0 ? el : -(el + 1);
-        int i = 1;
-#pragma unroll
-        for (int k = 1; k < 30; ++k) i += wd >= ((kQ6[k] * lo.det) >> 12);
-        const int ilow = el < 0 ? t.iln[i] : t.ilp[i];
-        const int ril = ilow >> 2;
-        const int dlow = (lo.det * t.qm4[ril]) >> 15;
-        scalel(lo, t.wl[t.rl42[ril]], 18432, 8, t.ilb);
-        block4(lo, dlow);
-
-        // higher band (2-bit)
-        const int eh = sat16(xhigh - hi.s);
-        wd = eh >= 0 ? eh : -(eh + 1);
-        const int mih = wd >= ((564 * hi.det) >> 12) ? 2 : 1;
-        const int ihigh = eh < 0 ? (mih == 1 ? 1 : 0) : (mih == 1 ? 3 : 2);   // IHN / IHP
-        const int dhigh = (hi.det * t.qm2[ihigh]) >> 15;
-        scalel(hi, t.wh[t.rh2[ihigh]], 22528, 10, t.ilb);
-        block4(hi, dhigh);
-
-        out[j] = (ihigh << 6) | ilow;
+    for (int u = 0; u < kThresholdsPerLane; ++u) {
+        const int k = 1 + m.lane * kThresholdsPerLane + u;
+        ok[u] = k < 30;
+        q6[u] = kQ6[ok[u] ? k : 0];
     }
-    band_store(lo, lo_p, leg);
-    band_store(hi, hi_p, leg);
-#pragma unroll
-    for (int k = 0; k < 24; ++k) x_p[24 * leg + k] = x[k];
+    Band lo, hi;
+    band_load(lo, lo_p, m.src);
+    band_load(hi, hi_p, m.src);
+    int* x = x_p + 24 * (size_t)m.src;
+    line_load(L.line, x, m.lane);
+    const int2* in = reinterpret_cast<const int2*>(pcm + (size_t)m.src * 2 * C);
+    int* out = codes + (size_t)m.src * C;
+    for (int j0 = 0; j0 < C; j0 += kChunk) {
+        const int n = min(kChunk, C - j0);
+        stage(L.line + kCarried, in + j0, n, m.lane);
+        __syncwarp();
+        // QMF transmit of the chunk's slots, over the lanes
+        for (int j = m.lane; j < n; j += kLanes) {
+            const int2 s = qmf_sums(L.line, j);
+            L.band[j] = make_int2((s.y + s.x) >> 13, (s.y - s.x) >> 13);   // xlow, xhigh
+        }
+        __syncwarp();
+        int2 next = L.band[0];
+        for (int j = 0; j < n; ++j) {
+            const int2 xb = next;
+            if (j + 1 < n) next = L.band[j + 1];           // one slot ahead
+
+            // lower band (6-bit)
+            const int el = sat16(xb.x - lo.s);
+            int wd = el >= 0 ? el : -(el + 1);
+            const int i = quantize6(q6, ok, wd, lo.det, seg);
+            const int ilow = el < 0 ? t.iln[i] : t.ilp[i];
+            const int ril = ilow >> 2;
+            const int dlow = (lo.det * t.qm4[ril]) >> 15;
+            scalel(lo, t.wl[t.rl42[ril]], 18432, 8, t.ilb);
+            block4(lo, dlow);
+
+            // higher band (2-bit)
+            const int eh = sat16(xb.y - hi.s);
+            wd = eh >= 0 ? eh : -(eh + 1);
+            const int mih = wd >= ((564 * hi.det) >> 12) ? 2 : 1;
+            const int ihigh = eh < 0 ? (mih == 1 ? 1 : 0) : (mih == 1 ? 3 : 2);   // IHN / IHP
+            const int dhigh = (hi.det * t.qm2[ihigh]) >> 15;
+            scalel(hi, t.wh[t.rh2[ihigh]], 22528, 10, t.ilb);
+            block4(hi, dhigh);
+
+            L.code[j] = (ihigh << 6) | ilow;               // every lane, the same value
+        }
+        __syncwarp();
+        if (m.live)
+            for (int j = m.lane; j < n; j += kLanes) out[j0 + j] = L.code[j];
+        line_advance(L.line, n, j0 + n >= C, x, m.live, m.lane);
+    }
+    if (m.live && m.lane == 0) {
+        band_store(lo, lo_p, m.src);
+        band_store(hi, hi_p, m.src);
+    }
 }
 
 __global__ void __launch_bounds__(G722_THREADS)
@@ -290,53 +445,59 @@ g722_decode_kernel(const int* __restrict__ codes, int* __restrict__ pcm,
                    BandPtrs lo_p, BandPtrs hi_p, int* __restrict__ x_p, int B, int C)
 {
     __shared__ SharedTables t;
+    __shared__ DecodeLeg legs[kLegsPerBlock];
     load_tables(&t);
-    const int leg = blockIdx.x * blockDim.x + threadIdx.x;
-    if (leg >= B) return;
+    LegMap m;
+    if (!map_leg(m, B)) return;
+    DecodeLeg& L = legs[m.local];
     Band lo, hi;
-    band_load(lo, lo_p, leg);
-    band_load(hi, hi_p, leg);
-    int x[24];
-#pragma unroll
-    for (int k = 0; k < 24; ++k) x[k] = x_p[24 * leg + k];
-    const int* in = codes + (size_t)leg * C;
-    int2* out = reinterpret_cast<int2*>(pcm + (size_t)leg * 2 * C);
-    int next = C > 0 ? in[0] : 0;
-    for (int j = 0; j < C; ++j) {
-        const int code = next;
-        if (j + 1 < C) next = in[j + 1];               // one slot ahead
-        const int ilow = code & 0x3F;
-        const int ihigh = (code >> 6) & 3;
-        // lower band: 6-bit inverse quantizer for the signal, 4-bit for
-        // the adaptation
-        const int rlow = min(max(lo.s + ((lo.det * t.qm6[ilow]) >> 15), -16384), 16383);
-        const int dlowt = (lo.det * t.qm4[ilow >> 2]) >> 15;
-        scalel(lo, t.wl[t.rl42[ilow >> 2]], 18432, 8, t.ilb);
-        block4(lo, dlowt);
-        // higher band
-        const int dhigh = (hi.det * t.qm2[ihigh]) >> 15;
-        const int rhigh = min(max(dhigh + hi.s, -16384), 16383);
-        scalel(hi, t.wh[t.rh2[ihigh]], 22528, 10, t.ilb);
-        block4(hi, dhigh);
-        // QMF receive: recombine into two 16 kHz samples
-#pragma unroll
-        for (int k = 0; k < 22; ++k) x[k] = x[k + 2];
-        x[22] = rlow + rhigh;
-        x[23] = rlow - rhigh;
-        int xout1 = 0, xout2 = 0;
-#pragma unroll
-        for (int k = 0; k < 12; ++k) {
-            xout2 += x[2 * k] * kQMF[k];
-            xout1 += x[2 * k + 1] * kQMF[11 - k];
+    band_load(lo, lo_p, m.src);
+    band_load(hi, hi_p, m.src);
+    int* x = x_p + 24 * (size_t)m.src;
+    line_load(L.line, x, m.lane);
+    const int* in = codes + (size_t)m.src * C;
+    int2* out = reinterpret_cast<int2*>(pcm + (size_t)m.src * 2 * C);
+    for (int j0 = 0; j0 < C; j0 += kChunk) {
+        const int n = min(kChunk, C - j0);
+        stage(L.code, in + j0, n, m.lane);
+        __syncwarp();
+        int next = L.code[0];
+        // unrolled twice: the predictor's delay lines shift by renaming, not
+        // by register moves (335 -> 299 instructions a slot in SASS)
+#pragma unroll 2
+        for (int j = 0; j < n; ++j) {
+            const int code = next;
+            if (j + 1 < n) next = L.code[j + 1];           // one slot ahead
+            const int ilow = code & 0x3F;
+            const int ihigh = (code >> 6) & 3;
+            // lower band: 6-bit inverse quantizer for the signal, 4-bit for
+            // the adaptation
+            const int rlow = min(max(lo.s + ((lo.det * t.qm6[ilow]) >> 15), -16384), 16383);
+            const int dlowt = (lo.det * t.qm4[ilow >> 2]) >> 15;
+            scalel(lo, t.wl[t.rl42[ilow >> 2]], 18432, 8, t.ilb);
+            block4(lo, dlowt);
+            // higher band
+            const int dhigh = (hi.det * t.qm2[ihigh]) >> 15;
+            const int rhigh = min(max(dhigh + hi.s, -16384), 16383);
+            scalel(hi, t.wh[t.rh2[ihigh]], 22528, 10, t.ilb);
+            block4(hi, dhigh);
+            L.line[kCarried + j] = make_int2(rlow + rhigh, rlow - rhigh);   // every lane
         }
-        // (int16_t)(xout >> 12): wrap, not saturate
-        out[j] = make_int2((((xout1 >> 12) + 32768) & 0xFFFF) - 32768,
-                           (((xout2 >> 12) + 32768) & 0xFFFF) - 32768);
+        __syncwarp();
+        // QMF receive of the chunk's slots, over the lanes: two 16 kHz
+        // samples a slot, (int16_t)(xout >> 12): wrapped, not saturated
+        for (int j = m.lane; j < n; j += kLanes) {
+            const int2 s = qmf_sums(L.line, j);
+            if (m.live)
+                out[j0 + j] = make_int2((((s.y >> 12) + 32768) & 0xFFFF) - 32768,
+                                        (((s.x >> 12) + 32768) & 0xFFFF) - 32768);
+        }
+        line_advance(L.line, n, j0 + n >= C, x, m.live, m.lane);
     }
-    band_store(lo, lo_p, leg);
-    band_store(hi, hi_p, leg);
-#pragma unroll
-    for (int k = 0; k < 24; ++k) x_p[24 * leg + k] = x[k];
+    if (m.live && m.lane == 0) {
+        band_store(lo, lo_p, m.src);
+        band_store(hi, hi_p, m.src);
+    }
 }
 
 // state: 21 device pointers, the leaves of g722_state in this order:
@@ -366,7 +527,7 @@ int ms2_g722_encode(int device, const void* pcm, void* codes, void* const* state
     BandPtrs lo, hi;
     int* x;
     unpack_state(state, &lo, &hi, &x);
-    g722_encode_kernel<<<(B + G722_THREADS - 1) / G722_THREADS, G722_THREADS, 0,
+    g722_encode_kernel<<<(B + kLegsPerBlock - 1) / kLegsPerBlock, G722_THREADS, 0,
                          (cudaStream_t)stream>>>((const int*)pcm, (int*)codes, lo, hi, x, B, C);
     return (int)cudaGetLastError();
 }
@@ -381,7 +542,7 @@ int ms2_g722_decode(int device, const void* codes, void* pcm, void* const* state
     BandPtrs lo, hi;
     int* x;
     unpack_state(state, &lo, &hi, &x);
-    g722_decode_kernel<<<(B + G722_THREADS - 1) / G722_THREADS, G722_THREADS, 0,
+    g722_decode_kernel<<<(B + kLegsPerBlock - 1) / kLegsPerBlock, G722_THREADS, 0,
                          (cudaStream_t)stream>>>((const int*)codes, (int*)pcm, lo, hi, x, B, C);
     return (int)cudaGetLastError();
 }

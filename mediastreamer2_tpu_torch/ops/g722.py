@@ -4,9 +4,11 @@ bundled ITU g722_encode.c / g722_decode.c).
 
 The per-sample recurrence runs in one launch per tick on the card: the
 hand-written kernels ``g722_encode`` / ``g722_decode`` of ``ops/kernels.py``
-(one thread per leg, the 80 code slots of a tick in a loop), where the JAX
-package runs a ``lax.scan``. On the CPU the same wrappers run the plain slot
-loop in torch int32, which the tests hold to the JAX package bit for bit.
+(16 lanes of a warp per leg: the 80 code slots of a tick in a loop, the
+QMF and the quantizer's thresholds over the lanes), where the JAX package
+runs a ``lax.scan``. On the CPU the same wrappers run the plain versions
+in torch int32, decomposed as the kernels are, which the tests hold to the
+JAX package bit for bit.
 
 State per leg (``g722_state``, the JAX package's keys, all int32): two
 bands ``lo`` / ``hi`` of ``s, sp, sz, r[3], a[3], p[3], d[7], b[7], nb,

@@ -75,8 +75,9 @@ def _nvcc() -> str:
 def _build_one(source: Path) -> tuple:
     key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{source.stem}_{key}.so"
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return out, ""
+        return out, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(source)]
@@ -84,6 +85,7 @@ def _build_one(source: Path) -> tuple:
     log = res.stdout + res.stderr
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name} ({res.returncode}):\n{log}")
+    log_path.write_text(log)
     os.replace(tmp, out)
     return out, log
 
@@ -91,7 +93,8 @@ def _build_one(source: Path) -> tuple:
 def build() -> tuple:
     """Compile each source unless a build of that exact source and these
     flags exists, one nvcc per source, started together. Returns (library
-    paths, nvcc's output; empty for libraries already built)."""
+    paths, nvcc's output, ``-Xptxas -v`` included; kept beside each library,
+    so a library already built returns its build's output too)."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         done = list(pool.map(_build_one, SOURCES))
     return tuple(p for p, _ in done), "".join(log for _, log in done)
@@ -520,22 +523,35 @@ def _g722_store(state, z, x):
     state["x"].copy_(x)
 
 
+def _g722_qmf(line, T):
+    """The QMF's two 12-tap sums for every code slot of a tick at once, as
+    the kernels compute them over their lanes: line int32 [B, 22 + 2C], the
+    delay line's 22 carried samples and then 2 samples a slot; slot j's
+    window is line[:, 2j:2j + 24]. Returns (the even-indexed samples by the
+    QMF, the odd-indexed by the QMF reversed), int32 [B, C] each: the
+    reference's sumodd and sumeven (xout2 and xout1 when decoding)."""
+    w = line.unfold(1, 24, 2)                                    # [B, C, 24]
+    return ((w[..., 0::2] * T["qmf"]).sum(dim=-1, dtype=_I32),
+            (w[..., 1::2] * T["qmf_rev"]).sum(dim=-1, dtype=_I32))
+
+
 def g722_encode_reference(pcm, state):
-    """Plain version: the 80-slot loop of ``_enc_step`` (``g722.py:139-178``)
-    in torch int32, the two bands stacked. pcm int32 [B, S] (S even) ->
-    codes int32 [B, S/2]; updates ``state``'s tensors in place."""
+    """Plain version of ``_enc_step`` (``g722.py:139-178``) over a tick in
+    torch int32, decomposed as the kernel is: the QMF of every slot in one
+    pass over the delay line, then the slot loop of the two ADPCM bands
+    (stacked). pcm int32 [B, S] (S even) -> codes int32 [B, S/2]; updates
+    ``state``'s tensors in place."""
     from mediastreamer2_tpu_torch.ops.g722 import g722_tables
     T = g722_tables(pcm.device)
-    B, S = pcm.shape
-    z, x = _g722_stack(state), state["x"]
+    S = pcm.shape[1]
+    z = _g722_stack(state)
+    # QMF transmit: split the bands of every slot
+    line = torch.cat([state["x"][:, 2:], pcm], dim=1)
+    sumodd, sumeven = _g722_qmf(line, T)
+    xbands = torch.stack([sumeven + sumodd, sumeven - sumodd], dim=2) >> 13  # [B, C, 2]
     codes = []
     for j in range(S // 2):
-        # QMF transmit: shift in the two new samples, split the bands
-        x = torch.cat([x[:, 2:], pcm[:, 2 * j:2 * j + 2]], dim=1)
-        sumodd = (x[:, 0::2] * T["qmf"]).sum(dim=1, dtype=_I32)
-        sumeven = (x[:, 1::2] * T["qmf_rev"]).sum(dim=1, dtype=_I32)
-        xband = torch.stack([sumeven + sumodd, sumeven - sumodd], dim=1) >> 13   # xlow, xhigh
-        e = _g722_sat16(xband - z["s"])                          # el, eh [B, 2]
+        e = _g722_sat16(xbands[:, j] - z["s"])                   # el, eh [B, 2]
         wd = torch.where(e >= 0, e, -(e + 1))
         det_lo, det_hi = z["det"][:, 0], z["det"][:, 1]
         # lower band (6-bit)
@@ -550,19 +566,21 @@ def g722_encode_reference(pcm, state):
         _g722_scalel(z, torch.stack([T["rl42"][ril], T["rh2"][ihigh]], dim=1), T)
         _g722_block4(z, d)
         codes.append((ihigh << 6) | ilow)
-    _g722_store(state, z, x)
+    _g722_store(state, z, line[:, -24:])
     return torch.stack(codes, dim=1), state
 
 
 def g722_decode_reference(codes, state):
-    """Plain version: the loop of ``_dec_step`` (``g722.py:181-210``) in
-    torch int32. codes int32 [B, C] -> pcm int32 [B, 2C] (16 kHz), wrapped
-    to int16 as the reference's cast does; updates ``state`` in place."""
+    """Plain version of ``_dec_step`` (``g722.py:181-210``) over a tick in
+    torch int32, decomposed as the kernel is: the slot loop of the two ADPCM
+    bands, then the QMF of every slot in one pass over the delay line.
+    codes int32 [B, C] -> pcm int32 [B, 2C] (16 kHz), wrapped to int16 as
+    the reference's cast does; updates ``state`` in place."""
     from mediastreamer2_tpu_torch.ops.g722 import g722_tables
     T = g722_tables(codes.device)
     B, C = codes.shape
-    z, x = _g722_stack(state), state["x"]
-    out = []
+    z = _g722_stack(state)
+    recon = []
     for j in range(C):
         code = codes[:, j]
         ilow = code & 0x3F
@@ -575,13 +593,12 @@ def g722_decode_reference(codes, state):
         rhigh = torch.clamp(d[:, 1] + s[:, 1], -16384, 16383)
         _g722_scalel(z, torch.stack([T["rl42"][ilow >> 2], T["rh2"][ihigh]], dim=1), T)
         _g722_block4(z, d)
-        # QMF receive: recombine into two 16 kHz samples
-        x = torch.cat([x[:, 2:], (rlow + rhigh)[:, None], (rlow - rhigh)[:, None]], dim=1)
-        xout2 = (x[:, 0::2] * T["qmf"]).sum(dim=1, dtype=_I32)
-        xout1 = (x[:, 1::2] * T["qmf_rev"]).sum(dim=1, dtype=_I32)
-        out.append(torch.stack([xout1 >> 12, xout2 >> 12], dim=1))
-    _g722_store(state, z, x)
-    pcm = torch.stack(out, dim=1).reshape(B, 2 * C)
+        recon.append(torch.stack([rlow + rhigh, rlow - rhigh], dim=1))
+    # QMF receive: recombine every slot into two 16 kHz samples
+    line = torch.cat([state["x"][:, 2:], torch.stack(recon, dim=1).reshape(B, 2 * C)], dim=1)
+    xout2, xout1 = _g722_qmf(line, T)
+    _g722_store(state, z, line[:, -24:])
+    pcm = torch.stack([xout1 >> 12, xout2 >> 12], dim=2).reshape(B, 2 * C)
     return ((pcm + 32768) & 0xFFFF) - 32768, state
 
 

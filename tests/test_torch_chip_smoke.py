@@ -171,3 +171,103 @@ def test_phase_9_launches_and_fixture(smoke):
     assert set(smoke.CHAIN_BARS) == {"dvi4", "g726_16", "g726_24", "g726_32", "g726_40"}
     assert smoke.g726_bar_met(0, 0.0, 0.0, 0.0) and not smoke.g726_bar_met(1, 0.0, 0.0, 0.0)
     assert not smoke.g726_bar_met(0, 0.06, 0.0, 0.0)
+
+
+_PTXAS_LOG = """ptxas info    : 0 bytes gmem, 416 bytes cmem[3]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118g722_decode_kernelEPKiPiNS_8BandPtrsES3_S2_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118g722_decode_kernelEPKiPiNS_8BandPtrsES3_S2_ii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 94 registers, 17216 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118g722_encode_kernelEPKiPiNS_8BandPtrsES3_S2_ii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118g722_encode_kernelEPKiPiNS_8BandPtrsES3_S2_ii
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 96 registers, 32576 bytes smem, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_reads_registers_and_spills(smoke):
+    """Phase 1 reads each G.722 kernel's registers and spill bytes from
+    nvcc's -Xptxas -v report, and fails on a kernel the report lacks."""
+    assert smoke.ptxas_usage(_PTXAS_LOG, "g722_decode_kernel") == {
+        "registers": 94, "spill_stores": 0, "spill_loads": 0}
+    assert smoke.ptxas_usage(_PTXAS_LOG, "g722_encode_kernel") == {
+        "registers": 96, "spill_stores": 12, "spill_loads": 16}
+    with pytest.raises(AssertionError, match="mdf_apply"):
+        smoke.ptxas_usage(_PTXAS_LOG, "mdf_apply_kernel")
+
+
+def test_g722_run_compares_every_tick_and_leaf(smoke):
+    """Phase 2's G.722 check on the CPU, where the wrappers run the plain
+    versions: equal runs pass and return the plain outputs; a kernel whose
+    output or state differs on a later tick fails there."""
+    import types
+
+    import torch
+
+    from mediastreamer2_tpu_torch.ops import kernels
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(0)
+    blocks = [torch.randint(-32768, 32768, (3, 14), generator=g, dtype=torch.int32)
+              for _ in range(2)]
+    outs, st_k, st_p = smoke._g722_run(kernels, "g722_encode", blocks, cpu)
+    assert [tuple(o.shape) for o in outs] == [(3, 7), (3, 7)]
+    assert all(torch.equal(a, b) for a, b in zip(kernels.g722_state_leaves(st_k),
+                                                 kernels.g722_state_leaves(st_p)))
+
+    calls = []
+
+    def off_by_one_code(x, st):                 # wrong from the second tick on
+        calls.append(1)
+        codes, st = kernels.g722_encode_reference(x, st)
+        return codes + (len(calls) > 1), st
+
+    def bad_state(x, st):
+        codes, st = kernels.g722_encode_reference(x, st)
+        st["hi"]["det"][1] += 1
+        return codes, st
+    for fn, what in ((off_by_one_code, "tick 1"), (bad_state, "state leaf 19 after tick 0")):
+        fake = types.SimpleNamespace(g722_encode=fn,
+                                     g722_encode_reference=kernels.g722_encode_reference,
+                                     g722_state_leaves=kernels.g722_state_leaves)
+        with pytest.raises(AssertionError, match=what):
+            smoke._g722_run(fake, "g722_encode", blocks, cpu)
+
+
+_SASS = """\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_118g722_encode_kernelEPKiPiNS_8BandPtrsES3_S2_ii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   IMAD R2, R0, 0x4, RZ ;
+        /*0030*/                   LDS R3, [R2] ;
+        /*0040*/                   VOTE.ANY R4, PT, P0 ;
+        /*0050*/                   POPC R5, R4 ;
+        /*0060*/              @!P0 BRA 0x20 ;
+        /*0070*/                   IADD3 R6, R5, 0x1, RZ ;
+        /*0080*/                   BRA 0x70 ;
+        /*0090*/               @P1 BRA 0x0 ;
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   NOP ;
+\t\tFunction : _ZN12_GLOBAL__N_118mdf_apply_kernelEv
+        /*0000*/                   BRA 0x0 ;
+"""
+
+
+def test_g722_variants_reads_the_slot_loop(monkeypatch):
+    """tools/g722_variants.py --sass: a loop is a backward branch's span,
+    the slot loop the largest loop that holds no other (here 0x20..0x60,
+    inside the loop 0x0..0x90), counted without NOPs; other kernels are
+    skipped."""
+    import subprocess
+    import types
+    spec = importlib.util.spec_from_file_location(
+        "g722_variants", os.path.join(REPO, "tools", "g722_variants.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.setattr(tool.kernels, "_nvcc", lambda: "/usr/local/cuda/bin/nvcc")
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: types.SimpleNamespace(stdout=_SASS))
+    total, loops, slot, mix = tool.sass_loops("lib.so")["g722_encode"]
+    assert total == 11
+    assert loops == [(0x20, 0x60, 5), (0x70, 0x80, 2), (0x0, 0x90, 10)]
+    assert slot == 5
+    assert mix == {"IMAD": 1, "LDS": 1, "VOTE": 1, "POPC": 1, "BRA": 1}
+    assert set(tool.sass_loops("lib.so")) == {"g722_encode"}

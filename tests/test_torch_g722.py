@@ -36,11 +36,6 @@ S16 = 160          # samples a tick at 16 kHz
 C = 80             # code slots a tick
 
 
-def _pcm_ticks(B, ticks, seed):
-    rng = np.random.default_rng(seed)
-    return rng.integers(-30000, 30000, (B, S16 * ticks)).astype(np.int32)
-
-
 def _leaves(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -75,18 +70,25 @@ def test_plain_versions_match_itu_vectors(direction):
     np.testing.assert_array_equal(got[0].numpy(), want.astype(np.int32))
 
 
-@pytest.mark.parametrize("direction", ["encode", "decode"])
-def test_three_ticks_match_jax_with_state_carried(direction):
-    """Three 10 ms ticks through JAX's g722_encode / g722_decode and the
-    port's wrappers (their plain versions here), state carried across:
-    the same codes or samples, and the same state leaf by leaf through
-    utils/convert.py."""
-    B, ticks = 4, 3
+# the 10 ms tick (80 slots, 4 legs), and at 3 legs ticks of 1 slot and of 7
+# (the new delay line still holds samples of the one before: JAX's is the
+# last 24 of concat(x[2:], new) slot by slot) and of 160 (longer than the
+# kernels' chunk of slots staged at a time)
+@pytest.mark.parametrize("direction,B,slots", [
+    pytest.param("encode", 4, C, id="encode"), pytest.param("decode", 4, C, id="decode")]
+    + [pytest.param(d, 3, n, id=f"{d}-C{n}") for n in (1, 7, 160) for d in ("encode", "decode")])
+def test_three_ticks_match_jax_with_state_carried(direction, B, slots):
+    """Three ticks through JAX's g722_encode / g722_decode and the port's
+    wrappers (their plain versions here, decomposed as the kernels are: the
+    QMF of the whole tick in one pass), state carried across: the same codes
+    or samples, and the same state leaf by leaf through utils/convert.py."""
+    ticks = 3
     if direction == "encode":
-        data, width, jfn, tfn = _pcm_ticks(B, ticks, seed=1), S16, jg.g722_encode, tg.g722_encode
+        data = np.random.default_rng(1).integers(-30000, 30000, (B, 2 * slots * ticks))
+        data, width, jfn, tfn = data.astype(np.int32), 2 * slots, jg.g722_encode, tg.g722_encode
     else:
-        data = np.random.default_rng(2).integers(0, 256, (B, C * ticks)).astype(np.int32)
-        width, jfn, tfn = C, jg.g722_decode, tg.g722_decode
+        data = np.random.default_rng(2).integers(0, 256, (B, slots * ticks)).astype(np.int32)
+        width, jfn, tfn = slots, jg.g722_decode, tg.g722_decode
     jst, tst = jg.g722_state(B), tg.g722_state(B, "cpu")
     for t in range(ticks):
         blk = data[:, t * width:(t + 1) * width]

@@ -209,3 +209,27 @@ def test_wrapper_rejects_other_devices():
     z = torch.zeros((2,), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         kernels.fused_volume(x, z, z, z, z)
+
+
+def test_build_keeps_nvcc_output_beside_the_library(tmp_path, monkeypatch):
+    """A library built once is not built again, and its build's output
+    (the -Xptxas -v report phase 1 reads) comes back with it."""
+    import sys
+    from pathlib import Path
+    fake = tmp_path / "nvcc"
+    runs = tmp_path / "runs"
+    fake.write_text(f"#!{sys.executable}\n"
+                    "import sys\n"
+                    f"open({str(runs)!r}, 'a').write('x')\n"
+                    "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n"
+                    "print('ptxas info    : Used 10 registers')\n")
+    fake.chmod(0o755)
+    src = tmp_path / "k.cu"
+    src.write_text("// a source\n")
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    first = kernels._build_one(Path(src))
+    second = kernels._build_one(Path(src))
+    assert first == second and first[0].exists()
+    assert "Used 10 registers" in second[1]
+    assert runs.read_text() == "x"
