@@ -14,8 +14,9 @@ Needs one CUDA card, nvcc, g++ and nvidia-smi; imports nothing of JAX.
 Phases, in order (any failure raises and the script exits non-zero):
 
 1. card, versions, build times (one nvcc per kernel source and g++ for the
-   edge, started together), the G.722 kernels' registers and spill bytes
-   from nvcc's ``-Xptxas -v`` report (a spill fails the run), the edge's
+   edge, started together), the G.722 and G.726 kernels' registers and
+   spill bytes from nvcc's ``-Xptxas -v`` report (a spill fails the run),
+   the edge's
    AES path (``native.hw_crypto``) and which system codec and crypto
    libraries the machine has (printed only);
 2. each kernel against its plain version, at the flagship's shapes
@@ -35,10 +36,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    G.722 the serial chain of its 80 code slots instead of the throughput)
    and its share of the bound; dvi4_encode / dvi4_decode (bit-exact) and
    g726_encode / g726_decode at 16, 24, 32 and 40 kbit/s at B = 1,024 over
-   three ticks of speech (the codes that differ are counted: the bar is
-   none; decoded samples within 0.05 of an int16 step and every state leaf
-   within 1e-5 of its largest magnitude), and at a ragged shape (77 legs,
-   200 samples), each beside its serial-chain and bytes bounds;
+   three ticks of speech, bit-exact (codes, decoded samples and every state
+   leaf; the codes that differ are counted and printed) and at every rate
+   on ragged shapes (1, 33, 77 and 1,000 legs x 1, 7, 80 and 200 samples,
+   two ticks each; DVI4 at 77 legs x 200 samples), each beside its
+   serial-chain and bytes bounds;
 3. the flagship at 4,096 legs (1,024 four-party conferences) for 100
    ticks of echo-coupled input: fused_volume, mdf_apply and
    mdf_update_fused launched once per tick and mdf_update never, all
@@ -72,7 +74,13 @@ Phases, in order (any failure raises and the script exits non-zero):
    sampled listener's recording to audio_diff > 0.85 against its
    talker's speech as sent (the talker's codes on the wire; the talker's
    own AGC shapes it) and > 0.7 against its mic, and the talker's own
-   recording to < 5% of a listener's energy (mix-minus); 7c: 8 + 8 legs
+   recording to < 5% of a listener's energy (mix-minus); 7b, whose late
+   tickers make the jitter buffers underrun or discard mid-run, holds the
+   first two tick by tick along the path each listener's packets took
+   (logged sequence numbers: each stretch between events at its own
+   delay, the concealed ticks left out, at least half the ticks played)
+   and prints each listener's line;
+   7c: 8 + 8 legs
    on the CPU against the card, the listeners' recordings held to the
    bar of phase 4;
 8. the secured wideband call: phase 7's clients and server with G.722 at
@@ -147,6 +155,12 @@ REPLACES = {  # the TPU kernel (or lax.scan) each CUDA kernel replaces
 }
 SOURCES = {"g722": G722_SOURCE, "dvi4": ADPCM_SOURCE, "g726": ADPCM_SOURCE}   # by name prefix
 SYSTEM_LIBRARIES = ("opus", "gsm", "avcodec", "ssl", "crypto")
+# kernels whose registers phase 1 prints and whose spills fail it, by a
+# fragment of the mangled name (G.726 at 40 kbit/s: the most thresholds
+# and candidates a lane)
+SPILL_CHECKED = {"g722_encode": "g722_encode_kernel", "g722_decode": "g722_decode_kernel",
+                 "g726_encode (40 kbit/s)": "g726_encode_kernelILi5E",
+                 "g726_decode (40 kbit/s)": "g726_decode_kernelILi5E"}
 LEGS = 4096
 TICKS = 100
 CROSS_LEGS = 256
@@ -159,6 +173,7 @@ SESSION_LEGS = 1024           # phase 7a: clients and server, each
 SESSION_TICKS = 150
 PACED_LEGS = 64               # phase 7b
 PACED_TICKS = 300
+PACED_PLAYED_MIN = 0.5        # 7b: share of a listener's ticks its talker's packets reach
 CROSS_SESSION_LEGS = 8        # phase 7c
 CROSS_SESSION_TICKS = 150
 WIDE_LEGS = 1024              # phase 8a: clients and server, each
@@ -619,13 +634,17 @@ def g722_checks(kernels, dev, card, B):
 
 
 # G.726 on the card, kernel against plain version (float32 through log2f and
-# exp2f). The bar, chosen from the measurement this check prints (PERF.md §5):
-# no code may differ; decoded samples within G726_PCM_ATOL of an int16 step;
-# every state leaf within G726_STATE_RTOL of the leaf's largest magnitude.
+# exp2f, in the same association order, no contracted multiply-add): to the
+# bit. No code may differ, and neither may a decoded sample or any of the 14
+# state leaves (the measurement this check prints, PERF.md §5, has found no
+# difference since the kernels were written).
 G726_CODES_DIFFERING_MAX = 0
-G726_PCM_ATOL = 0.05
-G726_STATE_RTOL = 1e-5
+G726_PCM_ATOL = 0.0
+G726_STATE_RTOL = 0.0
 ADPCM_CHECK_TICKS = 3
+# legs x samples a tick, two ticks each, at every rate: warps partly past B
+# and ticks that are not a multiple of the lanes a leg
+G726_RAGGED = ((1, 33, 77, 1000), (1, 7, 80, 200))
 
 
 def speech_fixture(legs, n, seed=0) -> np.ndarray:
@@ -676,6 +695,25 @@ def g726_compare(kernels, blocks, bits, dev):
 def g726_bar_met(differing, pcm_err, e_err, d_err) -> bool:
     return (differing <= G726_CODES_DIFFERING_MAX and pcm_err <= G726_PCM_ATOL
             and max(e_err, d_err) <= G726_STATE_RTOL)
+
+
+def g726_exact(kernels, blocks, bits, dev, what):
+    """``g726_compare`` of ``blocks`` at ``bits``, held to the bar."""
+    measured = g726_compare(kernels, blocks, bits, dev)[0]
+    if not g726_bar_met(*measured):
+        raise AssertionError(f"g726 at {G726_RATES[bits]} kbit/s, {what}: codes differing, "
+                             f"sample and state errors {measured}")
+
+
+def g726_ragged_checks(kernels, dev):
+    """Every rate on every G726_RAGGED shape, two ticks of speech each, the
+    state carried: the kernels equal to their plain versions."""
+    for legs in G726_RAGGED[0]:
+        for n in G726_RAGGED[1]:
+            x = torch.from_numpy(speech_fixture(legs, 2 * n, seed=legs + n)).to(dev)
+            blocks = [x[:, :n].contiguous(), x[:, n:].contiguous()]
+            for bits in G726_RATES:
+                g726_exact(kernels, blocks, bits, dev, f"{legs} legs x {n} samples")
 
 
 def _adpcm_row(name, label, B, bits, kfn, pfn, make_set, err, tolerance, card, what):
@@ -738,8 +776,9 @@ def adpcm_checks(kernels, dev, card, B):
         kernels.dvi4_decode_reference,
         lambda: (codes[-1], *(s.clone() for s in ks)), 0.0, "bit-exact", card, what)
 
-    # a ragged block and a tick longer than the kernels' 80-sample chunk
-    # (77 legs x 200 samples, one tick): DVI4 bit for bit, G.726-32 to its bar
+    # a ragged block and a tick longer than 80 samples (77 legs x 200
+    # samples, one tick): DVI4 bit for bit; G.726 at every rate on
+    # G726_RAGGED's shapes
     rb, rs = 77, 200
     x = torch.from_numpy(speech_fixture(rb, rs, seed=3)).to(dev)
     zr = lambda: torch.zeros((rb,), dtype=torch.int32, device=dev)      # noqa: E731
@@ -747,9 +786,10 @@ def adpcm_checks(kernels, dev, card, B):
     _require_equal("dvi4_encode ragged", kernels.dvi4_encode(x, zr(), zr())[0], c)
     _require_equal("dvi4_decode ragged", kernels.dvi4_decode(c, zr(), zr())[0],
                    kernels.dvi4_decode_reference(c, zr(), zr())[0])
-    measured = g726_compare(kernels, [x], 4, dev)[0]
-    if not g726_bar_met(*measured):
-        raise AssertionError(f"g726 ragged: codes differing, sample and state errors {measured}")
+    g726_ragged_checks(kernels, dev)
+    print(f"g726 ragged shapes (legs {G726_RAGGED[0]} x samples {G726_RAGGED[1]}, 2 ticks, "
+          f"every rate): kernels equal to plain in codes, samples and every state leaf",
+          flush=True)
 
     # G.726 at each rate: measure, then hold to the bar
     for bits, kbps in G726_RATES.items():
@@ -763,7 +803,7 @@ def adpcm_checks(kernels, dev, card, B):
                 f"decoder {d_err:.3e} (bar {G726_STATE_RTOL})")
         if not g726_bar_met(*measured):
             raise AssertionError(f"g726 at {kbps} kbit/s {what}")
-        tol = (f"codes equal, samples atol {G726_PCM_ATOL}, state rtol {G726_STATE_RTOL}")
+        tol = "bit-exact: codes, samples and every state leaf"
         results[f"g726_encode@{kbps}"] = _adpcm_row(
             "g726_encode", f"g726_encode ({kbps} kbit/s)", B, bits,
             lambda x, st, bits=bits: kernels.g726_encode(x, st, bits),
@@ -1014,7 +1054,8 @@ class Session:
         listeners' (mix-minus). Legs in ``skip`` are left out. With a
         ``settle`` window, a listener's recording from that tick on is held
         to the part of the speech it plays, found by the lag over the whole
-        signals."""
+        signals. Each listener's audio_diff against the speech sent and its
+        lag are kept in ``self.leg_sims`` (leg -> (audio_diff, lag))."""
         from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
         n = self.S * self.ticks
         start = self.S * self.settle
@@ -1022,22 +1063,48 @@ class Session:
         def sim(ref, rec):
             got, lag = audio_diff(ref, rec)
             if not start:
-                return got
+                return got, lag
             lag = max(0, min(lag, start))
-            return audio_diff(ref[start - lag:n - lag], rec[start:])[0]
+            return audio_diff(ref[start - lag:n - lag], rec[start:])[0], lag
+
         rec = self.clients.get_recording()[:, :n]
         confs = list(range(0, self.legs // 4, conf_step))
         said = self.said(confs)
         sim_sent, sim_mic, ratio = [], [], []
+        self.leg_sims = {}
         for j, k in enumerate(confs):
             e_talker = float((rec[4 * k, start:] ** 2).mean())
             for leg in range(4 * k + 1, 4 * k + 4):
                 if leg in skip:
                     continue
-                sim_sent.append(sim(said[j], rec[leg]))
-                sim_mic.append(sim(self.mic[4 * k, :n], rec[leg]))
+                got, lag = sim(said[j], rec[leg])
+                sim_sent.append(got)
+                self.leg_sims[leg] = (got, lag)
+                sim_mic.append(sim(self.mic[4 * k, :n], rec[leg])[0])
                 ratio.append(e_talker / (float((rec[leg, start:] ** 2).mean()) + 1e-20))
         return min(sim_sent), min(sim_mic), max(ratio), rec
+
+    def heard(self):
+        """{listener leg: int [ticks]}: for each tick of the listener's
+        recording, the tick of its talker's speech that it played, followed
+        through the listener's jitter buffer (the server's packet played),
+        the server's mix and the talker's jitter buffer on the server (the
+        talker's packet mixed); -1 where either buffer concealed the tick.
+        Needs ``Playout`` on both streams (``self.playout``) from the first
+        tick."""
+        clients, server = self.playout
+        out = {}
+        for k in range(self.legs // 4):
+            talker = clients.ticks_by_seq(4 * k)
+            for leg in range(4 * k + 1, 4 * k + 4):
+                mixed = server.ticks_by_seq(leg)
+                got = np.full(self.ticks, -1)
+                for t in range(self.ticks):
+                    u = mixed.get(clients.played[t][leg])
+                    v = talker.get(server.played[u][4 * k]) if u in server.played else None
+                    got[t] = -1 if v is None else v
+                out[leg] = got
+        return out
 
     def check(self, conf_step, skip=()):
         """(bars met, a line that states them)."""
@@ -1047,6 +1114,54 @@ class Session:
                     f"{sim_sent:.4f} against the speech sent, {sim_mic:.4f} against the "
                     f"mic; talker/listener energy max {ratio:.2e}; outputs finite "
                     f"{self.finite[0]}, bars met {ok}")
+
+
+class Playout:
+    """One stream's RTP sequence numbers by tick and leg: ``sent[tick]``
+    the packet each leg sent that tick, ``played[tick]`` the packet each
+    leg's jitter buffer played (None: the tick was concealed). Installed
+    around the ticker's pull and push and each leg's jitter buffer's
+    ``get_tick``, which the stream's pull calls once a leg."""
+
+    def __init__(self, stream):
+        self.sent, self.played = {}, {}
+        sessions = stream.sessions
+        now = [None] * len(sessions)
+        for i, sess in enumerate(sessions):
+            jb = sess.jitter_buffer
+
+            def get_tick(i=i, jb=jb, get=jb.get_tick):
+                seq, payload = jb.next_seq, get()
+                now[i] = None if payload is None else seq
+                return payload
+            jb.get_tick = get_tick
+        pull, push = stream.ticker._io_pull, stream.ticker._io_push
+
+        def pulled(tick):
+            now[:] = [None] * len(now)
+            ext_in = pull(tick)
+            self.played[tick] = list(now)
+            return ext_in
+
+        def pushed(tick, out):
+            self.sent[tick] = [sess.seq for sess in sessions]    # this tick's packets
+            push(tick, out)
+        stream.ticker.set_io(pull=pulled, push=pushed)
+
+    def ticks_by_seq(self, leg):
+        """{sequence number: the tick that sent it} for ``leg``."""
+        return {seqs[leg]: t for t, seqs in self.sent.items()}
+
+
+def mapped_sim(ref, rec, S, heard):
+    """The normalized correlation of ``rec``'s ticks with the ticks of
+    ``ref`` they played (``heard[t]``, -1 for none), and the share of
+    rec's ticks compared."""
+    t = np.flatnonzero((heard >= 0) & (heard < len(ref) // S))
+    a = rec[:len(heard) * S].astype(np.float64).reshape(-1, S)[t]
+    b = ref[:len(ref) // S * S].astype(np.float64).reshape(-1, S)[heard[t]]
+    den = np.sqrt((a * a).sum() * (b * b).sum())
+    return (float((a * b).sum() / den) if den > 0 else 0.0), len(t) / max(len(heard), 1)
 
 
 def session_launches(codec, ticks):
@@ -1139,9 +1254,19 @@ def session_edge(kernels, dev, card, legs, ticks, phase="7a", codec="ulaw", rate
 def session_paced(dev, card, legs, ticks):
     """Phase 7b: the session pair over LoopbackPair (the per-leg RtpSession
     path), both tickers warmed, then start()ed paced on their own threads:
-    the clients for ``ticks`` ticks, the server until 20 ticks after them."""
+    the clients for ``ticks`` ticks, the server until 20 ticks after them.
+    Both tickers run late (their host time exceeds a tick), so the jitter
+    buffers' fill drifts and they underrun or discard mid-run, as the JAX
+    package's do: each such event conceals a tick or skips one, and moves
+    the playout's delay by a tick, which one audio_diff lag over the whole
+    run cannot follow. So each listener's recording is held to its
+    talker's speech tick by tick along the path its packets took
+    (``Playout``, ``Session.heard``): every stretch between events at its
+    own delay, the concealed ticks left out. The fixed-lag audio_diff is
+    printed beside it. Returns the Session."""
     sess = Session(dev, legs, ticks, seed=40)
     sess.loopback()
+    sess.playout = (Playout(sess.clients), Playout(sess.server))
     for s in (sess.server, sess.clients):
         s.ticker.realtime = True
         s.ticker.warm_up()
@@ -1154,10 +1279,33 @@ def session_paced(dev, card, legs, ticks):
         s.stop()
     if alive:
         raise AssertionError("session 7b: the paced clients did not finish")
-    jb = [s.sessions[0].jitter_buffer for s in (sess.server, sess.clients)]
     st = [(s.ticker.stats.ticks, s.ticker.stats.late_ticks, s.ticker.get_average_load(),
            s.ticker.stats.mean_step_ms) for s in (sess.clients, sess.server)]
-    ok, line = sess.check(conf_step=1)
+    fixed_sent, fixed_mic, ratio, rec = sess.bars(conf_step=1)
+    said = sess.said(list(range(legs // 4)))
+    sess.heard_sims = {}
+    for leg, heard in sess.heard().items():
+        sent, played = mapped_sim(said[leg // 4], rec[leg], sess.S, heard)
+        mic = mapped_sim(sess.mic[leg - leg % 4], rec[leg], sess.S, heard)[0]
+        sess.heard_sims[leg] = (sent, mic, played)
+    sent, mic, played = (min(v[i] for v in sess.heard_sims.values()) for i in range(3))
+    ok = (sent > 0.85 and mic > 0.7 and played >= PACED_PLAYED_MIN and ratio < 0.05
+          and sess.finite[0])
+
+    def jb(stream, leg):
+        b = stream.sessions[leg].jitter_buffer
+        return (f"{b.underruns}/{b.resyncs}/{b.lost}/{b.discarded}/{b.stretched}")
+    legs_line = "; ".join(
+        f"{leg} {got:.4f} lag {lag} along the path {sess.heard_sims[leg][0]:.4f} / "
+        f"{sess.heard_sims[leg][1]:.4f} played {sess.heard_sims[leg][2]:.3f} jb "
+        f"{jb(sess.clients, leg)} talker jb {jb(sess.server, leg - leg % 4)}"
+        for leg, (got, lag) in sess.leg_sims.items())
+    line = (f"listeners along their packets' path: min {sent:.4f} against the speech sent "
+            f"(bar 0.85), {mic:.4f} against the mic (bar 0.7), ticks played from the "
+            f"talker's packets min {played:.3f} (bar {PACED_PLAYED_MIN}); at one fixed lag: "
+            f"audio_diff min {fixed_sent:.4f} against the speech sent, {fixed_mic:.4f} "
+            f"against the mic; talker/listener energy max {ratio:.2e}; outputs finite "
+            f"{sess.finite[0]}, bars met {ok}")
     print(f"session 7b: {legs} + {legs} legs x {ticks} ticks paced over LoopbackPair, "
           + ", ".join(f"{who} {n} ticks, late {late}, load {load:.3f}, mean {mean:.3f} ms"
                       for who, (n, late, load, mean) in zip(("clients", "server"), st))
@@ -1165,10 +1313,14 @@ def session_paced(dev, card, legs, ticks):
               f"{who} {k} {v / s.ticker.stats.ticks:.3f}"
               for who, s in (("clients", sess.clients), ("server", sess.server))
               for k, v in s.ticker.phase_ms.items() if not k.endswith("_max"))
-          + f"; leg 0 jitter buffer underruns server {jb[0].underruns} clients "
-          f"{jb[1].underruns}; {line} [{card}]", flush=True)
+          + f"; {line}; every listener: leg, audio_diff against the speech sent at one lag, "
+          f"that lag, against the speech sent / the mic along its packets' path, the share "
+          f"of its ticks played from its talker's packets, its jitter buffer's and its "
+          f"talker's (on the server) underruns/resyncs/lost/discarded/stretched: "
+          f"{legs_line} [{card}]", flush=True)
     if not ok:
         raise AssertionError("session 7b: bars not met")
+    return sess
 
 
 def session_cross(dev, legs, ticks):
@@ -1499,8 +1651,8 @@ def main():
           + ", ".join(os.path.relpath(p, REPO) for p in (*libs, edge)), flush=True)
     if log.strip():
         print(log.strip(), flush=True)
-    for name in ("g722_encode", "g722_decode"):
-        u = ptxas_usage(log, f"{name}_kernel")
+    for name, fragment in SPILL_CHECKED.items():
+        u = ptxas_usage(log, fragment)
         print(f"{name}: {u['registers']} registers, spill stores {u['spill_stores']} bytes, "
               f"spill loads {u['spill_loads']} bytes", flush=True)
         if u["spill_stores"] or u["spill_loads"]:

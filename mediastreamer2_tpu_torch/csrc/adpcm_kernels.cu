@@ -14,29 +14,56 @@
 // with ctypes. Each entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError().
 //
-// Design, as csrc/g722_kernels.cu: one thread per leg. The leg's state (2
-// int32 for DVI4, 24 float32 for G.726) is loaded into registers, the tick's
-// samples run in a loop (the count comes from the shape), and the state is
-// stored back in place. What bounds them is the serial chain: every sample's
-// predictor needs the previous sample's, so a leg's samples run one after
-// another at the latency of their dependent operations (for G.726 a log2f,
-// two exp2f and ~40 dependent float operations a sample); the bytes, 0.66 MB
-// a call at 1,024 legs, take 0.2 microseconds at 3.35 TB/s. The tables
-// indexed by data (DVI4's step and index tables; G.726's reconstruction
-// levels and W / F multipliers) are copied to shared memory: the legs of a
-// warp read different entries, which the constant cache would serialise.
-// G.726's decision thresholds are indexed by an unrolled loop counter, the
-// same entry for the whole warp, and stay in the constant bank. The next
-// sample's input is loaded one sample ahead, so most of the global load's
-// latency stays off the chain. A block is ADPCM_THREADS = 32 legs, one warp:
-// 1,024 legs then spread over 32 of the 132 SMs (measured on an H100 at
-// 1,024 legs with tools/adpcm_block_size.py: 32 threads a block were the
-// fastest for all four kernels, 64 were 2-24% slower and 128 3-77% slower).
-// Input and output are [B, S] row-major, so a thread walks global memory at
-// a stride of S * 4 bytes; staging the block's rows through a shared-memory
-// tile, filled row by row with one load in flight a thread, was measured
-// three times slower for DVI4 (the fill serialises ~100 global-memory
-// latencies), so the samples are read and written in place.
+// What bounds them is the serial chain: every sample's predictor needs the
+// previous sample's, so a leg's samples run one after another at the latency
+// of their dependent operations; the bytes, 0.66 MB (DVI4) or 0.85 MB (G.726)
+// a call at 1,024 legs, take 0.2-0.3 microseconds at 3.35 TB/s.
+//
+// DVI4: one thread per leg. The leg's two int32 of state are loaded into
+// registers, the tick's samples run in a loop (the count comes from the
+// shape), and the state is stored back in place. The step and index tables
+// are copied to shared memory: the legs of a warp read different entries,
+// which the constant cache would serialise. The next sample's input is
+// loaded one sample ahead. A block is ADPCM_THREADS = 32 legs, one warp
+// (measured on an H100 at 1,024 legs with tools/adpcm_block_size.py: 32
+// threads a block were the fastest, 64 were 2-24% slower and 128 3-77%
+// slower). Input and output are [B, S] row-major, so a thread walks global
+// memory at a stride of S * 4 bytes; staging the block's rows through a
+// shared-memory tile, filled row by row with one load in flight a thread,
+// was measured three times slower, so the samples are read and written in
+// place.
+//
+// G.726: the lanes of a warp per leg (G726_LANES lanes a leg, 16 by
+// default: two legs a warp, a block one warp). Every lane of the leg runs
+// the serial recurrence as the same scalar code on the same values (the 24
+// floats of state in registers: se, d, log2f, y, the scale and speed
+// factors, tone detection, the b[k] and a1/a2 updates), so no lane waits
+// for another. What does not depend on this sample's d leaves that chain:
+// - the quantizer's 1-15 thresholds: lane i holds threshold i in a
+//   register, and the count is one compare, a ballot and the popc of the
+//   leg's segment of it;
+// - the reconstruction: lane i also holds candidate magnitude i's dqln, W
+//   and F, and reconstructs its dq from y (both signs) before d is known;
+//   once the count gives mag, one shuffle from lane mag brings dq, W[mag]
+//   and F[mag] (the encoder's dqln load and exp2f leave its chain);
+// - the loads: a leg's lanes read its next G726_LANES samples (or codes) in
+//   one coalesced load, a whole chunk ahead, and each sample reaches the
+//   chain by a shuffle; lane j stores sample j's output, G726_LANES at a
+//   time. The decoder's lanes look up their own code's table entries from
+//   shared memory, off the chain.
+// Measured on an H100 at 700 W at B = 1,024, 80 samples
+// (tools/g726_variants.py, one call, in turns, twice; ms a launch at 16 /
+// 24 / 32 / 40 kbit/s): encode 0.0194 / 0.0191 / 0.0191 / 0.0194 with 16
+// lanes, 0.0197 / 0.0194 / 0.0197 / 0.0281 with 8, 0.0206 / 0.0207 /
+// 0.0308 / 0.0295 with 4 (two to four thresholds and candidates a lane,
+// kept in local memory at 40 kbit/s), and 0.0278 / 0.0307 / 0.0318 / 0.0343
+// with one thread a leg (the earlier design); decode 0.0176 with 16 lanes,
+// 0.0181 with 8, 0.0195 with 4, 0.0213 with one thread. The b[k] updates
+// and products on lanes 0-5, their sum gathered by shuffles, measured 0.0187
+// -0.0192 (encode) and 0.0199-0.0206 (decode): not kept. The sample loop is
+// ~250 (encode) and ~204 (decode) SASS instructions, mostly float, issued
+// by one warp a scheduler at ~2 cycles an instruction: the latency of its
+// dependent steps bounds it.
 //
 // Arithmetic. DVI4 is the JAX package's int32 arithmetic, bit for bit.
 // G.726 is float32 in the JAX package's association order, every expression
@@ -49,10 +76,21 @@
 #include <stdint.h>
 
 #ifndef ADPCM_THREADS
-#define ADPCM_THREADS 32
+#define ADPCM_THREADS 32       // threads a block: one warp
+#endif
+#ifndef G726_LANES
+#define G726_LANES 16          // lanes a G.726 leg: 4, 8, 16 or 32
 #endif
 
 namespace {
+
+static_assert(ADPCM_THREADS % 32 == 0, "ADPCM_THREADS must be a multiple of 32");
+static_assert(G726_LANES == 4 || G726_LANES == 8 || G726_LANES == 16 || G726_LANES == 32,
+              "G726_LANES must be 4, 8, 16 or 32");
+constexpr int kG726Lanes = G726_LANES;
+constexpr int kG726LegsPerBlock = ADPCM_THREADS / kG726Lanes;
+constexpr int kG726LegsPerWarp = 32 / kG726Lanes;
+constexpr unsigned kG726Full = 0xFFFFFFFFu;
 
 // ---------------------------------------------------------------------------
 // DVI4 (IMA ADPCM)
@@ -185,7 +223,29 @@ __device__ __forceinline__ void g726_load_tables(G726Tables* t)
     __syncthreads();
 }
 
-// One leg's codec state (g726.py g726_state), in registers.
+// The lanes of a leg. A warp holds kG726LegsPerWarp legs of G726_LANES lanes.
+// A warp whose legs all lie past B returns as a whole (the result); a leg
+// past B in a live warp reads the last leg and stores nothing, so that
+// every ballot and shuffle of the warp sees all 32 lanes.
+struct G726Lanes {
+    int lane;     // lane within the leg
+    int seg;      // the leg's first lane in the warp
+    int src;      // the leg read
+    bool live;    // the leg is < B: its results are stored
+};
+
+__device__ __forceinline__ bool g726_map(G726Lanes& m, int B)
+{
+    m.lane = threadIdx.x % kG726Lanes;
+    m.seg = threadIdx.x % 32 - m.lane;
+    const int leg = (int)blockIdx.x * kG726LegsPerBlock + (int)threadIdx.x / kG726Lanes;
+    m.live = leg < B;
+    m.src = m.live ? leg : B - 1;
+    return (int)blockIdx.x * kG726LegsPerBlock + (int)(threadIdx.x / 32) * kG726LegsPerWarp < B;
+}
+
+// One leg's codec state (g726.py g726_state), in registers, the same on
+// every lane of the leg.
 struct G726 {
     float b[6], dq[6], a1, a2, sr1, sr2, p1, p2, yu, yl, dms, dml, ap, td;
 };
@@ -196,8 +256,9 @@ struct G726Ptrs {
     float *b, *dq, *a1, *a2, *sr1, *sr2, *p1, *p2, *yu, *yl, *dms, *dml, *ap, *td;
 };
 
-__device__ __forceinline__ void g726_load(G726& z, const G726Ptrs& q, int leg)
+__device__ __forceinline__ void g726_load(G726& z, const G726Ptrs& q, const G726Lanes& m)
 {
+    const int leg = m.src;
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
         z.b[k] = q.b[6 * leg + k];
@@ -217,8 +278,10 @@ __device__ __forceinline__ void g726_load(G726& z, const G726Ptrs& q, int leg)
     z.td = q.td[leg];
 }
 
-__device__ __forceinline__ void g726_store(const G726& z, const G726Ptrs& q, int leg)
+__device__ __forceinline__ void g726_store(const G726& z, const G726Ptrs& q, const G726Lanes& m)
 {
+    if (!m.live || m.lane != 0) return;
+    const int leg = m.src;
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
         q.b[6 * leg + k] = z.b[k];
@@ -264,29 +327,28 @@ __device__ __forceinline__ float g726_sez(const G726& z)
     return acc;
 }
 
-// g726.py reconstruct + _adapt: the back half the encoder and the decoder
-// share. code -> the reconstructed sample sr; z is advanced one sample.
-// sez, se and y are the values of this sample's state before the update.
-template <int BITS>
-__device__ __forceinline__ float g726_reconstruct(G726& z, int code, float sez, float se,
-                                                  float y, const G726Tables& t)
+// The quantized difference of magnitude index mag and sign ``sign`` (+-1):
+// sign * 2^((dqln[mag] + y/4) / 128), or 0 below the zero level ("-2048").
+__device__ __forceinline__ float g726_dq(float dqln, float y4, float sign)
 {
-    constexpr int half = 1 << (BITS - 1);
-    // a code outside [0, 2^BITS) reads the table's last entry, as the JAX
-    // package's clamped gather does
-    const int mag = min(code >= half ? code - half : half - 1 - code, half - 1);
-    const float sign = code >= half ? 1.0f : -1.0f;
-    const float dql = t.dqln[mag] + y / 4.0f;                  // log domain
-    float dq = sign * exp2f(dql / 128.0f);
-    dq = dql < -1024.0f ? 0.0f : dq;                           // "-2048" = zero level
+    const float dql = dqln + y4;                               // log domain
+    const float dq = sign * exp2f(dql / 128.0f);
+    return dql < -1024.0f ? 0.0f : dq;
+}
+
+// g726.py reconstruct + _adapt after the quantized difference dq: the back
+// half the encoder and the decoder share, with w = W[mag] and f = F[mag].
+// z is advanced one sample; returns the reconstructed sample sr. sez, se
+// and y are the values of this sample's state before the update.
+__device__ __forceinline__ float g726_adapt(G726& z, float dq, float w, float f, float sez,
+                                            float se, float y)
+{
     const float sr = se + dq;
-    // _adapt: scale factor (yu fast / yl locked)
-    const float w = t.W[mag];
+    // scale factor (yu fast / yl locked)
     const float yu = clipf(y + (w * 32.0f - y) / 32.0f, 544.0f, 5120.0f);
     float yl = z.yl + (yu - z.yl / 64.0f);
     yl = clipf(yl, 544.0f * 64.0f, 5120.0f * 64.0f);
     // adaptation speed
-    const float f = t.F[mag];
     const float dms = z.dms + (f * 32.0f - z.dms) / 32.0f;
     const float dml = z.dml + (f * 128.0f - z.dml) / 128.0f;
     // tone / transition detection
@@ -302,6 +364,9 @@ __device__ __forceinline__ float g726_reconstruct(G726& z, int code, float sez, 
         const float bk = z.b[k] * 0.99609375f + (0.0078125f * sign_dq) * signf(z.dq[k]);
         z.b[k] = tr ? 0.0f : bk;
     }
+#pragma unroll
+    for (int k = 5; k >= 1; --k) z.dq[k] = z.dq[k - 1];
+    z.dq[0] = dq;
     const float p0 = dq + sez;
     const float sign_p0 = signf(p0);
     const float sign_p1 = signf(z.p1);
@@ -314,9 +379,6 @@ __device__ __forceinline__ float g726_reconstruct(G726& z, int code, float sez, 
     a1 = clipf(a1, -lim, lim);
     z.a1 = tr ? 0.0f : a1;
     z.a2 = tr ? 0.0f : a2;
-#pragma unroll
-    for (int k = 5; k >= 1; --k) z.dq[k] = z.dq[k - 1];
-    z.dq[0] = dq;
     z.sr2 = z.sr1;
     z.sr1 = sr;
     z.p2 = z.p1;
@@ -330,42 +392,93 @@ __device__ __forceinline__ float g726_reconstruct(G726& z, int code, float sez, 
     return sr;
 }
 
-// g726.py enc_step over a tick: pcm int32 (int16 range) -> codes.
+// g726.py enc_step over a tick: pcm int32 (int16 range) -> codes. Lane l of
+// a leg holds thresholds l * kThr .. l * kThr + kThr - 1 of the rate's
+// half - 1, and the candidate magnitudes l, l + G726_LANES, ...: each
+// sample, before d is known, it reconstructs its candidates from y (both
+// signs); the ballot's count gives mag, and one shuffle from lane mag %
+// G726_LANES brings dq, W[mag] and F[mag] to the leg.
 template <int BITS>
 __global__ void __launch_bounds__(ADPCM_THREADS)
 g726_encode_kernel(const int* __restrict__ pcm, int* __restrict__ codes, G726Ptrs q, int B, int S)
 {
-    __shared__ G726Tables t;
-    g726_load_tables<BITS>(&t);
-    const int leg = blockIdx.x * blockDim.x + threadIdx.x;
-    if (leg >= B) return;
     constexpr int half = 1 << (BITS - 1);
-    G726 z;
-    g726_load(z, q, leg);
-    const int* in = pcm + (size_t)leg * S;
-    int* out = codes + (size_t)leg * S;
-    int next = S > 0 ? in[0] : 0;
-    for (int j = 0; j < S; ++j) {
-        const float x = (float)next / 4.0f;            // 14-bit domain
-        if (j + 1 < S) next = in[j + 1];               // one sample ahead
-        const float sez = g726_sez(z);
-        const float se = sez + z.a1 * z.sr1 + z.a2 * z.sr2;
-        const float d = x - se;
-        const float y = g726_scale(z);
-        const float dl = log2f(fmaxf(fabsf(d), 1e-6f)) * 128.0f;
-        const float dln = dl - y / 4.0f;
-        int mag = 0;
+    constexpr int kThr = (half - 1 + kG726Lanes - 1) / kG726Lanes;    // thresholds a lane
+    constexpr int kCand = (half + kG726Lanes - 1) / kG726Lanes;       // magnitudes a lane
+    G726Lanes m;
+    if (!g726_map(m, B)) return;
+    const unsigned segmask = kG726Lanes == 32 ? kG726Full
+                                              : ((1u << (kG726Lanes % 32)) - 1u) << m.seg;
+    float qt[kThr];
+    bool qok[kThr];
 #pragma unroll
-        for (int k = 0; k < half - 1; ++k) mag += dln >= kQtab[BITS - 2][k];
-        mag = min(mag, half - 1);
-        const int code = d >= 0.0f ? half + mag : half - 1 - mag;
-        g726_reconstruct<BITS>(z, code, sez, se, y, t);
-        out[j] = code;
+    for (int t = 0; t < kThr; ++t) {
+        const int k = m.lane * kThr + t;
+        qok[t] = k < half - 1;
+        qt[t] = kQtab[BITS - 2][qok[t] ? k : 0];
     }
-    g726_store(z, q, leg);
+    float cdqln[kCand], cw[kCand], cf[kCand];
+#pragma unroll
+    for (int c = 0; c < kCand; ++c) {
+        const int k = min(m.lane + c * kG726Lanes, half - 1);
+        cdqln[c] = kDqln[BITS - 2][k];
+        cw[c] = kW[BITS - 2][k];
+        cf[c] = kF[BITS - 2][k];
+    }
+    G726 z;
+    g726_load(z, q, m);
+    const int* in = pcm + (size_t)m.src * S;
+    int* out = codes + (size_t)m.src * S;
+    int next = m.lane < S ? __ldg(in + m.lane) : 0;
+    for (int j0 = 0; j0 < S; j0 += kG726Lanes) {
+        const int xs = next;                           // sample j0 + lane
+        if (j0 + kG726Lanes + m.lane < S) next = __ldg(in + j0 + kG726Lanes + m.lane);
+        const int n = min(kG726Lanes, S - j0);
+        int mine = 0;
+        for (int j = 0; j < n; ++j) {
+            const float x = (float)__shfl_sync(kG726Full, xs, m.seg + j) / 4.0f;  // 14-bit
+            const float y = g726_scale(z);
+            const float y4 = y / 4.0f;
+            float up[kCand], down[kCand];              // this lane's candidates' dq
+#pragma unroll
+            for (int c = 0; c < kCand; ++c) {
+                up[c] = g726_dq(cdqln[c], y4, 1.0f);
+                down[c] = g726_dq(cdqln[c], y4, -1.0f);
+            }
+            const float sez = g726_sez(z);
+            const float se = sez + z.a1 * z.sr1 + z.a2 * z.sr2;
+            const float d = x - se;
+            const float dln = log2f(fmaxf(fabsf(d), 1e-6f)) * 128.0f - y4;
+            int mag = 0;
+#pragma unroll
+            for (int t = 0; t < kThr; ++t)
+                mag += __popc(__ballot_sync(kG726Full, qok[t] && dln >= qt[t]) & segmask);
+            mag = min(mag, half - 1);
+            const bool pos = d >= 0.0f;
+            float dqc = pos ? up[0] : down[0], wc = cw[0], fc = cf[0];
+#pragma unroll
+            for (int c = 1; c < kCand; ++c)
+                if (mag / kG726Lanes == c) {
+                    dqc = pos ? up[c] : down[c];
+                    wc = cw[c];
+                    fc = cf[c];
+                }
+            const int from = m.seg + mag % kG726Lanes;
+            const float dq = __shfl_sync(kG726Full, dqc, from);
+            const float w = __shfl_sync(kG726Full, wc, from);
+            const float f = __shfl_sync(kG726Full, fc, from);
+            g726_adapt(z, dq, w, f, sez, se, y);
+            const int code = pos ? half + mag : half - 1 - mag;
+            mine = m.lane == j ? code : mine;
+        }
+        if (m.live && m.lane < n) out[j0 + m.lane] = mine;
+    }
+    g726_store(z, q, m);
 }
 
-// g726.py dec_step over a tick: codes -> pcm float32, sr * 4 clipped to int16.
+// g726.py dec_step over a tick: codes -> pcm float32, sr * 4 clipped to
+// int16. Lane l of a leg reads code j0 + l and looks up its table entries
+// off the serial chain; each sample's reach the leg by shuffles.
 template <int BITS>
 __global__ void __launch_bounds__(ADPCM_THREADS)
 g726_decode_kernel(const int* __restrict__ codes, float* __restrict__ pcm, G726Ptrs q, int B,
@@ -373,23 +486,41 @@ g726_decode_kernel(const int* __restrict__ codes, float* __restrict__ pcm, G726P
 {
     __shared__ G726Tables t;
     g726_load_tables<BITS>(&t);
-    const int leg = blockIdx.x * blockDim.x + threadIdx.x;
-    if (leg >= B) return;
+    constexpr int half = 1 << (BITS - 1);
+    G726Lanes m;
+    if (!g726_map(m, B)) return;
     G726 z;
-    g726_load(z, q, leg);
-    const int* in = codes + (size_t)leg * S;
-    float* out = pcm + (size_t)leg * S;
-    int next = S > 0 ? in[0] : 0;
-    for (int j = 0; j < S; ++j) {
-        const int code = next;
-        if (j + 1 < S) next = in[j + 1];               // one sample ahead
-        const float sez = g726_sez(z);
-        const float se = sez + z.a1 * z.sr1 + z.a2 * z.sr2;
-        const float y = g726_scale(z);
-        const float sr = g726_reconstruct<BITS>(z, code, sez, se, y, t);
-        out[j] = clipf(sr * 4.0f, -32768.0f, 32767.0f);
+    g726_load(z, q, m);
+    const int* in = codes + (size_t)m.src * S;
+    float* out = pcm + (size_t)m.src * S;
+    int next = m.lane < S ? __ldg(in + m.lane) : 0;
+    for (int j0 = 0; j0 < S; j0 += kG726Lanes) {
+        const int code = next;                         // code j0 + lane
+        if (j0 + kG726Lanes + m.lane < S) next = __ldg(in + j0 + kG726Lanes + m.lane);
+        const int n = min(kG726Lanes, S - j0);
+        // a code outside [0, 2^BITS) reads the table's last entry, as the JAX
+        // package's clamped gather does
+        const int mag = min(code >= half ? code - half : half - 1 - code, half - 1);
+        const float lsign = code >= half ? 1.0f : -1.0f;
+        const float ldqln = t.dqln[mag], lw = t.W[mag], lf = t.F[mag];
+        float mine = 0.0f;
+        for (int j = 0; j < n; ++j) {
+            const int from = m.seg + j;
+            const float sign = __shfl_sync(kG726Full, lsign, from);
+            const float dqln = __shfl_sync(kG726Full, ldqln, from);
+            const float w = __shfl_sync(kG726Full, lw, from);
+            const float f = __shfl_sync(kG726Full, lf, from);
+            const float sez = g726_sez(z);
+            const float se = sez + z.a1 * z.sr1 + z.a2 * z.sr2;
+            const float y = g726_scale(z);
+            const float dq = g726_dq(dqln, y / 4.0f, sign);
+            const float sr = g726_adapt(z, dq, w, f, sez, se, y);
+            const float o = clipf(sr * 4.0f, -32768.0f, 32767.0f);
+            mine = m.lane == j ? o : mine;
+        }
+        if (m.live && m.lane < n) out[j0 + m.lane] = mine;
     }
-    g726_store(z, q, leg);
+    g726_store(z, q, m);
 }
 
 // state: 14 device pointers, the leaves of g726_state in its order.
@@ -401,6 +532,7 @@ __host__ G726Ptrs g726_ptrs(void* const* s)
 }
 
 inline int blocks(int B) { return (B + ADPCM_THREADS - 1) / ADPCM_THREADS; }
+inline int g726_blocks(int B) { return (B + kG726LegsPerBlock - 1) / kG726LegsPerBlock; }
 
 }  // namespace
 
@@ -445,10 +577,10 @@ int ms2_g726_encode(int device, int bits, const void* pcm, void* codes, void* co
     const int* in = (const int*)pcm;
     int* out = (int*)codes;
     switch (bits) {
-    case 2: g726_encode_kernel<2><<<blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    case 3: g726_encode_kernel<3><<<blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    case 4: g726_encode_kernel<4><<<blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    default: g726_encode_kernel<5><<<blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 2: g726_encode_kernel<2><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 3: g726_encode_kernel<3><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 4: g726_encode_kernel<4><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    default: g726_encode_kernel<5><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
     }
     return (int)cudaGetLastError();
 }
@@ -466,10 +598,10 @@ int ms2_g726_decode(int device, int bits, const void* codes, void* pcm, void* co
     const int* in = (const int*)codes;
     float* out = (float*)pcm;
     switch (bits) {
-    case 2: g726_decode_kernel<2><<<blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    case 3: g726_decode_kernel<3><<<blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    case 4: g726_decode_kernel<4><<<blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    default: g726_decode_kernel<5><<<blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 2: g726_decode_kernel<2><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 3: g726_decode_kernel<3><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 4: g726_decode_kernel<4><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    default: g726_decode_kernel<5><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
     }
     return (int)cudaGetLastError();
 }

@@ -9,9 +9,10 @@ params update: no graph surgery, no 50-member cap.
 
 ``_sync`` writes ``group_id`` and ``active`` as new tensors on the
 ticker's device, on its stream (``Ticker.tensor``); membership from this
-class is not a uniform contiguous layout, so the mixer takes its one-hot
-[B, B] segment-sum branch. The level readers wait for the ticker's stream
-before reading (``Ticker.host``).
+class is not a uniform contiguous layout, so the mixer takes its
+segment-sum branch (the legs sorted by group once per membership
+change). The level readers wait for the ticker's stream before reading
+(``Ticker.host``).
 """
 from __future__ import annotations
 

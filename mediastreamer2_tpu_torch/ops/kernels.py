@@ -823,8 +823,11 @@ def _g726_reconstruct(z, code, sez, se, y, T, half):
 
 
 def _g726_store(state, z):
-    for k in G726_KEYS:
-        state[k].copy_(z[k])
+    # after a one-sample tick z's leaves include state's own tensors (z["sr2"]
+    # is state["sr1"]): read every value before writing any
+    new = [z[k].clone() for k in G726_KEYS]
+    for k, v in zip(G726_KEYS, new):
+        state[k].copy_(v)
 
 
 def g726_encode_reference(pcm, state, bits: int = 4):

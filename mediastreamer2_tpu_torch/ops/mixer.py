@@ -9,10 +9,13 @@ Two branches, as in JAX:
 
 * ``uniform_group_size=k`` (the flagship's): contiguous groups of k legs,
   a reshape-sum.
-* otherwise a segment sum over ``group_id``. It is written as a product
-  with a one-hot [B, B] membership matrix, which is deterministic on CUDA
-  (an ``index_add_`` there uses atomics and changes its summation order
-  from run to run). Its cost is O(B^2 * S); it is not on the flagship path.
+* otherwise a segment sum over ``group_id``. The legs are sorted by group
+  (a stable sort, once per new ``group_id`` tensor or in-place change of
+  it), and ``torch.segment_reduce`` sums each group's rows in that fixed
+  order, one thread per output element on CUDA: no atomics (an
+  ``index_add_`` there changes its summation order from run to run),
+  O(B * S) work and memory. An id outside [0, B) joins no group, as in
+  ``jax.ops.segment_sum``.
 
 ``mix2``/``mix3``/``mix4`` sum their inputs with per-input gains and clip;
 ``audio_levels`` passes audio through and meters each leg's smoothed block
@@ -36,6 +39,21 @@ def _conf_params(ctx, device):
     }
 
 
+def _segments(ctx, gid):
+    """(order, offsets): the legs sorted by group id, stably, and where each
+    of the B possible groups starts in that order (B + 1 offsets), cached on
+    ``ctx`` until ``group_id`` is replaced or changed in place (its version
+    counter), so that a tick reuses them without a sort or a host sync."""
+    cached = getattr(ctx, "_segments", None)
+    if cached is None or cached[0] is not gid or cached[1] != gid._version:
+        ids, order = torch.sort(gid, stable=True)
+        offsets = torch.searchsorted(ids, torch.arange(gid.shape[0] + 1, dtype=ids.dtype,
+                                                       device=gid.device))
+        cached = (gid, gid._version, order, offsets)
+        ctx._segments = cached
+    return cached[2], cached[3]
+
+
 def _conf_process(state, ins, params, ctx):
     x = ins[0]                                        # [B, S]
     B, S = x.shape
@@ -45,11 +63,11 @@ def _conf_process(state, ins, params, ctx):
         sums_g = contrib.reshape(B // k, k, S).sum(dim=1)
         mix = torch.repeat_interleave(sums_g, k, dim=0)
     else:
-        gid = params["group_id"].long()
-        onehot = (gid[None, :] == torch.arange(B, device=x.device)[:, None]
-                  ).to(torch.float32)                 # [segment, leg]
-        sums = onehot @ contrib
-        mix = sums[gid]
+        gid = params["group_id"]
+        order, offsets = _segments(ctx, gid)
+        sums = torch.segment_reduce(contrib[order], "sum", offsets=offsets, axis=0,
+                                    unsafe=True)      # [B groups, S]
+        mix = sums[gid.long()]
     out = torch.where(params["mix_minus"][:, None], mix - contrib, mix)
     out = torch.clamp(out * params["out_gain"][:, None], -1.0, 1.0)
     return state, (out,), {}

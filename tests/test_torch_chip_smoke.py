@@ -271,3 +271,163 @@ def test_g722_variants_reads_the_slot_loop(monkeypatch):
     assert slot == 5
     assert mix == {"IMAD": 1, "LDS": 1, "VOTE": 1, "POPC": 1, "BRA": 1}
     assert set(tool.sass_loops("lib.so")) == {"g722_encode"}
+
+
+def test_g726_bar_is_exact_and_ragged_shapes_cover_partial_warps(smoke):
+    """Phase 2 holds G.726 to the bit: no code, decoded sample or state
+    leaf may differ. Its ragged shapes reach a warp partly past B (1, 33,
+    77 legs, at two legs a warp) and ticks that are not a
+    multiple of the lanes a leg (1, 7, 200 samples), at every rate; on the
+    CPU (the wrappers run the plain versions) they pass, and a kernel whose
+    state differs in the last bit fails."""
+    import types
+
+    import torch
+
+    from mediastreamer2_tpu_torch.ops import kernels
+    assert (smoke.G726_CODES_DIFFERING_MAX, smoke.G726_PCM_ATOL, smoke.G726_STATE_RTOL) == (
+        0, 0.0, 0.0)
+    assert smoke.g726_bar_met(0, 0.0, 0.0, 0.0)
+    assert not smoke.g726_bar_met(0, 1e-9, 0.0, 0.0)
+    assert not smoke.g726_bar_met(0, 0.0, 0.0, 1e-9)
+    assert smoke.G726_RAGGED == ((1, 33, 77, 1000), (1, 7, 80, 200))
+    legs, samples = smoke.G726_RAGGED
+    assert any(n % 32 for n in legs) and any(n % 16 for n in samples) and min(samples) == 1
+    cpu = torch.device("cpu")
+    smoke.G726_RAGGED, keep = ((1, 3), (1, 7)), smoke.G726_RAGGED
+    try:
+        smoke.g726_ragged_checks(kernels, cpu)
+    finally:
+        smoke.G726_RAGGED = keep
+
+    def ulp_off(x, st, bits):
+        codes, st = kernels.g726_encode_reference(x, st, bits)
+        st["yl"].copy_(torch.nextafter(st["yl"], torch.full_like(st["yl"], 1e9)))
+        return codes, st
+    fake = types.SimpleNamespace(**{k: getattr(kernels, k) for k in (
+        "G726_KEYS", "g726_encode_reference", "g726_decode", "g726_decode_reference")},
+        g726_encode=ulp_off)
+    x = torch.from_numpy(smoke.speech_fixture(3, 7, seed=1))
+    with pytest.raises(AssertionError, match="24 kbit/s, 3 legs"):
+        smoke.g726_exact(fake, [x], 3, cpu, "3 legs")
+
+
+_G726_SASS = """\tcode for sm_90a
+\t\tFunction : _ZN49_GLOBAL__N__561919b3_16_adpcm_kernels_cu_c1cd648d18g726_encode_kernelILi5EEEvPKiPiNS_8G726PtrsEii
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   MUFU.LG2 R3, R2 ;
+        /*0020*/                   VOTE.ANY R4, PT, P0 ;
+        /*0030*/                   SHFL.IDX PT, R5, R4, R0, 0x1f ;
+        /*0040*/              @!P0 BRA 0x10 ;
+        /*0050*/                   EXIT ;
+\t\tFunction : _ZN49_GLOBAL__N__561919b3_16_adpcm_kernels_cu_c1cd648d18g726_encode_kernelILi2EEEvPKiPiNS_8G726PtrsEii
+        /*0000*/                   LDG.E R1, desc[UR4][R2.64] ;
+        /*0010*/                   MUFU.EX2 R3, R2 ;
+        /*0020*/               @P0 BRA 0x0 ;
+\t\tFunction : _ZN49_GLOBAL__N__561919b3_16_adpcm_kernels_cu_c1cd648d18dvi4_encode_kernelEPKiPiS1_S1_ii
+        /*0000*/                   BRA 0x0 ;
+"""
+
+
+def test_g726_variants_reads_each_rates_sample_loop(monkeypatch):
+    """tools/g726_variants.py --sass: g722_variants' reader, with each
+    G.726 kernel told apart by its rate (the template argument in the
+    mangled name); DVI4's kernels are skipped."""
+    import subprocess
+    import types
+    spec = importlib.util.spec_from_file_location(
+        "g726_variants", os.path.join(REPO, "tools", "g726_variants.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.FRAGMENTS["g726_encode@40"] == "g726_encode_kernelILi5E"
+    assert tool.FRAGMENTS["g726_decode@16"] == "g726_decode_kernelILi2E"
+    monkeypatch.setattr(tool.kernels, "_nvcc", lambda: "/usr/local/cuda/bin/nvcc")
+    monkeypatch.setattr(subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(stdout=_G726_SASS))
+    got = tool.sass_loops("lib.so", tool.FRAGMENTS)
+    assert set(got) == {"g726_encode@40", "g726_encode@16"}
+    total, loops, loop, mix = got["g726_encode@40"]
+    assert (total, loops, loop) == (6, [(0x10, 0x40, 4)], 4)
+    assert mix == {"MUFU": 1, "VOTE": 1, "SHFL": 1, "BRA": 1}
+    assert got["g726_encode@16"][2:] == (3, {"LDG": 1, "MUFU": 1, "BRA": 1})
+
+
+def test_playout_logs_the_packets_each_jitter_buffer_plays(smoke):
+    """Phase 7b's instrumentation on the port's JitterBuffer: per tick, the
+    sequence number each leg sends (read at push) and the one its buffer
+    plays (None when it conceals: an underrun, after which it plays a tick
+    later), across the 16-bit wrap; the stream's own pull and push still
+    run."""
+    import types
+
+    from mediastreamer2_tpu_torch.net.jitter import JBParams, JitterBuffer
+    from mediastreamer2_tpu_torch.net.rtp import RtpPacket
+    jb = JitterBuffer(JBParams(nom_depth_ticks=1, adaptive=False))
+    sess = types.SimpleNamespace(jitter_buffer=jb, seq=65533)
+    ticker = types.SimpleNamespace(set_io=lambda pull, push: ticker.__dict__.update(
+        _io_pull=pull, _io_push=push))
+    got, pushed = [], []
+    ticker.set_io(lambda tick: got.append(jb.get_tick()), lambda tick, out: pushed.append(tick))
+    log = smoke.Playout(types.SimpleNamespace(sessions=[sess], ticker=ticker))
+    late = None
+    for tick in range(12):
+        pkt = RtpPacket(0, sess.seq, 80 * tick, 1, bytes([tick]) * 80)
+        if tick == 7:
+            late = pkt                                 # arrives a tick late: an underrun
+        else:
+            jb.put(pkt)
+            if late is not None:
+                jb.put(late)
+                late = None
+        ticker._io_pull(tick)
+        ticker._io_push(tick, {})
+        sess.seq = (sess.seq + 1) & 0xFFFF
+    seqs = [(65533 + t) & 0xFFFF for t in range(12)]
+    assert pushed == list(range(12)) and [log.sent[t][0] for t in range(12)] == seqs
+    played = [log.played[t][0] for t in range(12)]
+    assert [None if p is None else seqs[p[0]] for p in got] == played
+    assert played == seqs[:7] + [None] + seqs[7:11] and jb.underruns == 1
+    assert log.ticks_by_seq(0)[1] == 4
+
+
+def test_heard_follows_each_listener_through_the_server_mix(smoke):
+    """Session.heard and mapped_sim on a logged conference (talker 0,
+    listeners 1-3): the talker's buffer on the server underruns at server
+    tick 100 (one tick concealed, the talker a tick later from there), a
+    listener's buffer discards at tick 200 (a tick earlier from there).
+    Each listener's ticks map to the talker's ticks they played, -1 where
+    concealed; the recording matches the speech along that map though no
+    lag over the whole run does, and another talker's speech does not."""
+    import types
+
+    import numpy as np
+
+    from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
+    from mediastreamer2_tpu_torch.utils.signals import make_speechlike
+    S, n = 80, 300
+    log = lambda sent, played: types.SimpleNamespace(                  # noqa: E731
+        sent=sent, played=played, ticks_by_seq=lambda leg: smoke.Playout.ticks_by_seq(
+            types.SimpleNamespace(sent=sent), leg))
+    client_sent = {t: [1000 + t, 0, 0, 0] for t in range(n)}
+    server_played = {u: [None if u == 100 or u < 3 else 1000 + u - (3 if u < 100 else 4),
+                         None, None, None] for u in range(n + 20)}
+    server_sent = {u: [0] + [2000 + u] * 3 for u in range(n + 20)}
+    client_played = {t: [None] + [None if t < 4 else 2000 + t - (4 if t < 200 else 3)] * 3
+                     for t in range(n)}
+    fake = types.SimpleNamespace(legs=4, ticks=n, playout=(log(client_sent, client_played),
+                                                           log(server_sent, server_played)))
+    heard = smoke.Session.heard(fake)
+    assert set(heard) == {1, 2, 3}
+    h = heard[1]
+    assert (h[50], h[104], h[150], h[250]) == (43, -1, 142, 243) and (h[:7] == -1).all()
+    ref = make_speechlike(n * S, 8000, seed=3)
+    noise = np.random.default_rng(0).uniform(-0.3, 0.3, n * S).astype(np.float32)
+    rec = np.concatenate([ref[v * S:(v + 1) * S] if v >= 0 else noise[t * S:(t + 1) * S]
+                          for t, v in enumerate(h)])
+    sim, played = smoke.mapped_sim(ref, rec, S, h)
+    assert sim > 0.999 and played == (h >= 0).mean() and 0.9 < played < 1
+    assert audio_diff(ref, rec)[0] < 0.9
+    # the fixture's talkers share one pitch track and differ in their
+    # envelope's phase: this one's is far from seed 3's
+    assert smoke.mapped_sim(make_speechlike(n * S, 8000, seed=6), rec, S, h)[0] < 0.5
+    assert smoke.mapped_sim(ref, rec, S, np.where(h >= 0, h + 1, -1))[0] < 0.5

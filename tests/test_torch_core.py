@@ -231,3 +231,54 @@ def test_port_never_imports_jax():
                          text=True, timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_conf_mixer_segment_sum_scales_with_legs(factory, tfactory):
+    """The segment-sum branch (no uniform groups) against the JAX mixer on
+    ragged, unsorted groups with lone legs and an id outside [0, B), the
+    membership changed between ticks (the port sorts the legs again) and
+    changed back in place; no op of the port's step makes a [B, B]
+    tensor."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Shapes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor):
+                    self.seen.append(tuple(t.shape))
+            return out
+
+    B, S, ticks = 12, 80, 4
+    rng = np.random.default_rng(13)
+    groups = [np.array([7, 2, 7, 0, 11, 2, 7, 5, 0, 7, 3, 9], np.int32),   # 3 and 9 alone
+              np.array([4, 4, 1, 4, 8, -1, 6, 4, 8, 10, 1, 4], np.int32)]    # -1: no group
+    params = {"gain": rng.uniform(0.5, 1.5, B).astype(np.float32),
+              "active": rng.uniform(size=B) < 0.8,
+              "mix_minus": rng.uniform(size=B) < 0.8,
+              "out_gain": rng.uniform(0.5, 2.0, B).astype(np.float32)}
+    jcg = _single(JGraphBuilder, factory, JFormat(rate=8000), "conf_mixer", B)
+    tcg = _single(GraphBuilder, tfactory, Format(rate=8000), "conf_mixer", B)
+    jst, jpr = jcg.init_state(), jcg.init_params()
+    tst, tpr = tcg.init_state("cpu"), tcg.init_params("cpu")
+    for k, v in params.items():
+        jpr["f"][k] = jnp.asarray(v)
+        tpr["f"][k] = torch.from_numpy(v)
+    xs = rng.uniform(-0.6, 0.6, (ticks, B, S)).astype(np.float32)
+    for t, x in enumerate(xs):
+        gid = groups[(0, 1, 1, 0)[t]]
+        jpr["f"]["group_id"] = jnp.asarray(gid)
+        if t == 3:                                     # changed in place
+            tpr["f"]["group_id"].copy_(torch.from_numpy(gid))
+        else:
+            tpr["f"]["group_id"] = torch.from_numpy(gid.copy())
+        jst, jo, _ = jcg.step(jst, jpr, {"in": x})
+        with Shapes() as shapes:
+            tst, to, _ = tcg.step(tst, tpr, {"in": torch.from_numpy(x)})
+        np.testing.assert_allclose(to["out"].numpy(), np.asarray(jo["out"]), rtol=0, atol=1e-6,
+                                   err_msg=f"tick {t}")
+        assert not [s for s in shapes.seen if list(s).count(B) >= 2], shapes.seen

@@ -118,6 +118,28 @@ def test_tickwise_equals_oneshot(bits):
         assert torch.equal(st[k], st1[k]) and torch.equal(ds[k], ds1[k]), k
 
 
+@pytest.mark.parametrize("tick", [1, 7])
+def test_short_ticks_equal_oneshot(tick):
+    """Ticks of 1 and 7 samples (shorter than the kernels' lanes a leg, and
+    not a multiple of them) equal one shot of 14 samples, codes, samples
+    and state, at every rate: the state carries exactly however short the
+    tick."""
+    pcm = _legs(14)[:3]
+    for bits in RATES:
+        one, st1 = kernels.g726_encode_reference(torch.from_numpy(pcm), tg.g726_state(3), bits)
+        dec1, ds1 = kernels.g726_decode_reference(one, tg.g726_state(3), bits)
+        st, ds = tg.g726_state(3), tg.g726_state(3)
+        parts, dparts = [], []
+        for k in range(0, 14, tick):
+            c, _ = tg.g726_encode(torch.from_numpy(pcm[:, k:k + tick].copy()), st, bits)
+            parts.append(c)
+            dparts.append(tg.g726_decode(c, ds, bits)[0])
+        assert torch.equal(torch.cat(parts, dim=1), one), bits
+        assert torch.equal(torch.cat(dparts, dim=1), dec1), bits
+        for k in kernels.G726_KEYS:
+            assert torch.equal(st[k], st1[k]) and torch.equal(ds[k], ds1[k]), (bits, k)
+
+
 def test_legs_are_independent():
     pcm = _speech(800)[None]
     batch = np.concatenate([pcm, pcm // 3], axis=0)

@@ -76,10 +76,13 @@ def time_kernels(legs, dev):
     return out
 
 
-def sass_loops(lib: Path) -> dict:
+def sass_loops(lib: Path, fragments=None) -> dict:
     """{kernel: (instructions, loops [(start, end, instructions)], slot loop's
     opcode Counter)} from ``cuobjdump -sass``; a loop is a backward branch's
-    span, the slot loop the largest one that holds no other."""
+    span, the slot loop the largest one that holds no other. ``fragments``
+    maps each kernel's label to a fragment of its mangled name (default:
+    ``{name: name + "_kernel"}`` for the two G.722 kernels)."""
+    fragments = fragments or {n: f"{n}_kernel" for n in NAMES}
     cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -87,7 +90,7 @@ def sass_loops(lib: Path) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            hit = [n for n in NAMES if f"{n}_kernel" in m[1]]
+            hit = [n for n, frag in fragments.items() if frag in m[1]]
             name = hit[0] if hit else None
             if name:
                 funcs[name] = []
