@@ -14,11 +14,10 @@ Needs one CUDA card, nvcc, g++ and nvidia-smi; imports nothing of JAX.
 Phases, in order (any failure raises and the script exits non-zero):
 
 1. card, versions, build times (one nvcc per kernel source and g++ for the
-   edge, started together), the G.722 and G.726 kernels' registers and
-   spill bytes from nvcc's ``-Xptxas -v`` report (a spill fails the run),
-   the edge's
-   AES path (``native.hw_crypto``) and which system codec and crypto
-   libraries the machine has (printed only);
+   edge, started together), the G.722, DVI4 and G.726 kernels' registers
+   and spill bytes from nvcc's ``-Xptxas -v`` report (a spill fails the
+   run), the edge's AES path (``native.hw_crypto``) and which system codec
+   and crypto libraries the machine has (printed only);
 2. each kernel against its plain version, at the flagship's shapes
    (fused_volume; mdf_apply with bf16 and with f32 shadow taps;
    mdf_update at cpos 0, 3, 7; mdf_update_fused, f32 and bf16 shadow)
@@ -34,13 +33,18 @@ Phases, in order (any failure raises and the script exits non-zero):
    around 50 launches, over input sets that spill the L2), its bound
    (bytes over 3.35 TB/s or operations over 67 TFLOP/s, the larger; for
    G.722 the serial chain of its 80 code slots instead of the throughput)
-   and its share of the bound; dvi4_encode / dvi4_decode (bit-exact) and
-   g726_encode / g726_decode at 16, 24, 32 and 40 kbit/s at B = 1,024 over
-   three ticks of speech, bit-exact (codes, decoded samples and every state
-   leaf; the codes that differ are counted and printed) and at every rate
-   on ragged shapes (1, 33, 77 and 1,000 legs x 1, 7, 80 and 200 samples,
-   two ticks each; DVI4 at 77 legs x 200 samples), each beside its
-   serial-chain and bytes bounds;
+   and its share of the bound; dvi4_encode / dvi4_decode and g726_encode /
+   g726_decode at 16, 24, 32 and 40 kbit/s at B = 1,024 over three ticks of
+   speech, bit-exact (codes, decoded samples and every state leaf; G.726's
+   differing codes are counted and printed) and on ragged shapes (1, 33, 77
+   and 1,000 legs x 1, 7, 80 and 200 samples, two ticks each, G.726 at
+   every rate; DVI4 also at 77 legs x 200 samples), DVI4 also on two clamp
+   fixtures at B = 1,024 x 3 ticks that must reach pred -32768 and 32767
+   and index 0 and 88 (a full-scale square wave then silence through the
+   encoder, random codes through the decoder), each beside its
+   serial-chain (dvi4_decode: the shorter of that and its scan depth) and
+   bytes bounds; the launch floor, an empty kernel's launch timed the same
+   way, on one block and on 1,024;
 3. the flagship at 4,096 legs (1,024 four-party conferences) for 100
    ticks of echo-coupled input: fused_volume, mdf_apply and
    mdf_update_fused launched once per tick and mdf_update never, all
@@ -159,6 +163,7 @@ SYSTEM_LIBRARIES = ("opus", "gsm", "avcodec", "ssl", "crypto")
 # fragment of the mangled name (G.726 at 40 kbit/s: the most thresholds
 # and candidates a lane)
 SPILL_CHECKED = {"g722_encode": "g722_encode_kernel", "g722_decode": "g722_decode_kernel",
+                 "dvi4_encode": "dvi4_encode_kernel", "dvi4_decode": "dvi4_decode_kernel",
                  "g726_encode (40 kbit/s)": "g726_encode_kernelILi5E",
                  "g726_decode (40 kbit/s)": "g726_decode_kernelILi5E"}
 LEGS = 4096
@@ -349,15 +354,20 @@ def g722_bound(cost):
     return chain_bound(cost[0], cost[1] * DEP_OP_CYCLES)
 
 
-# DVI4 and G.726 (csrc/adpcm_kernels.cu): one thread per leg runs the tick's
-# samples one after another, as G.722. The chains, hand-counted from the
+# DVI4 and G.726 (csrc/adpcm_kernels.cu): a leg's samples run one after
+# another, as G.722's (the lanes of a warp share the leg's work, not its
+# chain), except in dvi4_decode, below. The chains, hand-counted from the
 # kernels as the longest loop from one sample's state to the next's, each
 # add, multiply, compare, select, min, max or table load one step of
 # DEP_OP_CYCLES, sums as binary trees:
-# - dvi4_encode 15: pred -> diff -> abs -> three compare / subtract-select
-#   rounds against step, step/2, step/4 -> vpdiff -> pred +- vpdiff ->
-#   clamp; dvi4_decode 4: the codes come from the wire, so only index ->
-#   step load -> add -> clamp (and pred -> +- -> clamp beside it) carries;
+# - dvi4_encode 13: pred -> diff -> |diff| -> three rounds against step,
+#   step/2, step/4 (a compare, then the select of the subtracted rest, which
+#   runs beside it; the last round's compare only: 5) -> the last round's
+#   step/4 selected and added to vpdiff (2) -> pred +- vpdiff, both beside
+#   each other, and the sign's select (2) -> clamp (2); the next step is
+#   selected from five read ahead, beside it (a 9-step loop);
+#   dvi4_decode 4: the codes come from the wire, so only index -> step load
+#   -> add -> clamp (and pred -> +- -> clamp beside it) carries;
 # - g726_encode 37 steps plus the threshold count's (1 compare and a tree
 #   over 1, 3, 7 or 15 thresholds: 1, 3, 4, 5), one log2f and one exp2f:
 #   se -> d -> |d| -> log2f -> dln -> count -> code -> mag -> dqln load ->
@@ -370,13 +380,30 @@ def g722_bound(cost):
 # each on the chain (an operand-range step, the MUFU.LG2 / MUFU.EX2 special
 # function at ~18 cycles, a rescale step). G.726 has no true division:
 # every divisor is a power of two, which compiles to a multiply.
-DVI4_CHAIN_OPS = {"dvi4_encode": 15, "dvi4_decode": 4}
+DVI4_CHAIN_OPS = {"dvi4_encode": 13, "dvi4_decode": 4}
 G726_RATES = {2: 16, 3: 24, 4: 32, 5: 40}         # bits a sample -> kbit/s
 G726_ENCODE_OPS = {2: 38, 3: 40, 4: 41, 5: 42}
 G726_DECODE_OPS = 16
 SPECIAL_FN_CYCLES = 26
 DVI4_STATE_INTS = 2
 G726_STATE_FLOATS = 24
+# dvi4_decode need not run the serial recurrence: both its carries are
+# clamped sums, which compose, so a tick of S samples decodes as two scans
+# of ceil(log2 S) levels. Its least time is the shorter of the serial chain
+# and that scan depth, the steps hand-counted from the kernel as above: a
+# level is 5 (the shuffle, the add and the clamp's max and min, the select
+# of the lanes below the offset); the index-table load (1) before the index
+# scan; between the scans a sample's index applied (3), shuffled up (1) and
+# selected on lane 0 (1), the step load (1), vpdiff (4: a shift, a select,
+# two adds) and its sign (1); the pred scan's apply (3) after it: 14. The
+# kernel's layout is longer: it scans chunks of DVI4_DECODE_LANES samples
+# (a leg a warp) one after another, chunk 0's index scan before the loop,
+# then a chunk's 14 steps, the carry's shuffle (1) and its pred scan, the
+# next chunk's index scan beside that one, off the chain.
+DVI4_DECODE_LANES = 32
+SCAN_LEVEL_OPS = 5
+DVI4_SAMPLE_OPS = 14
+DVI4_CHUNK_OPS = DVI4_SAMPLE_OPS + 1
 
 
 def adpcm_cost(B, S, name, bits=None):
@@ -392,6 +419,33 @@ def adpcm_cost(B, S, name, bits=None):
     else:
         words, cycles = G726_STATE_FLOATS, G726_DECODE_OPS * DEP_OP_CYCLES + SPECIAL_FN_CYCLES
     return B * (2 * 4 * S + 2 * 4 * words), S * cycles
+
+
+def dvi4_scan_cycles(S, lanes=None):
+    """Cycles of dvi4_decode's scan depth on S samples a leg (the counts
+    above). With no ``lanes``, the function's least: one scan over all S
+    samples, the table load, two scans of ceil(log2 S) levels and
+    DVI4_SAMPLE_OPS steps. With ``lanes``, the kernel's layout: chunk 0's
+    index scan, then ceil(S / lanes) chunks of DVI4_CHUNK_OPS steps and a
+    scan of log2(lanes) levels."""
+    if S == 0:
+        return 0
+    if lanes is None:
+        levels = (S - 1).bit_length()
+        return DEP_OP_CYCLES * (1 + 2 * SCAN_LEVEL_OPS * levels + DVI4_SAMPLE_OPS)
+    scan = SCAN_LEVEL_OPS * int(math.log2(lanes))
+    return DEP_OP_CYCLES * (1 + scan + math.ceil(S / lanes) * (DVI4_CHUNK_OPS + scan))
+
+
+def adpcm_bound(B, S, name, bits=None):
+    """The bound of a DVI4 or G.726 kernel: ``chain_bound``'s (bound ms,
+    what bounds it, bytes bound ms, depth bound ms) and the depth's kind,
+    "serial chain" or (dvi4_decode, where it is shorter) "scan depth"."""
+    nbytes, cycles = adpcm_cost(B, S, name, bits)
+    depth = "serial chain"
+    if name == "dvi4_decode" and dvi4_scan_cycles(S) < cycles:
+        cycles, depth = dvi4_scan_cycles(S), "scan depth"
+    return (*chain_bound(nbytes, cycles), depth)
 
 
 def bound(cost):
@@ -724,13 +778,135 @@ def _adpcm_row(name, label, B, bits, kfn, pfn, make_set, err, tolerance, card, w
     r = {"max_abs_err": err, "tolerance": tolerance,
          "ms": device_ms(lambda i: kfn(*sets[i % len(sets)])),
          "plain_ms": device_ms(lambda i: pfn(*sets[i % len(sets)]), n=3), "bytes": cost[0]}
-    r["bound_ms"], r["bound_by"], r["bound_bytes_ms"], r["bound_chain_ms"] = chain_bound(*cost)
+    (r["bound_ms"], r["bound_by"], r["bound_bytes_ms"], r["bound_chain_ms"],
+     r["bound_depth"]) = adpcm_bound(B, S8, name, bits)
+    depth = f"serial chain {cost[1]} cycles"
+    if r["bound_depth"] == "scan depth":
+        depth = (f"scan depth {dvi4_scan_cycles(S8)} cycles (one scan over {S8} samples, "
+                 f"{(S8 - 1).bit_length()} levels; the kernel's {DVI4_DECODE_LANES}-lane "
+                 f"chunks {dvi4_scan_cycles(S8, DVI4_DECODE_LANES)}; {depth})")
     print(f"kernel {label} [B={B}, {S8} samples]: {what}; device {r['ms']:.4f} ms per launch, "
-          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: serial chain {cost[1]} cycles = "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {depth} = "
           f"{r['bound_chain_ms']:.4f} ms, bytes {r['bytes'] / 1e6:.2f} MB = "
           f"{r['bound_bytes_ms']:.4f} ms), {100 * r['bound_ms'] / r['ms']:.0f}% of bound; plain "
           f"{r['plain_ms']:.4f} ms [{card}]", flush=True)
     return r
+
+
+# DVI4's clamps: pred at -32768 and 32767, index at 0 and 88. A clamp is
+# reached where the sum it clamps passes its limit.
+DVI4_CLAMPS = ("pred -32768", "pred 32767", "index 0", "index 88")
+
+
+def dvi4_clamp_codes(legs, n, seed=0) -> np.ndarray:
+    """int32 [legs, n]: uniform random DVI4 codes 0..15. Decoded from the
+    zero state, the index climbs to 88 and pred swings into both limits."""
+    return np.random.default_rng(seed).integers(0, 16, (legs, n)).astype(np.int32)
+
+
+def dvi4_square_fixture(legs, n) -> np.ndarray:
+    """int32 [legs, n]: a full-scale square wave (32767 / -32768, a half
+    period of 1 + leg % 40 samples) over the first n // 2 samples, then
+    silence. Encoded from the zero state, it drives pred into both limits
+    and the index to 88, and the silence brings the index down to 0."""
+    half = 1 + np.arange(legs)[:, None] % 40
+    t = np.arange(n)[None]
+    sq = np.where((t // half) % 2 == 0, 32767, -32768)
+    return np.where(t < n // 2, sq, 0).astype(np.int32)
+
+
+def dvi4_clamp_hits(codes, pred, index) -> dict:
+    """How many times each of DVI4_CLAMPS is reached along ``codes`` (int32
+    [B, n]) decoded from the state ``pred``, ``index`` (int32 [B]): the
+    decoder's path, and the encoder's that made those codes."""
+    from mediastreamer2_tpu_torch.ops.adpcm import dvi4_tables
+    step_tab, idx_tab = dvi4_tables("cpu")
+    codes, p, ix = codes.cpu(), pred.cpu().clone(), index.cpu().clone()
+    hits = dict.fromkeys(DVI4_CLAMPS, 0)
+    for j in range(codes.shape[1]):
+        code, step = codes[:, j], step_tab[ix]
+        delta = code & 7
+        vpdiff = ((step >> 3) + torch.where((delta & 4) != 0, step, 0)
+                  + torch.where((delta & 2) != 0, step >> 1, 0)
+                  + torch.where((delta & 1) != 0, step >> 2, 0))
+        u, w = torch.where((code & 8) != 0, p - vpdiff, p + vpdiff), ix + idx_tab[delta]
+        for key, reached in zip(DVI4_CLAMPS, (u < -32768, u > 32767, w < 0, w > 88)):
+            hits[key] += int(reached.sum())
+        p, ix = u.clamp(-32768, 32767), w.clamp(0, 88)
+    return hits
+
+
+def dvi4_run(kernels, name, blocks, dev, what):
+    """Ticks ``blocks`` (int32 [B, n] each) through a DVI4 kernel and its
+    plain version, each from the zero state carried across the ticks: the
+    output, pred and index bit for bit after each tick, and a tick of no
+    samples leaves the state as it was. Returns the plain outputs and the
+    kernel's final (pred, index)."""
+    B = blocks[0].shape[0]
+    zeros = lambda: torch.zeros((B,), dtype=torch.int32, device=dev)    # noqa: E731
+    kfn, pfn = getattr(kernels, name), getattr(kernels, f"{name}_reference")
+    ks, ps = (zeros(), zeros()), (zeros(), zeros())
+    outs = []
+    for t, x in enumerate(blocks):
+        before = [s.clone() for s in ks]
+        got, want = kfn(x, *ks)[0], pfn(x, *ps)[0]
+        _require_equal(f"{name} {what} tick {t}", got, want)
+        for leaf, a, b, a0 in zip(("pred", "index"), ks, ps, before):
+            _require_equal(f"{name} {what} {leaf} after tick {t}", a, b)
+            if x.shape[1] == 0:
+                _require_equal(f"{name} {what} {leaf} after an empty tick {t}", a, a0)
+        outs.append(want)
+    return outs, ks
+
+
+def dvi4_checks(kernels, dev, B):
+    """Phase 2 for DVI4, both kernels bit for bit against their plain
+    versions (output, pred and index after every tick), each tick's
+    decoder fed the plain encoder's codes: G726_RAGGED's shapes (two
+    ticks of speech each), a block of 77 legs x 200 samples (one tick), 33
+    legs x 80, 0 and 80 samples (an empty tick between two carried ones)
+    and no legs at all (0 x 80, two ticks); then the clamp fixtures at B
+    legs x 3 ticks, which must reach every clamp: a square wave then
+    silence through the encoder, random codes through the decoder. Returns
+    the clamps' hits."""
+    def both(blocks, what):
+        dvi4_run(kernels, "dvi4_decode", dvi4_run(kernels, "dvi4_encode", blocks, dev, what)[0],
+                 dev, what)
+
+    def speech(legs, n, seed):
+        return torch.from_numpy(speech_fixture(legs, n, seed=seed)).to(dev)
+    for legs in G726_RAGGED[0]:
+        for n in G726_RAGGED[1]:
+            x = speech(legs, 2 * n, legs + n)
+            both([x[:, :n].contiguous(), x[:, n:].contiguous()], f"{legs} legs x {n} samples")
+    both([speech(77, 200, 3)], "77 legs x 200 samples")
+    x = speech(33, 2 * S8, 5)
+    both([x[:, :S8].contiguous(), x[:, :0].contiguous(), x[:, S8:].contiguous()],
+         f"33 legs x {S8}, 0 and {S8} samples")
+    x = torch.zeros((0, S8), dtype=torch.int32, device=dev)
+    both([x, x], f"0 legs x {S8} samples")
+    zeros = torch.zeros((B,), dtype=torch.int32)
+    square = torch.from_numpy(dvi4_square_fixture(B, 3 * S8)).to(dev)
+    codes = dvi4_run(kernels, "dvi4_encode", [square[:, t * S8:(t + 1) * S8].contiguous()
+                                              for t in range(3)], dev, "square wave")[0]
+    rand = torch.from_numpy(dvi4_clamp_codes(B, 3 * S8, seed=7)).to(dev)
+    dvi4_run(kernels, "dvi4_decode", [rand[:, t * S8:(t + 1) * S8].contiguous()
+                                      for t in range(3)], dev, "random codes")
+    hits = {"encoder": dvi4_clamp_hits(torch.cat(codes, dim=1), zeros, zeros),
+            "decoder": dvi4_clamp_hits(rand, zeros, zeros)}
+    for side, h in hits.items():
+        if not all(h.values()):
+            raise AssertionError(f"dvi4 {side} clamp fixture misses a clamp: {h}")
+    return hits
+
+
+def launch_floor(kernels, dev, card, blocks):
+    """Print the device time of an empty kernel's launch, timed as the
+    kernels are, on one block and on ``blocks`` blocks of one warp."""
+    ms = {n: device_ms(lambda i, n=n: kernels.empty_launch(dev, n)) for n in (1, blocks)}
+    print(f"launch floor: an empty kernel of csrc/adpcm_kernels.cu, {ms[1]:.4f} ms per launch "
+          f"on 1 block, {ms[blocks]:.4f} ms on {blocks} blocks of 32 threads [{card}]",
+          flush=True)
 
 
 def adpcm_checks(kernels, dev, card, B):
@@ -745,26 +921,12 @@ def adpcm_checks(kernels, dev, card, B):
     ticks = ADPCM_CHECK_TICKS
     pcm = torch.from_numpy(speech_fixture(B, S8 * ticks, seed=2)).to(dev)
     tick = lambda a, t: a[:, t * S8:(t + 1) * S8].contiguous()          # noqa: E731
-    zeros = lambda: torch.zeros((B,), dtype=torch.int32, device=dev)    # noqa: E731
     results = {}
 
     # DVI4: bit-exact
-    codes = []
-    ks, ps = (zeros(), zeros()), (zeros(), zeros())
-    for t in range(ticks):
-        got, want = kernels.dvi4_encode(tick(pcm, t), *ks)[0], \
-            kernels.dvi4_encode_reference(tick(pcm, t), *ps)[0]
-        _require_equal(f"dvi4_encode tick {t}", got, want)
-        for name, a, b in zip(("pred", "index"), ks, ps):
-            _require_equal(f"dvi4_encode {name} after tick {t}", a, b)
-        codes.append(want)
-    enc_state = ks
-    ks, ps = (zeros(), zeros()), (zeros(), zeros())
-    for t in range(ticks):
-        _require_equal(f"dvi4_decode tick {t}", kernels.dvi4_decode(codes[t], *ks)[0],
-                       kernels.dvi4_decode_reference(codes[t], *ps)[0])
-        for name, a, b in zip(("pred", "index"), ks, ps):
-            _require_equal(f"dvi4_decode {name} after tick {t}", a, b)
+    codes, enc_state = dvi4_run(kernels, "dvi4_encode", [tick(pcm, t) for t in range(ticks)],
+                                dev, "speech")
+    _, dec_state = dvi4_run(kernels, "dvi4_decode", codes, dev, "speech")
     what = f"matches plain (bit-exact: output, pred and index, {ticks} ticks)"
     results["dvi4_encode"] = _adpcm_row(
         "dvi4_encode", "dvi4_encode", B, None, kernels.dvi4_encode,
@@ -774,18 +936,16 @@ def adpcm_checks(kernels, dev, card, B):
     results["dvi4_decode"] = _adpcm_row(
         "dvi4_decode", "dvi4_decode", B, None, kernels.dvi4_decode,
         kernels.dvi4_decode_reference,
-        lambda: (codes[-1], *(s.clone() for s in ks)), 0.0, "bit-exact", card, what)
+        lambda: (codes[-1], *(s.clone() for s in dec_state)), 0.0, "bit-exact", card, what)
+    hits = dvi4_checks(kernels, dev, B)
+    print(f"dvi4 ragged shapes (legs {G726_RAGGED[0]} x samples {G726_RAGGED[1]}, 2 ticks; 77 "
+          f"legs x 200 samples; 33 legs x 80, 0 and 80 samples; 0 legs) and clamp fixtures "
+          f"({B} legs x 3 ticks; clamps reached: square wave then silence through the encoder "
+          f"{hits['encoder']}, random codes through the decoder {hits['decoder']}): kernels "
+          f"equal to plain in output, pred and index", flush=True)
+    launch_floor(kernels, dev, card, B)
 
-    # a ragged block and a tick longer than 80 samples (77 legs x 200
-    # samples, one tick): DVI4 bit for bit; G.726 at every rate on
-    # G726_RAGGED's shapes
-    rb, rs = 77, 200
-    x = torch.from_numpy(speech_fixture(rb, rs, seed=3)).to(dev)
-    zr = lambda: torch.zeros((rb,), dtype=torch.int32, device=dev)      # noqa: E731
-    c = kernels.dvi4_encode_reference(x, zr(), zr())[0]
-    _require_equal("dvi4_encode ragged", kernels.dvi4_encode(x, zr(), zr())[0], c)
-    _require_equal("dvi4_decode ragged", kernels.dvi4_decode(c, zr(), zr())[0],
-                   kernels.dvi4_decode_reference(c, zr(), zr())[0])
+    # G.726 at every rate on G726_RAGGED's shapes
     g726_ragged_checks(kernels, dev)
     print(f"g726 ragged shapes (legs {G726_RAGGED[0]} x samples {G726_RAGGED[1]}, 2 ticks, "
           f"every rate): kernels equal to plain in codes, samples and every state leaf",
@@ -1837,6 +1997,8 @@ def main():
                  "launches_per_tick": {path: c[name] / n for path, (c, n) in runs.items()}}
         if "bound_chain_ms" in r:
             entry.update(bound_bytes_ms=r["bound_bytes_ms"], bound_chain_ms=r["bound_chain_ms"])
+        if "bound_depth" in r:
+            entry["bound_depth"] = r["bound_depth"]
         if name.startswith("g726"):
             entry["rates_kbps"] = {kbps: {k: adpcm_results[f"{name}@{kbps}"][k] for k in keys}
                                    for kbps in G726_RATES.values()}

@@ -16,22 +16,56 @@
 //
 // What bounds them is the serial chain: every sample's predictor needs the
 // previous sample's, so a leg's samples run one after another at the latency
-// of their dependent operations; the bytes, 0.66 MB (DVI4) or 0.85 MB (G.726)
-// a call at 1,024 legs, take 0.2-0.3 microseconds at 3.35 TB/s.
+// of their dependent operations (the DVI4 decoder excepted: its carries are
+// clamped sums, which compose, below); the bytes, 0.66 MB (DVI4) or 0.85 MB
+// (G.726) a call at 1,024 legs, take 0.2-0.3 microseconds at 3.35 TB/s.
 //
-// DVI4: one thread per leg. The leg's two int32 of state are loaded into
-// registers, the tick's samples run in a loop (the count comes from the
-// shape), and the state is stored back in place. The step and index tables
-// are copied to shared memory: the legs of a warp read different entries,
-// which the constant cache would serialise. The next sample's input is
-// loaded one sample ahead. A block is ADPCM_THREADS = 32 legs, one warp
-// (measured on an H100 at 1,024 legs with tools/adpcm_block_size.py: 32
-// threads a block were the fastest, 64 were 2-24% slower and 128 3-77%
-// slower). Input and output are [B, S] row-major, so a thread walks global
-// memory at a stride of S * 4 bytes; staging the block's rows through a
-// shared-memory tile, filled row by row with one load in flight a thread,
-// was measured three times slower, so the samples are read and written in
-// place.
+// DVI4: a leg's samples on the lanes of a warp.
+// - Decode: a leg a warp, four warps a block. Both carries of _dec_step are
+//   clamped sums: index' = clamp(index + adj(code), 0, 88) and pred' =
+//   clamp(pred + v, -32768, 32767), v = +-vpdiff(step[index], code). Write
+//   x -> min(max(x + a, lo), hi) as the triple (a, lo, hi): (a1, l1, h1)
+//   followed by (a2, l2, h2) is (a1 + a2, clamp(l1 + a2, l2, h2),
+//   clamp(h1 + a2, l2, h2)), exact in int32 (|a| <= 32 x 61,436). So a chunk
+//   of a leg's samples, one a lane, decodes as two Kogge-Stone scans of five
+//   shuffle levels: the index triples (adj(code), 0, 88) give each sample's
+//   index; each lane reads its step from shared memory and makes its v; the
+//   pred triples (v, -32768, 32767) give each sample's output, stored
+//   coalesced. Lanes past S take the identity. The last lane's index and
+//   pred carry into the next chunk by a shuffle. The next chunk's index scan
+//   does not need this chunk's carry, so it runs beside this chunk's pred
+//   scan; the codes arrive up to three chunks ahead, a chunk in one
+//   coalesced load.
+// - Encode: DVI4_LANES lanes a leg (16 by default: two legs a warp). The
+//   code quantises x - pred, so the samples stay serial, and every lane of
+//   the leg runs the recurrence as the same scalar code. What leaves the
+//   chain: the loads (the leg's next DVI4_LANES samples in one coalesced
+//   load, a chunk ahead; sample j reaches the chain by a shuffle from lane
+//   j, and lane j keeps code j, stored DVI4_LANES at a time; a whole chunk's
+//   loop is unrolled, so that j is known at compile time) and the step-table
+//   load: the next index is one of five (index - 1, + 2, + 4, + 6, + 8,
+//   clamped), whose steps are read from shared memory (a table padded at
+//   both ends, so that no clamp comes before the loads) while the quantizer
+//   runs, and delta selects one. The quantizer is the three
+//   compare-and-subtract rounds.
+// Measured on an H100 at 700 W at B = 1,024, 80 samples (tools/
+// dvi4_variants.py, one call, in turns, twice; ms a launch): decode 0.0034
+// -0.0035 (two legs a warp, 16 lanes each, 0.0036; one warp a block
+// 0.0041), encode 0.0084 (8 lanes a leg 0.0087, 32 lanes 0.0094; the
+// quantizer as the count of the seven thresholds T(d) = (d&4 ? s : 0) +
+// (d&2 ? s>>1 : 0) + (d&1 ? s>>2 : 0) that |diff| reaches, with vpdiff =
+// (s>>3) + T(delta), bit-exact too and a shorter chain, 0.0102: it issues
+// more instructions); the earlier design, a leg a thread, 0.0095 and
+// 0.0108-0.0109; an empty kernel's launch 0.0017 (one block) to 0.0023
+// (1,024 blocks).
+// The encoder's loop is ~44 SASS instructions a sample, issued by one warp
+// a scheduler at ~3.4 cycles an instruction: its dependent steps, not its
+// loads, bound it now. The earlier design walked each leg's row at a stride
+// of S * 4 bytes, one sample ahead, at ~5 cycles an instruction; staging
+// its rows through a shared-memory tile, filled row by row with one load
+// in flight a thread, had measured three times slower still.
+// The step and index tables sit in shared memory (the lanes read different
+// entries, which the constant cache would serialise).
 //
 // G.726: the lanes of a warp per leg (G726_LANES lanes a leg, 16 by
 // default: two legs a warp, a block one warp). Every lane of the leg runs
@@ -78,6 +112,9 @@
 #ifndef ADPCM_THREADS
 #define ADPCM_THREADS 32       // threads a block: one warp
 #endif
+#ifndef DVI4_LANES
+#define DVI4_LANES 16          // lanes a DVI4 encoder leg: 8, 16 or 32
+#endif
 #ifndef G726_LANES
 #define G726_LANES 16          // lanes a G.726 leg: 4, 8, 16 or 32
 #endif
@@ -85,12 +122,37 @@
 namespace {
 
 static_assert(ADPCM_THREADS % 32 == 0, "ADPCM_THREADS must be a multiple of 32");
+static_assert(DVI4_LANES == 8 || DVI4_LANES == 16 || DVI4_LANES == 32,
+              "DVI4_LANES must be 8, 16 or 32");
 static_assert(G726_LANES == 4 || G726_LANES == 8 || G726_LANES == 16 || G726_LANES == 32,
               "G726_LANES must be 4, 8, 16 or 32");
 constexpr int kG726Lanes = G726_LANES;
-constexpr int kG726LegsPerBlock = ADPCM_THREADS / kG726Lanes;
-constexpr int kG726LegsPerWarp = 32 / kG726Lanes;
-constexpr unsigned kG726Full = 0xFFFFFFFFu;
+constexpr int kDvi4DecThreads = 128;   // the DVI4 decoder's block: four legs of a warp
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// The lanes of a leg: a warp holds 32 / L legs of L lanes, a block of T
+// threads T / L. A warp whose legs all lie past B returns as a whole
+// (leg_map's result); a leg past B in a live warp reads the last leg and
+// stores nothing, so that every ballot and shuffle of the warp sees all 32
+// lanes.
+struct LegLanes {
+    int lane;     // lane within the leg
+    int seg;      // the leg's first lane in the warp
+    int src;      // the leg read
+    bool live;    // the leg is < B: its results are stored
+};
+
+template <int L, int T = ADPCM_THREADS>
+__device__ __forceinline__ bool leg_map(LegLanes& m, int B)
+{
+    constexpr int legs_per_block = T / L, legs_per_warp = 32 / L;
+    m.lane = threadIdx.x % L;
+    m.seg = threadIdx.x % 32 - m.lane;
+    const int leg = (int)blockIdx.x * legs_per_block + (int)threadIdx.x / L;
+    m.live = leg < B;
+    m.src = m.live ? leg : B - 1;
+    return (int)blockIdx.x * legs_per_block + (int)(threadIdx.x / 32) * legs_per_warp < B;
+}
 
 // ---------------------------------------------------------------------------
 // DVI4 (IMA ADPCM)
@@ -105,82 +167,171 @@ __device__ const int kStep[89] = {
     20350, 22385, 24623, 27086, 29794, 32767};
 __device__ const int kIndex[8] = {-1, -1, -1, -1, 2, 4, 6, 8};
 
+// The step table padded for the encoder's five candidates: step[i] is at
+// i + 1, with step[0] once before it and step[88] eight times after it, so
+// that index - 1 .. index + 8 read the clamped indices' steps.
 struct Dvi4Tables {
-    int step[89], index[8];
+    int step[1 + 89 + 8], index[8];
 };
 
 __device__ __forceinline__ void dvi4_load_tables(Dvi4Tables* t)
 {
-    for (int i = threadIdx.x; i < 89; i += blockDim.x) t->step[i] = kStep[i];
+    for (int i = threadIdx.x; i < 1 + 89 + 8; i += blockDim.x)
+        t->step[i] = kStep[min(max(i - 1, 0), 88)];
     for (int i = threadIdx.x; i < 8; i += blockDim.x) t->index[i] = kIndex[i];
     __syncthreads();
 }
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
 
-// adpcm.py _enc_step
+// One encoder's state: pred, index and step = step table[index].
+struct Dvi4Enc {
+    int pred, index, step;
+};
+
+// adpcm.py _enc_step: one sample x -> its code; z advanced. ``tab`` is the
+// padded step table.
+__device__ __forceinline__ int dvi4_enc_sample(Dvi4Enc& z, int x, const int* tab)
+{
+    // the steps of the five indices the next sample can have
+    const int* cand = tab + 1 + z.index;
+    const int s_dn = cand[-1], s_2 = cand[2], s_4 = cand[4], s_6 = cand[6], s_8 = cand[8];
+    const int step = z.step, h = step >> 1, q = step >> 2;
+    const int diff = x - z.pred;
+    const int mag = abs(diff);
+    int rest = mag, vpdiff = step >> 3;
+    const int b2 = rest >= step;
+    if (b2) { rest -= step; vpdiff += step; }
+    const int b1 = rest >= h;
+    if (b1) { rest -= h; vpdiff += h; }
+    const int b0 = rest >= q;
+    if (b0) vpdiff += q;
+    const int delta = (b2 << 2) | (b1 << 1) | b0;
+    z.pred = clampi(diff < 0 ? z.pred - vpdiff : z.pred + vpdiff, -32768, 32767);
+    z.index = clampi(z.index + (delta < 4 ? -1 : 2 * delta - 6), 0, 88);
+    const int s_up = (delta & 2) ? ((delta & 1) ? s_8 : s_6) : ((delta & 1) ? s_4 : s_2);
+    z.step = (delta & 4) ? s_up : s_dn;
+    return (diff < 0 ? 8 : 0) | delta;
+}
+
+// adpcm.py _enc_step over a tick: pcm int32 [B, S] -> codes 0..15. Every
+// lane of a leg runs the recurrence; lane j of a chunk loads sample j0 + j
+// a chunk ahead and keeps code j0 + j.
+template <int L>
 __global__ void __launch_bounds__(ADPCM_THREADS)
 dvi4_encode_kernel(const int* __restrict__ pcm, int* __restrict__ codes,
                    int* __restrict__ pred_p, int* __restrict__ index_p, int B, int S)
 {
     __shared__ Dvi4Tables t;
+    LegLanes m;
+    const bool warp_live = leg_map<L>(m, B);
+    const int* in = pcm + (size_t)m.src * S;
+    int* out = codes + (size_t)m.src * S;
+    Dvi4Enc z{pred_p[m.src], index_p[m.src], 0};
+    int next = m.lane < S ? __ldg(in + m.lane) : 0;    // in flight while the tables load
     dvi4_load_tables(&t);
-    const int leg = blockIdx.x * blockDim.x + threadIdx.x;
-    if (leg >= B) return;
-    int pred = pred_p[leg], index = index_p[leg];
-    const int* in = pcm + (size_t)leg * S;
-    int* out = codes + (size_t)leg * S;
-    int next = S > 0 ? in[0] : 0;
-    for (int j = 0; j < S; ++j) {
-        const int x = next;
-        if (j + 1 < S) next = in[j + 1];               // one sample ahead
-        const int step = t.step[index];
-        int diff = x - pred;
-        const int sign = diff < 0 ? 8 : 0;
-        diff = abs(diff);
-        int vpdiff = step >> 3;
-        const int b2 = diff >= step;
-        if (b2) { diff -= step; vpdiff += step; }
-        const int b1 = diff >= (step >> 1);
-        if (b1) { diff -= step >> 1; vpdiff += step >> 1; }
-        const int b0 = diff >= (step >> 2);
-        if (b0) vpdiff += step >> 2;
-        const int delta = (b2 << 2) | (b1 << 1) | b0;
-        pred = clampi(sign ? pred - vpdiff : pred + vpdiff, -32768, 32767);
-        index = clampi(index + t.index[delta], 0, 88);
-        out[j] = sign | delta;
+    if (!warp_live) return;
+    z.step = t.step[1 + z.index];
+    for (int j0 = 0; j0 < S; j0 += L) {
+        const int xs = next;                            // sample j0 + lane
+        if (j0 + L + m.lane < S) next = __ldg(in + j0 + L + m.lane);
+        const int n = min(L, S - j0);
+        int mine = 0;
+        if (n == L) {                                   // a whole chunk: j known at compile time
+#pragma unroll
+            for (int j = 0; j < L; ++j) {
+                const int code = dvi4_enc_sample(z, __shfl_sync(kFull, xs, m.seg + j), t.step);
+                mine = m.lane == j ? code : mine;
+            }
+        } else {
+            for (int j = 0; j < n; ++j) {
+                const int code = dvi4_enc_sample(z, __shfl_sync(kFull, xs, m.seg + j), t.step);
+                mine = m.lane == j ? code : mine;
+            }
+        }
+        if (m.live && m.lane < n) out[j0 + m.lane] = mine;
     }
-    pred_p[leg] = pred;
-    index_p[leg] = index;
+    if (m.live && m.lane == 0) {
+        pred_p[m.src] = z.pred;
+        index_p[m.src] = z.index;
+    }
 }
 
-// adpcm.py _dec_step
-__global__ void __launch_bounds__(ADPCM_THREADS)
+// An inclusive scan of clamped-add maps x -> min(max(x + a, lo), hi) over
+// the 32 lanes of a warp: lane i ends with lanes 0..i's maps composed in
+// order, lane 0's first.
+__device__ __forceinline__ void clamp_scan(int& a, int& lo, int& hi, int lane)
+{
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int pa = __shfl_up_sync(kFull, a, d);
+        const int pl = __shfl_up_sync(kFull, lo, d);
+        const int ph = __shfl_up_sync(kFull, hi, d);
+        if (lane >= d) {                                // (pa, pl, ph), then (a, lo, hi)
+            const int nlo = clampi(pl + a, lo, hi);
+            hi = clampi(ph + a, lo, hi);
+            lo = nlo;
+            a += pa;
+        }
+    }
+}
+
+// adpcm.py _dec_step over a tick: codes -> pcm int32, a leg a warp, a chunk
+// of 32 samples a step, one a lane, by two clamp_scans.
+__global__ void __launch_bounds__(kDvi4DecThreads)
 dvi4_decode_kernel(const int* __restrict__ codes, int* __restrict__ pcm,
                    int* __restrict__ pred_p, int* __restrict__ index_p, int B, int S)
 {
+    constexpr int L = 32;                               // a leg a warp: clamp_scan's span
     __shared__ Dvi4Tables t;
+    LegLanes m;
+    const bool warp_live = leg_map<L, kDvi4DecThreads>(m, B);
+    const int* in = codes + (size_t)m.src * S;
+    int* out = pcm + (size_t)m.src * S;
+    int pred = pred_p[m.src], index = index_p[m.src];
+    // codes of chunks k, k + 1, k + 2 (lane's sample), in flight while the tables load
+    int code = m.lane < S ? __ldg(in + m.lane) : 0;
+    int c1 = L + m.lane < S ? __ldg(in + L + m.lane) : 0;
+    int c2 = 2 * L + m.lane < S ? __ldg(in + 2 * L + m.lane) : 0;
     dvi4_load_tables(&t);
-    const int leg = blockIdx.x * blockDim.x + threadIdx.x;
-    if (leg >= B) return;
-    int pred = pred_p[leg], index = index_p[leg];
-    const int* in = codes + (size_t)leg * S;
-    int* out = pcm + (size_t)leg * S;
-    int next = S > 0 ? in[0] : 0;
-    for (int j = 0; j < S; ++j) {
-        const int code = next;
-        if (j + 1 < S) next = in[j + 1];               // one sample ahead
-        const int step = t.step[index];
+    if (!warp_live) return;
+    // chunk 0's index maps
+    int ia = m.lane < S ? t.index[code & 7] : 0, il = 0, ih = 88;
+    clamp_scan(ia, il, ih, m.lane);
+    for (int j0 = 0; j0 < S; j0 += L) {
+        const bool valid = j0 + m.lane < S;
+        // this lane's index after its sample and before it; the carry
+        const int after = clampi(index + ia, il, ih);
+        const int up = __shfl_up_sync(kFull, after, 1, L);
+        const int before = m.lane == 0 ? index : up;
+        index = __shfl_sync(kFull, after, L - 1, L);
+        const int step = t.step[1 + before];
         const int delta = code & 7;
-        const int vpdiff = (step >> 3) + ((delta & 4) ? step : 0)
-                           + ((delta & 2) ? step >> 1 : 0) + ((delta & 1) ? step >> 2 : 0);
-        pred = clampi((code & 8) ? pred - vpdiff : pred + vpdiff, -32768, 32767);
-        index = clampi(index + t.index[delta], 0, 88);
-        out[j] = pred;
+        const int vpdiff = (step >> 3) + ((delta & 4) ? step : 0) + ((delta & 2) ? step >> 1 : 0)
+                           + ((delta & 1) ? step >> 2 : 0);
+        int pa = valid ? ((code & 8) ? -vpdiff : vpdiff) : 0, pl = -32768, ph = 32767;
+        // the next chunk's index maps need no carry: that scan runs beside this pred scan
+        const int ncode = c1;
+        c1 = c2;
+        c2 = j0 + 3 * L + m.lane < S ? __ldg(in + j0 + 3 * L + m.lane) : 0;
+        ia = j0 + L + m.lane < S ? t.index[ncode & 7] : 0;
+        il = 0;
+        ih = 88;
+        clamp_scan(ia, il, ih, m.lane);
+        clamp_scan(pa, pl, ph, m.lane);
+        const int p = clampi(pred + pa, pl, ph);
+        pred = __shfl_sync(kFull, p, L - 1, L);
+        if (m.live && valid) out[j0 + m.lane] = p;
+        code = ncode;
     }
-    pred_p[leg] = pred;
-    index_p[leg] = index;
+    if (m.live && m.lane == 0) {
+        pred_p[m.src] = pred;
+        index_p[m.src] = index;
+    }
 }
+
+// An empty kernel: its launch is the floor under every kernel of this file.
+__global__ void __launch_bounds__(ADPCM_THREADS) empty_kernel() {}
 
 // ---------------------------------------------------------------------------
 // G.726
@@ -223,27 +374,6 @@ __device__ __forceinline__ void g726_load_tables(G726Tables* t)
     __syncthreads();
 }
 
-// The lanes of a leg. A warp holds kG726LegsPerWarp legs of G726_LANES lanes.
-// A warp whose legs all lie past B returns as a whole (the result); a leg
-// past B in a live warp reads the last leg and stores nothing, so that
-// every ballot and shuffle of the warp sees all 32 lanes.
-struct G726Lanes {
-    int lane;     // lane within the leg
-    int seg;      // the leg's first lane in the warp
-    int src;      // the leg read
-    bool live;    // the leg is < B: its results are stored
-};
-
-__device__ __forceinline__ bool g726_map(G726Lanes& m, int B)
-{
-    m.lane = threadIdx.x % kG726Lanes;
-    m.seg = threadIdx.x % 32 - m.lane;
-    const int leg = (int)blockIdx.x * kG726LegsPerBlock + (int)threadIdx.x / kG726Lanes;
-    m.live = leg < B;
-    m.src = m.live ? leg : B - 1;
-    return (int)blockIdx.x * kG726LegsPerBlock + (int)(threadIdx.x / 32) * kG726LegsPerWarp < B;
-}
-
 // One leg's codec state (g726.py g726_state), in registers, the same on
 // every lane of the leg.
 struct G726 {
@@ -256,7 +386,7 @@ struct G726Ptrs {
     float *b, *dq, *a1, *a2, *sr1, *sr2, *p1, *p2, *yu, *yl, *dms, *dml, *ap, *td;
 };
 
-__device__ __forceinline__ void g726_load(G726& z, const G726Ptrs& q, const G726Lanes& m)
+__device__ __forceinline__ void g726_load(G726& z, const G726Ptrs& q, const LegLanes& m)
 {
     const int leg = m.src;
 #pragma unroll
@@ -278,7 +408,7 @@ __device__ __forceinline__ void g726_load(G726& z, const G726Ptrs& q, const G726
     z.td = q.td[leg];
 }
 
-__device__ __forceinline__ void g726_store(const G726& z, const G726Ptrs& q, const G726Lanes& m)
+__device__ __forceinline__ void g726_store(const G726& z, const G726Ptrs& q, const LegLanes& m)
 {
     if (!m.live || m.lane != 0) return;
     const int leg = m.src;
@@ -405,9 +535,9 @@ g726_encode_kernel(const int* __restrict__ pcm, int* __restrict__ codes, G726Ptr
     constexpr int half = 1 << (BITS - 1);
     constexpr int kThr = (half - 1 + kG726Lanes - 1) / kG726Lanes;    // thresholds a lane
     constexpr int kCand = (half + kG726Lanes - 1) / kG726Lanes;       // magnitudes a lane
-    G726Lanes m;
-    if (!g726_map(m, B)) return;
-    const unsigned segmask = kG726Lanes == 32 ? kG726Full
+    LegLanes m;
+    if (!leg_map<kG726Lanes>(m, B)) return;
+    const unsigned segmask = kG726Lanes == 32 ? kFull
                                               : ((1u << (kG726Lanes % 32)) - 1u) << m.seg;
     float qt[kThr];
     bool qok[kThr];
@@ -436,7 +566,7 @@ g726_encode_kernel(const int* __restrict__ pcm, int* __restrict__ codes, G726Ptr
         const int n = min(kG726Lanes, S - j0);
         int mine = 0;
         for (int j = 0; j < n; ++j) {
-            const float x = (float)__shfl_sync(kG726Full, xs, m.seg + j) / 4.0f;  // 14-bit
+            const float x = (float)__shfl_sync(kFull, xs, m.seg + j) / 4.0f;  // 14-bit
             const float y = g726_scale(z);
             const float y4 = y / 4.0f;
             float up[kCand], down[kCand];              // this lane's candidates' dq
@@ -452,7 +582,7 @@ g726_encode_kernel(const int* __restrict__ pcm, int* __restrict__ codes, G726Ptr
             int mag = 0;
 #pragma unroll
             for (int t = 0; t < kThr; ++t)
-                mag += __popc(__ballot_sync(kG726Full, qok[t] && dln >= qt[t]) & segmask);
+                mag += __popc(__ballot_sync(kFull, qok[t] && dln >= qt[t]) & segmask);
             mag = min(mag, half - 1);
             const bool pos = d >= 0.0f;
             float dqc = pos ? up[0] : down[0], wc = cw[0], fc = cf[0];
@@ -464,9 +594,9 @@ g726_encode_kernel(const int* __restrict__ pcm, int* __restrict__ codes, G726Ptr
                     fc = cf[c];
                 }
             const int from = m.seg + mag % kG726Lanes;
-            const float dq = __shfl_sync(kG726Full, dqc, from);
-            const float w = __shfl_sync(kG726Full, wc, from);
-            const float f = __shfl_sync(kG726Full, fc, from);
+            const float dq = __shfl_sync(kFull, dqc, from);
+            const float w = __shfl_sync(kFull, wc, from);
+            const float f = __shfl_sync(kFull, fc, from);
             g726_adapt(z, dq, w, f, sez, se, y);
             const int code = pos ? half + mag : half - 1 - mag;
             mine = m.lane == j ? code : mine;
@@ -487,8 +617,8 @@ g726_decode_kernel(const int* __restrict__ codes, float* __restrict__ pcm, G726P
     __shared__ G726Tables t;
     g726_load_tables<BITS>(&t);
     constexpr int half = 1 << (BITS - 1);
-    G726Lanes m;
-    if (!g726_map(m, B)) return;
+    LegLanes m;
+    if (!leg_map<kG726Lanes>(m, B)) return;
     G726 z;
     g726_load(z, q, m);
     const int* in = codes + (size_t)m.src * S;
@@ -506,10 +636,10 @@ g726_decode_kernel(const int* __restrict__ codes, float* __restrict__ pcm, G726P
         float mine = 0.0f;
         for (int j = 0; j < n; ++j) {
             const int from = m.seg + j;
-            const float sign = __shfl_sync(kG726Full, lsign, from);
-            const float dqln = __shfl_sync(kG726Full, ldqln, from);
-            const float w = __shfl_sync(kG726Full, lw, from);
-            const float f = __shfl_sync(kG726Full, lf, from);
+            const float sign = __shfl_sync(kFull, lsign, from);
+            const float dqln = __shfl_sync(kFull, ldqln, from);
+            const float w = __shfl_sync(kFull, lw, from);
+            const float f = __shfl_sync(kFull, lf, from);
             const float sez = g726_sez(z);
             const float se = sez + z.a1 * z.sr1 + z.a2 * z.sr2;
             const float y = g726_scale(z);
@@ -531,8 +661,13 @@ __host__ G726Ptrs g726_ptrs(void* const* s)
                     (float*)s[10], (float*)s[11], (float*)s[12], (float*)s[13]};
 }
 
-inline int blocks(int B) { return (B + ADPCM_THREADS - 1) / ADPCM_THREADS; }
-inline int g726_blocks(int B) { return (B + kG726LegsPerBlock - 1) / kG726LegsPerBlock; }
+// blocks of T threads for B legs of L lanes
+template <int L, int T = ADPCM_THREADS>
+inline int leg_blocks(int B)
+{
+    constexpr int legs_per_block = T / L;
+    return (B + legs_per_block - 1) / legs_per_block;
+}
 
 }  // namespace
 
@@ -546,7 +681,8 @@ int ms2_dvi4_encode(int device, const void* pcm, void* codes, void* pred, void* 
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (B == 0) return (int)cudaGetLastError();
-    dvi4_encode_kernel<<<blocks(B), ADPCM_THREADS, 0, (cudaStream_t)stream>>>(
+    dvi4_encode_kernel<DVI4_LANES>
+        <<<leg_blocks<DVI4_LANES>(B), ADPCM_THREADS, 0, (cudaStream_t)stream>>>(
         (const int*)pcm, (int*)codes, (int*)pred, (int*)index, B, S);
     return (int)cudaGetLastError();
 }
@@ -558,8 +694,19 @@ int ms2_dvi4_decode(int device, const void* codes, void* pcm, void* pred, void* 
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (B == 0) return (int)cudaGetLastError();
-    dvi4_decode_kernel<<<blocks(B), ADPCM_THREADS, 0, (cudaStream_t)stream>>>(
+    dvi4_decode_kernel<<<leg_blocks<32, kDvi4DecThreads>(B), kDvi4DecThreads, 0,
+                         (cudaStream_t)stream>>>(
         (const int*)codes, (int*)pcm, (int*)pred, (int*)index, B, S);
+    return (int)cudaGetLastError();
+}
+
+// The launch floor: an empty kernel of ``blocks`` blocks of ADPCM_THREADS
+// threads on the given stream.
+int ms2_adpcm_empty(int device, int blocks, void* stream)
+{
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    empty_kernel<<<blocks, ADPCM_THREADS, 0, (cudaStream_t)stream>>>();
     return (int)cudaGetLastError();
 }
 
@@ -573,14 +720,15 @@ int ms2_g726_encode(int device, int bits, const void* pcm, void* codes, void* co
     if (bits < 2 || bits > 5) return (int)cudaErrorInvalidValue;
     if (B == 0) return (int)cudaGetLastError();
     const G726Ptrs q = g726_ptrs(state);
+    const int nb = leg_blocks<kG726Lanes>(B);
     const cudaStream_t st = (cudaStream_t)stream;
     const int* in = (const int*)pcm;
     int* out = (int*)codes;
     switch (bits) {
-    case 2: g726_encode_kernel<2><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    case 3: g726_encode_kernel<3><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    case 4: g726_encode_kernel<4><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    default: g726_encode_kernel<5><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 2: g726_encode_kernel<2><<<nb, ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 3: g726_encode_kernel<3><<<nb, ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 4: g726_encode_kernel<4><<<nb, ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    default: g726_encode_kernel<5><<<nb, ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
     }
     return (int)cudaGetLastError();
 }
@@ -594,14 +742,15 @@ int ms2_g726_decode(int device, int bits, const void* codes, void* pcm, void* co
     if (bits < 2 || bits > 5) return (int)cudaErrorInvalidValue;
     if (B == 0) return (int)cudaGetLastError();
     const G726Ptrs q = g726_ptrs(state);
+    const int nb = leg_blocks<kG726Lanes>(B);
     const cudaStream_t st = (cudaStream_t)stream;
     const int* in = (const int*)codes;
     float* out = (float*)pcm;
     switch (bits) {
-    case 2: g726_decode_kernel<2><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    case 3: g726_decode_kernel<3><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    case 4: g726_decode_kernel<4><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
-    default: g726_decode_kernel<5><<<g726_blocks(B), ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 2: g726_decode_kernel<2><<<nb, ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 3: g726_decode_kernel<3><<<nb, ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    case 4: g726_decode_kernel<4><<<nb, ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
+    default: g726_decode_kernel<5><<<nb, ADPCM_THREADS, 0, st>>>(in, out, q, B, S); break;
     }
     return (int)cudaGetLastError();
 }

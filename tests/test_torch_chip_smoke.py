@@ -1,9 +1,10 @@
 """The bound arithmetic of ``chip_smoke.py`` (phase 2) on the CPU: the bytes
 each kernel must move at the flagship's shapes (B = 4096, S = 480,
 P = 8, F = 481), the G.722 kernels' bytes and serial chain at B = 1,024,
-the DVI4 and G.726 kernels' the same, against the figures worked out by
-hand from the kernels' operands; the launches phases 8a and 9b expect a
-tick pair or round; and the loops that ``REPLACES`` names."""
+the DVI4 and G.726 kernels' the same (and dvi4_decode's scan depth),
+against the figures worked out by hand from the kernels' operands; the
+DVI4 clamp fixtures; the launches phases 8a and 9b expect a tick pair or
+round; and the loops that ``REPLACES`` names."""
 import importlib.util
 import os
 
@@ -111,12 +112,13 @@ def test_dvi4_and_g726_bounds(smoke):
     """DVI4 and G.726 at B = 1,024, S = 80: samples and codes [B, 80] of 4
     bytes, one in and one out, and the state read and written (2 int32, or
     24 float32: b[6], dq[6] and twelve scalars): 656 and 832 bytes a leg,
-    0.67 and 0.85 MB. The serial chains: DVI4 15 (encode) and 4 (decode)
-    steps a sample at 4 cycles; G.726 encode 38, 40, 41, 42 steps by rate
-    plus a log2f and an exp2f at 26 cycles each, decode 16 steps plus an
-    exp2f; at 1.98 GHz, the larger bound each time."""
+    0.67 and 0.85 MB. The serial chains: DVI4 13 (encode: the three
+    rounds' compares and selects, the subtracts beside them) and 4
+    (decode) steps a sample at 4 cycles; G.726 encode 38, 40, 41, 42 steps
+    by rate plus a log2f and an exp2f at 26 cycles each, decode 16 steps
+    plus an exp2f; at 1.98 GHz, the larger bound each time."""
     nbytes, cycles = smoke.adpcm_cost(1024, 80, "dvi4_encode")
-    assert (nbytes, cycles) == (1024 * (2 * 320 + 2 * 2 * 4), 80 * 15 * 4) == (1024 * 656, 4800)
+    assert (nbytes, cycles) == (1024 * (2 * 320 + 2 * 2 * 4), 80 * 13 * 4) == (1024 * 656, 4160)
     assert smoke.adpcm_cost(1024, 80, "dvi4_decode") == (1024 * 656, 80 * 4 * 4)
     for bits, steps in ((2, 38), (3, 40), (4, 41), (5, 42)):
         assert smoke.adpcm_cost(1024, 80, "g726_encode", bits) == (
@@ -127,12 +129,135 @@ def test_dvi4_and_g726_bounds(smoke):
     assert chain_ms == pytest.approx(80 * 216 / 1.98e9 * 1e3) == pytest.approx(0.00873, abs=1e-5)
     assert (ms, by) == (chain_ms, "operations")
     assert smoke.chain_bound(*smoke.adpcm_cost(1024, 80, "dvi4_encode"))[0] == pytest.approx(
-        0.00242, abs=1e-5)
+        0.00210, abs=1e-5)
     assert smoke.chain_bound(*smoke.adpcm_cost(1024, 80, "g726_decode", 4))[0] == pytest.approx(
         0.00364, abs=1e-5)
     # the chain helper is G.722's too
     assert smoke.g722_bound((10, 5)) == smoke.chain_bound(10, 5 * smoke.DEP_OP_CYCLES)
     assert smoke.chain_bound(3.35e9, 1)[1] == "bytes"
+    # every kernel but dvi4_decode keeps its serial chain in adpcm_bound
+    for name, bits in (("dvi4_encode", None), ("g726_encode", 4), ("g726_decode", 2)):
+        assert smoke.adpcm_bound(1024, 80, name, bits) == (
+            *smoke.chain_bound(*smoke.adpcm_cost(1024, 80, name, bits)), "serial chain")
+
+
+def test_dvi4_decode_bound_is_the_shorter_of_chain_and_scan_depth(smoke):
+    """dvi4_decode's bound is max(bytes, min(serial chain, scan depth)). The
+    scan depth is the function's: one scan over all S samples, the table
+    load, two scans of ceil(log2 S) levels of 5 steps and 14 steps between
+    and after them, 4 cycles a step: at 80 samples 7 levels, 85 steps, 340
+    cycles (0.000172 ms), under the bytes' 0.000201 ms, so the bytes bound
+    it. The kernel's layout, chunks of a warp's 32 lanes scanned one after
+    another (chunk 0's index scan, 26 steps, then 15 steps and a pred scan
+    of 25 a chunk), is longer: 584 cycles at 80 samples; 784 at 16 lanes.
+    A one-sample tick's scan (15 steps) is longer than its 4-step chain, so
+    the chain bounds it; no sample, no time."""
+    assert (smoke.DVI4_DECODE_LANES, smoke.SCAN_LEVEL_OPS, smoke.DVI4_SAMPLE_OPS,
+            smoke.DVI4_CHUNK_OPS) == (32, 5, 14, 15)
+    assert smoke.dvi4_scan_cycles(80) == 4 * (1 + 2 * 5 * 7 + 14) == 340
+    assert smoke.dvi4_scan_cycles(32) == 4 * (1 + 50 + 14)
+    assert smoke.dvi4_scan_cycles(33) == smoke.dvi4_scan_cycles(64) == 4 * (1 + 60 + 14)
+    assert smoke.dvi4_scan_cycles(1) == 4 * 15 and smoke.dvi4_scan_cycles(2) == 4 * 25
+    assert smoke.dvi4_scan_cycles(80, lanes=32) == 4 * (26 + 3 * 40) == 584
+    assert smoke.dvi4_scan_cycles(80, lanes=16) == 4 * (21 + 5 * 35) == 784
+    assert smoke.dvi4_scan_cycles(32, 32) == 4 * (26 + 40)
+    assert smoke.dvi4_scan_cycles(33, 32) == 4 * 106
+    assert smoke.dvi4_scan_cycles(0) == smoke.dvi4_scan_cycles(0, 32) == 0
+    ms, by, bytes_ms, depth_ms, depth = smoke.adpcm_bound(1024, 80, "dvi4_decode")
+    assert depth == "scan depth" and by == "bytes"
+    assert depth_ms == pytest.approx(340 / 1.98e9 * 1e3) == pytest.approx(0.000172, abs=1e-6)
+    assert bytes_ms == pytest.approx(1024 * 656 / 3.35e12 * 1e3) == pytest.approx(0.000201,
+                                                                                  abs=1e-6)
+    assert depth_ms < bytes_ms == ms
+    # a few legs: the depth bounds it
+    assert smoke.adpcm_bound(8, 80, "dvi4_decode")[:2] == (pytest.approx(340 / 1.98e6),
+                                                           "operations")
+    assert smoke.adpcm_bound(1024, 1, "dvi4_decode")[3:] == (
+        pytest.approx(16 / 1.98e9 * 1e3), "serial chain")
+    # a large enough block is bound by its bytes, whichever depth is shorter
+    assert smoke.adpcm_bound(1 << 20, 80, "dvi4_decode")[1] == "bytes"
+
+
+def test_dvi4_clamp_fixtures(smoke):
+    """The fixtures of phase 2's DVI4 clamp check: random codes 0..15 from a
+    seed, and a full-scale square wave (a half period of 1 + leg % 40
+    samples) over the first half, then silence; int32, repeatable. On 8 legs
+    x 240 samples from the zero state each reaches every clamp, which
+    dvi4_clamp_hits counts where the sum passes its limit; a quiet signal
+    reaches none of the pred clamps, and phase 2's check fails on it."""
+    import torch
+
+    from mediastreamer2_tpu_torch.ops import kernels
+    codes = smoke.dvi4_clamp_codes(8, 240, seed=7)
+    assert codes.dtype.name == "int32" and codes.min() == 0 and codes.max() == 15
+    assert (codes == smoke.dvi4_clamp_codes(8, 240, seed=7)).all()
+    sq = smoke.dvi4_square_fixture(3, 8)
+    assert sq.dtype.name == "int32"
+    assert sq.tolist() == [[32767, -32768, 32767, -32768, 0, 0, 0, 0],
+                           [32767, 32767, -32768, -32768, 0, 0, 0, 0],
+                           [32767, 32767, 32767, -32768, 0, 0, 0, 0]]
+    zeros = torch.zeros(8, dtype=torch.int32)
+    enc = kernels.dvi4_encode_reference(torch.from_numpy(smoke.dvi4_square_fixture(8, 240)),
+                                        zeros.clone(), zeros.clone())[0]
+    for c in (enc, torch.from_numpy(codes)):
+        hits = smoke.dvi4_clamp_hits(c, zeros, zeros)
+        assert list(hits) == ["pred -32768", "pred 32767", "index 0", "index 88"]
+        assert min(hits.values()) > 0, hits
+    quiet = kernels.dvi4_encode_reference(
+        torch.from_numpy(smoke.speech_fixture(8, 240, seed=1) // 8), zeros.clone(),
+        zeros.clone())[0]
+    hits = smoke.dvi4_clamp_hits(quiet, zeros, zeros)
+    assert hits["pred -32768"] == hits["pred 32767"] == 0
+    # one step by hand: from pred 32000, index 88, code 7 adds 61,436
+    hits = smoke.dvi4_clamp_hits(torch.tensor([[7]], dtype=torch.int32),
+                                 torch.tensor([32000], dtype=torch.int32),
+                                 torch.tensor([88], dtype=torch.int32))
+    assert hits == {"pred -32768": 0, "pred 32767": 1, "index 0": 0, "index 88": 1}
+    # sums that land on a limit without passing it reach no clamp: 28,672 +
+    # 4,095 (index 88, code 0) is 32,767; index 80 + 8 (code 7) is 88
+    hits = smoke.dvi4_clamp_hits(torch.tensor([[0], [7]], dtype=torch.int32),
+                                 torch.tensor([28672, 0], dtype=torch.int32),
+                                 torch.tensor([88, 80], dtype=torch.int32))
+    assert hits == dict.fromkeys(smoke.DVI4_CLAMPS, 0)
+
+
+def test_dvi4_checks_run_every_shape_and_fixture(smoke, monkeypatch):
+    """Phase 2's DVI4 check on the CPU, where the wrappers run the plain
+    versions: every ragged shape, the 77 x 200 block, the empty tick, the
+    block of no legs and both fixtures pass and the hits come back; a
+    kernel that is a sample off fails it, and so does one that moves the
+    state on an empty tick."""
+    import types
+
+    import torch
+
+    from mediastreamer2_tpu_torch.ops import kernels
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(smoke, "G726_RAGGED", ((1, 3), (1, 7, 33)))
+    hits = smoke.dvi4_checks(kernels, cpu, 8)
+    assert set(hits) == {"encoder", "decoder"} and all(min(h.values()) > 0 for h in hits.values())
+
+    def one_off(codes, pred, index):
+        pcm, pred, index = kernels.dvi4_decode_reference(codes, pred, index)
+        pcm[-1, -1] += 1
+        return pcm, pred, index
+    fake = types.SimpleNamespace(**{k: getattr(kernels, k) for k in (
+        "dvi4_encode", "dvi4_encode_reference", "dvi4_decode_reference")},
+        dvi4_decode=one_off)
+    with pytest.raises(AssertionError, match="dvi4_decode 1 legs x 1 samples tick 0"):
+        smoke.dvi4_checks(fake, cpu, 8)
+
+    # one that moves the state on a tick of no samples, as its plain version
+    # does here, is caught by the empty tick's own check
+    def moves_on_empty(pcm, pred, index):
+        if pcm.shape[1] == 0:
+            index += 1
+        return kernels.dvi4_encode_reference(pcm, pred, index)
+    fake = types.SimpleNamespace(**{k: getattr(kernels, k) for k in (
+        "dvi4_decode", "dvi4_decode_reference")}, dvi4_encode=moves_on_empty,
+        dvi4_encode_reference=moves_on_empty)
+    with pytest.raises(AssertionError, match="index after an empty tick 1"):
+        smoke.dvi4_checks(fake, cpu, 8)
 
 
 def test_replaces_names_the_loop_each_kernel_replaces(smoke):
@@ -431,3 +556,25 @@ def test_heard_follows_each_listener_through_the_server_mix(smoke):
     # envelope's phase: this one's is far from seed 3's
     assert smoke.mapped_sim(make_speechlike(n * S, 8000, seed=6), rec, S, h)[0] < 0.5
     assert smoke.mapped_sim(ref, rec, S, np.where(h >= 0, h + 1, -1))[0] < 0.5
+
+
+def test_variant_tools_build_earlier_sources_with_an_empty_entry(tmp_path):
+    """tools/g726_variants.use (which tools/dvi4_variants.py and
+    tools/adpcm_block_size.py build through) gives a source that predates the
+    empty kernel's entry point a copy with a stub of it, so that the loader
+    binds every entry; the checkout's source is built as it is.
+    tools/dvi4_variants.py reads both DVI4 kernels' SASS by name."""
+    spec = importlib.util.spec_from_file_location(
+        "dvi4_variants", os.path.join(REPO, "tools", "dvi4_variants.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.FRAGMENTS == {"dvi4_encode": "dvi4_encode_kernel",
+                              "dvi4_decode": "dvi4_decode_kernel"}
+    import g726_variants
+    old = tmp_path / "old_adpcm_kernels.cu"
+    old.write_text('extern "C" int ms2_dvi4_encode() { return 0; }\n')
+    stub = g726_variants.with_empty_entry(old)
+    assert stub == tmp_path / "old_adpcm_kernels_stub.cu"
+    assert stub.read_text() == old.read_text() + g726_variants.EMPTY_STUB
+    assert "ms2_adpcm_empty(int, int, void*)" in g726_variants.EMPTY_STUB
+    assert g726_variants.with_empty_entry(tool.SOURCE) == tool.SOURCE

@@ -3,7 +3,8 @@
 build the port's kernels once per candidate with -DADPCM_THREADS=n and time
 each codec kernel on the card at B legs of one 80-sample tick, device time
 per launch as chip_smoke.py measures it (the stream spins, then one event
-pair around 50 launches, over input sets that spill the L2).
+pair around 50 launches, over input sets that spill the L2). The DVI4
+decoder's block is four warps whatever ADPCM_THREADS is.
 
     python3 tools/adpcm_block_size.py [--legs 1024] [--threads 32 64 128]
                                       [--source other_adpcm_kernels.cu ...]
@@ -23,8 +24,10 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tools"))
 
 import chip_smoke  # noqa: E402
+from g726_variants import use  # noqa: E402
 from mediastreamer2_tpu_torch.ops import kernels  # noqa: E402
 from mediastreamer2_tpu_torch.ops.g726 import g726_state  # noqa: E402
 
@@ -61,17 +64,13 @@ def main():
         raise SystemExit("adpcm_block_size: no CUDA device")
     dev = torch.device("cuda", 0)
     card = chip_smoke.card_line()
-    flags, sources = kernels.NVCC_FLAGS, kernels.SOURCES
-    versions = [sources[2]] + [Path(p).resolve() for p in args.source]
+    versions = [kernels.SOURCES[2]] + [Path(p).resolve() for p in args.source]
     for n in args.threads + args.threads[::-1]:
         for src in versions:
-            kernels.NVCC_FLAGS = flags + (f"-DADPCM_THREADS={n}",)
-            kernels.SOURCES = sources[:2] + (src,)
-            kernels._lib = None                   # load this candidate's build
+            use(src, (f"ADPCM_THREADS={n}",))     # load this candidate's build
             for name, ms in time_kernels(args.legs, dev).items():
                 print(f"{os.path.relpath(src, REPO)} ADPCM_THREADS={n} B={args.legs} {name}: "
-                      f"{ms:.4f} ms per launch ({(args.legs + n - 1) // n} blocks) [{card}]",
-                      flush=True)
+                      f"{ms:.4f} ms per launch [{card}]", flush=True)
 
 
 if __name__ == "__main__":

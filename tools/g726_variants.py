@@ -47,11 +47,26 @@ FRAGMENTS = {f"{name}@{kbps}": f"{name}_kernelILi{bits}E"
              for name in NAMES for bits, kbps in chip_smoke.G726_RATES.items()}
 
 
+EMPTY_STUB = '\nextern "C" int ms2_adpcm_empty(int, int, void*) { return 1; }\n'
+
+
+def with_empty_entry(source: Path) -> Path:
+    """``source``, or a copy of it beside it with a stub of the empty
+    kernel's entry point (``ms2_adpcm_empty``, which the loader binds) where
+    an earlier version has none; the tools never call the stub."""
+    text = Path(source).read_text()
+    if "ms2_adpcm_empty" in text:
+        return source
+    stub = Path(source).with_name(f"{Path(source).stem}_stub{Path(source).suffix}")
+    stub.write_text(text + EMPTY_STUB)
+    return stub
+
+
 def use(source, defines):
     """Build and load the kernels of ``source`` with ``-D`` ``defines``;
     returns the ADPCM library's path and nvcc's output."""
     kernels.NVCC_FLAGS = FLAGS + tuple(f"-D{d}" for d in defines)
-    kernels.SOURCES = SOURCES[:2] + (source,)
+    kernels.SOURCES = SOURCES[:2] + (with_empty_entry(source),)
     kernels._lib = None
     kernels._load()
     libs, log = kernels.build()
