@@ -4,9 +4,11 @@ NVIDIA GPU: builds its kernels and its native RTP edge from source, checks
 each kernel against its plain PyTorch version on the card, drives the
 flagship conference leg, the end-to-end G.711 leg over localhost UDP (in
 clear and with SRTP), the session layer, the secured wideband call
-(G.722, SRTP, RTCP and QoS) and the gateway transcoder (G.711 <-> G.726-32,
-the DVI4 and G.726 codec chains, Baudot TTY), and compares the port on the
-card with the port on the CPU.
+(G.722, SRTP, RTCP and QoS), the gateway transcoder (G.711 <-> G.726-32,
+the DVI4 and G.726 codec chains, Baudot TTY) and captured and recorded
+calls (pcap replay into a G.722 stream, WAV / SMFF / MKV through
+MediaPlayer and MediaRecorder), and compares the port on the card with
+the port on the CPU.
 
     python3 chip_smoke.py
 
@@ -16,8 +18,9 @@ Phases, in order (any failure raises and the script exits non-zero):
 1. card, versions, build times (one nvcc per kernel source and g++ for the
    edge, started together), the G.722, DVI4 and G.726 kernels' registers
    and spill bytes from nvcc's ``-Xptxas -v`` report (a spill fails the
-   run), the edge's AES path (``native.hw_crypto``) and which system codec
-   and crypto libraries the machine has (printed only);
+   run), the edge's AES path (``native.hw_crypto``) and which system codec,
+   video and crypto libraries the machine has (opus, gsm, speex, bcg729,
+   bv16, avcodec, vpx, aom, X11, ssl, crypto: printed only);
 2. each kernel against its plain version, at the flagship's shapes
    (fused_volume; mdf_apply with bf16 and with f32 shadow taps;
    mdf_update at cpos 0, 3, 7; mdf_update_fused, f32 and bf16 shadow)
@@ -120,7 +123,34 @@ Phases, in order (any failure raises and the script exits non-zero):
    talker typing "SOS 911", on the CPU against the card: the listeners'
    recordings to phase 4's audio_diff and energy bars and an rms error of
    2e-2 (the two G.726 codings differ by the codec's quantisation noise:
-   CROSS_GATEWAY_RMS), and the text read exactly on both.
+   CROSS_GATEWAY_RMS), and the text read exactly on both;
+10. captured and recorded calls. 10a: 1,024 captures of 3 s of speech at
+   16 kHz, G.722-encoded on the card (one g722_encode launch a tick),
+   packed as RTP and written a pcap a leg (``io/pcap.write_pcap``), a
+   seeded quarter of them with 2% of packets missing and 3 packets
+   250-400 ms late; read back by ``PcapRtpPlayer`` and sent at their
+   capture times over localhost UDP into a 1,024-leg recvonly G.722
+   ``AudioStreamBatch(record_ticks=300)`` on the batch edge for 300
+   ticks: launches g722_encode 1 a tick building the captures (a run of
+   its own), then in the replay g722_encode 1 a tick (the stream's
+   silent send path), g722_decode 1, fused_volume 2 (vol_recv and
+   vol_send), finite outputs and state, every leg at least half of its
+   capture's packets, every clean leg's recording above 0.85 audio_diff
+   against its speech as encoded from tick 40 on (the lossy legs'
+   received, lost, late and concealed counts printed); 10b: the
+   recordings of legs 0, 37, ... as WAV, SMFF (pcm16) and MKV (A_PCM,
+   A_MS/ACM mu-law), each played to EOF by ``MediaPlayer`` on the card
+   equal to the file's content to the bit with one EOF event, those of
+   legs 0 and 37 (every container and decode branch) through the 48 kHz
+   resampler within 1e-5 of the CPU, pause / seek /
+   loop on the paced player, ``MediaRecorder`` on the card for 200 ticks
+   into .wav and .smff read back equal to its input, and .mkv: an Opus
+   round trip above OPUS_RECORDER_BAR where the machine has libopus, else
+   a RuntimeError naming libopus and no file; 10c: 8 captures built as
+   10a's at 60 ticks (so that the lossy legs' lost and late packets fall
+   inside the run: each lossy leg must count both, on both sides)
+   replayed on the CPU and on the card, the recordings held to the bar of
+   phase 4.
 
 Each phase prints the seconds elapsed when it ends. The last two lines of
 standard output are the kernels' JSON and the result's JSON; the card's
@@ -133,10 +163,13 @@ import math
 import os
 import re
 import socket
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -158,7 +191,8 @@ REPLACES = {  # the TPU kernel (or lax.scan) each CUDA kernel replaces
     "g726_decode": "mediastreamer2_tpu/ops/g726.py:180",
 }
 SOURCES = {"g722": G722_SOURCE, "dvi4": ADPCM_SOURCE, "g726": ADPCM_SOURCE}   # by name prefix
-SYSTEM_LIBRARIES = ("opus", "gsm", "avcodec", "ssl", "crypto")
+SYSTEM_LIBRARIES = ("opus", "gsm", "speex", "bcg729", "bv16", "avcodec", "vpx", "aom", "X11",
+                    "ssl", "crypto")
 # kernels whose registers phase 1 prints and whose spills fail it, by a
 # fragment of the mangled name (G.726 at 40 kbit/s: the most thresholds
 # and candidates a lane)
@@ -213,6 +247,22 @@ CROSS_GATEWAY_ROUNDS = 240
 # bursts where the tone / transition detector fires on one side only.
 CROSS_GATEWAY_RMS = 2e-2
 TTY_TEXT = "SOS 911"
+CAPTURE_LEGS = 1024           # phase 10a: a G.722 capture a leg, replayed into one stream
+CAPTURE_TICKS = 300           # 3 s of speech a capture; the stream runs as many ticks
+CAPTURE_SETTLE = 40           # 10a's bar starts here (G.722's start transient, as phase 8)
+CAPTURE_SSRC = 0x7000         # leg i's capture carries SSRC CAPTURE_SSRC + i
+CAPTURE_LOSS = 0.02           # the lossy quarter's missing packets
+CAPTURE_LATE = 3              # and its packets 250-400 ms late
+REPLAY_WAIT_S = 0.05          # the longest a tick waits for the edge to take its packets
+RECORDER_TICKS = 200          # phase 10b's MediaRecorder run
+# 10b's Opus round trip, where the machine has libopus: the recorder's .mkv
+# (write_av_mkv: 32 kbit/s, 10 ms frames) played back, held to the JAX
+# package's bar for that recorder (tests/test_mkv_player.py, 0.75);
+# tests/test_mkv.py's 0.8 is for a 64 kbit/s, complexity-9 encoder
+OPUS_RECORDER_BAR = 0.75
+CROSS_CAPTURE_LEGS = 8        # phase 10c: captures of its own, a quarter of them lossy,
+CROSS_CAPTURE_TICKS = 60      # long enough to hold their late packets (sent by tick 15)
+TICK_S = 0.01
 P, F, S = 8, 481, 480         # the flagship's AEC at 48 kHz
 SP, SF, S8 = 8, 81, 80        # the session's AEC at 8 kHz
 WF, S16 = 161, 160            # the wideband call's AEC at 16 kHz
@@ -1216,33 +1266,23 @@ class Session:
         to the part of the speech it plays, found by the lag over the whole
         signals. Each listener's audio_diff against the speech sent and its
         lag are kept in ``self.leg_sims`` (leg -> (audio_diff, lag))."""
-        from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
         n = self.S * self.ticks
         start = self.S * self.settle
-
-        def sim(ref, rec):
-            got, lag = audio_diff(ref, rec)
-            if not start:
-                return got, lag
-            lag = max(0, min(lag, start))
-            return audio_diff(ref[start - lag:n - lag], rec[start:])[0], lag
-
         rec = self.clients.get_recording()[:, :n]
         confs = list(range(0, self.legs // 4, conf_step))
         said = self.said(confs)
-        sim_sent, sim_mic, ratio = [], [], []
-        self.leg_sims = {}
-        for j, k in enumerate(confs):
-            e_talker = float((rec[4 * k, start:] ** 2).mean())
-            for leg in range(4 * k + 1, 4 * k + 4):
-                if leg in skip:
-                    continue
-                got, lag = sim(said[j], rec[leg])
-                sim_sent.append(got)
-                self.leg_sims[leg] = (got, lag)
-                sim_mic.append(sim(self.mic[4 * k, :n], rec[leg])[0])
-                ratio.append(e_talker / (float((rec[leg, start:] ** 2).mean()) + 1e-20))
-        return min(sim_sent), min(sim_mic), max(ratio), rec
+        pairs = [(j, leg) for j, k in enumerate(confs) for leg in range(4 * k + 1, 4 * k + 4)
+                 if leg not in skip]
+        rows = [j for j, _ in pairs]
+        listeners = [leg for _, leg in pairs]
+        talkers = [4 * confs[j] for j in rows]
+        sim_sent, lags = settled_sims(said[rows], rec[listeners], start)
+        sim_mic = settled_sims(self.mic[talkers, :n], rec[listeners], start)[0]
+        self.leg_sims = {leg: (float(got), int(lag))
+                         for leg, got, lag in zip(listeners, sim_sent, lags)}
+        ratio = ((rec[talkers, start:].astype(np.float64) ** 2).mean(axis=1)
+                 / ((rec[listeners, start:].astype(np.float64) ** 2).mean(axis=1) + 1e-20))
+        return float(sim_sent.min()), float(sim_mic.min()), float(ratio.max()), rec
 
     def heard(self):
         """{listener leg: int [ticks]}: for each tick of the listener's
@@ -1369,9 +1409,9 @@ def session_edge(kernels, dev, card, legs, ticks, phase="7a", codec="ulaw", rate
         ms, samples = sess.alternate(ticks, sample_every=10)
         launches = kernels.launch_counts()
         sides = (sess.server, sess.clients)
-        recv = [min(s._edge_rx.stats(i)["recv"] for i in range(legs)) for s in sides]
-        auth = sum(s._edge_rx.auth_failures(i) for s in sides for i in range(legs))
-        replay = sum(s._edge_rx.replay_drops(i) for s in sides for i in range(legs))
+        recv = [min(s.edge_rx.stats(i)["recv"] for i in range(legs)) for s in sides]
+        auth = sum(s.edge_rx.auth_failures(i) for s in sides for i in range(legs))
+        replay = sum(s.edge_rx.replay_drops(i) for s in sides for i in range(legs))
     finally:
         srv.close()
         cli.close()
@@ -1604,10 +1644,11 @@ def session_secure_cross(dev, legs, ticks):
 
 
 # -- phase 9: the gateway transcoder ------------------------------------------
-def speech_legs(legs, n, seed):
-    """float32 [legs, n]: each leg its own speech-like signal at 8 kHz."""
+def speech_legs(legs, n, seed, rate=8000):
+    """float32 [legs, n]: leg i's row is ``utils/signals.make_speechlike(n,
+    rate, seed=seed + i)``."""
     from mediastreamer2_tpu_torch.utils.signals import make_speechlike
-    return np.stack([make_speechlike(n, 8000, seed=seed + leg) for leg in range(legs)])
+    return make_speechlike(n, rate, seed=range(seed, seed + legs))
 
 
 def codec_chain(kernels, dev, card, codec, sig, ticks):
@@ -1715,18 +1756,13 @@ class Gateway:
         ``settle`` on, aligned by the lag over the whole signals: the least
         audio_diff, and the lags."""
         from mediastreamer2_tpu_torch.ops.g711 import pcm16_to_float, ulaw_decode
-        from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
         n, start = S8 * self.rounds, S8 * settle
         rec = self.listeners.get_recording()[::37, :n]
         sent = np.stack(self.sent)[:self.rounds]                       # [rounds, k, 80]
         said = pcm16_to_float(ulaw_decode(torch.from_numpy(np.ascontiguousarray(
             sent.transpose(1, 0, 2).reshape(rec.shape[0], -1).astype(np.int32))))).numpy()
-        sims, lags = [], []
-        for ref, got in zip(said, rec):
-            lag = max(0, min(audio_diff(ref, got)[1], start))
-            sims.append(audio_diff(ref[start - lag:n - lag], got[start:])[0])
-            lags.append(lag)
-        return min(sims), sorted(set(lags))
+        sims, lags = settled_sims(said, rec, start)
+        return float(sims.min()), sorted(set(lags.tolist()))
 
     def state_finite(self):
         return all(_tree_finite(entry) for s in self.batches
@@ -1778,6 +1814,406 @@ def gateway_cross(dev, legs, rounds):
         recs.append(gw.listeners.get_recording()[:, :S8 * rounds])
         texts.append([gw.listeners.get_baudot_text(leg) for leg in range(legs)])
     return recs, texts
+
+
+# -- phase 10: captured and recorded calls ------------------------------------
+def g722_captures(dev, legs, ticks, seed, directory):
+    """``ticks`` ticks of speech a leg at 16 kHz, G.722-encoded on ``dev``
+    (``kernels.g722_encode``, one launch a tick for every leg), packed as
+    RTP (payload type 9, SSRC CAPTURE_SSRC + leg, a seeded first sequence
+    number and timestamp a leg, a packet a tick at the capture time of its
+    tick) and written a pcap a leg by ``io/pcap.write_pcap``. A seeded
+    quarter of the legs gets the JAX package's tests/test_pcap_bundle.py
+    pathology: CAPTURE_LOSS of its packets missing and CAPTURE_LATE packets
+    250-400 ms late (never among the first ten), the capture sorted by
+    time. Returns a namespace: ``speech`` float32 [legs, n] at 16 kHz, its
+    ``codes`` uint8 [legs, n / 2], ``paths``, the ``lossy`` legs and the
+    ``packets`` each capture holds."""
+    from mediastreamer2_tpu_torch.io.pcap import CapturedPacket, write_pcap
+    from mediastreamer2_tpu_torch.models.audio_stream import PAYLOAD_TYPES
+    from mediastreamer2_tpu_torch.net.rtp import RtpPacket
+    from mediastreamer2_tpu_torch.ops import kernels
+    from mediastreamer2_tpu_torch.ops.g711 import float_to_pcm16
+    from mediastreamer2_tpu_torch.ops.g722 import g722_state
+    speech = speech_legs(legs, S16 * ticks, seed, rate=16000)
+    pcm = float_to_pcm16(torch.from_numpy(speech).to(dev))
+    state, codes = g722_state(legs, dev), []
+    for t in range(ticks):
+        c, state = kernels.g722_encode(pcm[:, t * S16:(t + 1) * S16].contiguous(), state)
+        codes.append(c)
+    codes = torch.cat(codes, dim=1).to(torch.uint8).cpu().numpy()
+    rng = np.random.default_rng(seed)
+    lossy = sorted(int(k) for k in rng.choice(legs, size=max(1, legs // 4), replace=False))
+    per, pt = S16 // 2, PAYLOAD_TYPES["g722"]
+    paths, packets = [], []
+    for leg in range(legs):
+        seq0, ts0 = int(rng.integers(0, 1 << 16)), int(rng.integers(0, 1 << 32))
+        lost, late = set(), {}
+        if leg in lossy:
+            lost = {int(k) for k in rng.choice(np.arange(10, ticks),
+                                               size=max(1, round(CAPTURE_LOSS * ticks)),
+                                               replace=False)}
+            # late packets still arrive inside the run: at most 40 ticks late
+            spots = sorted(set(range(10, ticks - 45)) - lost)
+            late = {int(k): float(rng.uniform(0.25, 0.4))
+                    for k in rng.choice(spots, size=CAPTURE_LATE, replace=False)}
+        pkts = [CapturedPacket(ts=k * TICK_S + late.get(k, 0.0), udp_payload=RtpPacket(
+            pt, seq0 + k, ts0 + per * k, CAPTURE_SSRC + leg,
+            codes[leg, k * per:(k + 1) * per].tobytes(), marker=k == 0).pack())
+            for k in range(ticks) if k not in lost]
+        pkts.sort(key=lambda p: p.ts)
+        paths.append(os.path.join(directory, f"leg{leg:04d}.pcap"))
+        write_pcap(paths[-1], pkts)
+        packets.append(len(pkts))
+    return SimpleNamespace(speech=speech, codes=codes, paths=paths, lossy=lossy,
+                           packets=np.array(packets))
+
+
+def replay_captures(dev, caps, legs, ticks, ready=None):
+    """The first ``legs`` captures, each read back by ``PcapRtpPlayer``, sent
+    at their capture times over localhost UDP into a ``legs``-leg G.722
+    ``AudioStreamBatch(record_ticks=ticks)`` on ``dev`` through its batch
+    edge (recvonly: its silent send path encodes but sends nothing), for
+    ``ticks`` do_ticks. Each tick's packets are sent before the tick (from
+    one thread: four senders on the card's machine were slower), and the
+    edge is polled until it has taken as many packets as were sent (at
+    most REPLAY_WAIT_S): what the socket dropped or delayed past the wait is
+    counted, not hidden. ``ready()`` runs after the stream's warm-up, just
+    before the first tick. Returns a namespace: the recording ``rec``
+    [legs, ticks * 160] (the stream's speaker output); per leg the packets
+    ``sent`` and the edge's own counts: ``recv``, ``lost`` (playout found
+    no packet), ``late`` (arrived after its playout) and ``concealed`` (the
+    ticks that played no packet, the start's prefill included); the run's
+    figures."""
+    from mediastreamer2_tpu_torch import Factory
+    from mediastreamer2_tpu_torch.io.pcap import PcapRtpPlayer
+    from mediastreamer2_tpu_torch.models.audio_stream import PAYLOAD_TYPES, AudioStreamBatch
+    t0 = time.perf_counter()
+    players = [PcapRtpPlayer(p, payload_type=PAYLOAD_TYPES["g722"]) for p in caps.paths[:legs]]
+    read_s = time.perf_counter() - t0
+    stream = AudioStreamBatch(Factory(), legs, codec="g722", rate=16000, record_ticks=ticks,
+                              device=dev)
+    stream.ticker.realtime = False
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    # the sender, and the stream's own send socket, addressed to itself
+    # (recvonly: it sends nothing; with GSO the edge connects it, so it is
+    # not rx)
+    tx, sink = (socket.socket(socket.AF_INET, socket.SOCK_DGRAM) for _ in range(2))
+    try:
+        rx.bind(("127.0.0.1", 0))
+        rx.setblocking(False)
+        with contextlib.suppress(OSError):
+            rx.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 24)
+        rcvbuf = rx.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+        for sk in (tx, sink):
+            sk.bind(("127.0.0.1", 0))
+        tx.connect(rx.getsockname())        # no address to resolve a packet
+        stream.enable_batch_edge(rx_sock=rx, tx_sock=sink, remote=sink.getsockname(),
+                                 ssrc_base=CAPTURE_SSRC)
+        for leg in range(legs):
+            stream.set_direction(leg, "recvonly")
+        edge = stream.edge_rx
+        stream.ticker.warm_up()
+        if ready:
+            ready()
+        sent, taken, waits, send_s = np.zeros(legs, np.int64), 0, 0, 0.0
+        t0 = time.perf_counter()
+        for t in range(ticks):
+            t1 = time.perf_counter()
+            for leg, player in enumerate(players):
+                for pkt in player.due(t * TICK_S):
+                    tx.send(pkt.pack())
+                    sent[leg] += 1
+            send_s += time.perf_counter() - t1
+            deadline = time.perf_counter() + REPLAY_WAIT_S
+            while taken < sent.sum() and time.perf_counter() < deadline:
+                taken += edge.poll()
+            waits += taken < sent.sum()
+            stream.ticker.do_tick()
+            if taken < sent.sum():          # the stream's own poll took the rest
+                taken = sum(edge.stats(i)["recv"] for i in range(legs))
+        stream.ticker.sync()
+        ms = 1e3 * (time.perf_counter() - t0) / ticks
+        stats = [edge.stats(i) for i in range(legs)]
+        state_finite = all(_tree_finite(e) for e in stream.ticker.state.values() if e)
+        rec = stream.get_recording()
+    finally:
+        for sk in (rx, tx, sink):
+            sk.close()
+    return SimpleNamespace(rec=rec, sent=sent, ms=ms, send_ms=1e3 * send_s / ticks,
+                           read_s=read_s, waits=waits, rcvbuf=rcvbuf,
+                           finite=bool(np.isfinite(rec).all()), state_finite=state_finite,
+                           recv=np.array([s["recv"] for s in stats]),
+                           lost=np.array([s["lost"] for s in stats]),
+                           late=np.array([s["late"] for s in stats]),
+                           concealed=ticks - np.array([s["got"] for s in stats]))
+
+
+def capture_launches(ticks):
+    """The launches of phase 10a's replay: the receiving stream's decode,
+    its silent send path's encode, and its two volumes (vol_recv and
+    vol_send: a stream that is not a conference server has both), once a
+    tick each. (The captures' own encode, once a tick, is a run of its
+    own.)"""
+    return {"g722_encode": ticks, "g722_decode": ticks, "fused_volume": 2 * ticks}
+
+
+def settled_sims(ref, rec, settle_samples, dev="cpu"):
+    """``utils/audiodiff.audio_diff`` of each row of ``rec`` against the same
+    row of ``ref`` on ``dev``; with ``settle_samples``, ``rec`` from there on
+    against the part of ``ref`` it plays, found by the lag over the whole
+    rows clamped to [0, settle_samples]: (audio_diff [rows], lags [rows])."""
+    from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
+    sims, lags = audio_diff(ref, rec, device=dev)
+    if not settle_samples:
+        return sims, lags
+    n = rec.shape[1]
+    lags = np.clip(lags, 0, settle_samples)
+    idx = np.arange(n - settle_samples)[None, :] + (settle_samples - lags)[:, None]
+    return audio_diff(np.take_along_axis(ref[:, :n], idx, axis=1), rec[:, settle_samples:],
+                      device=dev)[0], lags
+
+
+def decode_captures(dev, codes, ticks):
+    """The captures' speech as encoded: ``codes`` decoded from the start by
+    ``kernels.g722_decode`` on ``dev`` (the plain version on the CPU), a tick
+    a launch: float32 [legs, ticks * 160]."""
+    from mediastreamer2_tpu_torch.ops import kernels
+    from mediastreamer2_tpu_torch.ops.g711 import pcm16_to_float
+    from mediastreamer2_tpu_torch.ops.g722 import g722_state
+    c = torch.from_numpy(codes[:, :ticks * S8].astype(np.int32)).to(dev)
+    state, out = g722_state(c.shape[0], dev), []
+    for t in range(ticks):
+        pcm, state = kernels.g722_decode(c[:, t * S8:(t + 1) * S8].contiguous(), state)
+        out.append(pcm)
+    return pcm16_to_float(torch.cat(out, dim=1)).cpu().numpy()
+
+
+def captured_calls(kernels, dev, card, legs, ticks, directory):
+    """Phase 10a. Returns (the launches of the captures' build, those of
+    the replay, the captures, the replay)."""
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    caps = g722_captures(dev, legs, ticks, seed=500, directory=directory)
+    built = kernels.launch_counts()
+    build_s = time.perf_counter() - t0
+    res = replay_captures(dev, caps, legs, ticks, ready=kernels.reset_launch_counts)
+    launches = kernels.launch_counts()
+    said = decode_captures(dev, caps.codes, ticks)
+    start = S16 * CAPTURE_SETTLE
+    sims, lags = settled_sims(said, res.rec, start, dev)
+    clean = np.array([leg for leg in range(legs) if leg not in caps.lossy])
+    lossy = np.array(caps.lossy)
+    half = res.recv >= caps.packets[:legs] // 2
+    worst = clean[np.argmin(sims[clean])]
+    print(f"captured 10a: {legs} G.722 captures of {ticks} ticks (3 s of speech a leg at 16 kHz "
+          f"encoded on the card, {len(lossy)} legs lossy: {CAPTURE_LOSS:.0%} lost and "
+          f"{CAPTURE_LATE} packets 250-400 ms late), {int(caps.packets.sum())} packets in "
+          f"{legs} pcaps built and written in {build_s:.1f} s, read back by PcapRtpPlayer in "
+          f"{res.read_s:.1f} s, replayed at their capture times over localhost UDP into a "
+          f"{legs}-leg recvonly G.722 AudioStreamBatch on the batch edge: {res.ms:.3f} ms a tick "
+          f"(host clock), of which the sends {res.send_ms:.3f} ms; SO_RCVBUF {res.rcvbuf} bytes, "
+          f"packets sent {int(res.sent.sum())}, taken by the edge {int(res.recv.sum())} (dropped "
+          f"{int(res.sent.sum() - res.recv.sum())}), ticks that waited past "
+          f"{REPLAY_WAIT_S * 1e3:.0f} ms for the edge {res.waits}; launches: the build "
+          f"{built}, the replay {launches}; "
+          f"clean legs vs the speech as encoded from tick {CAPTURE_SETTLE} on: audio_diff min "
+          f"{sims[clean].min():.4f} (leg {worst}, bar 0.85), median {np.median(sims[clean]):.4f}, "
+          f"lags {sorted(set(lags[clean].tolist()))[:6]} samples; lossy legs: audio_diff min "
+          f"{sims[lossy].min():.4f}, received / lost / late / concealed ticks, sum "
+          f"{int(res.recv[lossy].sum())} / {int(res.lost[lossy].sum())} / "
+          f"{int(res.late[lossy].sum())} / {int(res.concealed[lossy].sum())}, per leg (first 8) "
+          + ", ".join(f"{leg}: {res.recv[leg]}/{res.lost[leg]}/{res.late[leg]}/"
+                      f"{res.concealed[leg]} of {caps.packets[leg]}" for leg in lossy[:8])
+          + f"; clean legs lost {int(res.lost[clean].sum())}, late {int(res.late[clean].sum())}; "
+          f"a leg received min {(res.recv / caps.packets[:legs]).min():.3f} of its capture; "
+          f"outputs finite {res.finite}, state finite {res.state_finite} [{card}]", flush=True)
+    _require_counts("captured 10a, the build", built, {"g722_encode": ticks})
+    _require_counts("captured 10a, the replay", launches, capture_launches(ticks))
+    if not (half.all() and res.finite and res.state_finite and sims[clean].min() > 0.85):
+        raise AssertionError(f"captured 10a: legs below half their packets "
+                             f"{np.flatnonzero(~half)[:8]}, finite {res.finite} / "
+                             f"{res.state_finite}, clean audio_diff min {sims[clean].min()}")
+    return built, launches, caps, res
+
+
+def play_to_eof(dev, path, out_rate=None):
+    """``MediaPlayer`` on ``dev`` over ``path``, set playing and ticked by
+    hand from open to 3 ticks past its end: (the played samples, the EOF
+    events)."""
+    from mediastreamer2_tpu_torch import Factory
+    from mediastreamer2_tpu_torch.models.media_player import MediaPlayer
+    mp = MediaPlayer(Factory(), out_rate=out_rate, device=dev)
+    got, eofs = [], []
+    mp.set_output(got.append)
+    mp.on_eof = lambda: eofs.append(1)
+    mp.open(path)
+    mp.ticker.realtime = False
+    mp.ticker.mutate(lambda tk: tk.params["play"]["playing"].fill_(True))
+    for _ in range(-(-mp.duration_ms // 10) + 3):
+        mp.ticker.do_tick()
+    mp.ticker.event_queue.pump()
+    mp.close()
+    return np.concatenate(got), len(eofs)
+
+
+def player_controls(dev, path):
+    """``start`` (the ticker's paced thread), ``pause``, ``seek_ms`` and
+    ``set_loop`` on ``dev``, read by ``get_position_ms``: (positions held
+    over 100 ms of pause, the position 50 ms after a seek to 1,000 ms while
+    paused, the position after looping from 25 ms before the end, the EOF
+    events of the loop)."""
+    from mediastreamer2_tpu_torch import Factory
+    from mediastreamer2_tpu_torch.models.media_player import MediaPlayer
+    mp = MediaPlayer(Factory(), device=dev)
+    eofs = []
+    mp.on_eof = lambda: eofs.append(1)
+    mp.open(path)
+    try:
+        mp.start()
+        time.sleep(0.3)
+        mp.pause()
+        time.sleep(0.05)                 # the pause lands at the next tick boundary
+        held = [mp.get_position_ms()]
+        time.sleep(0.1)
+        held.append(mp.get_position_ms())
+        mp.seek_ms(1000)
+        time.sleep(0.05)
+        sought = mp.get_position_ms()
+        mp.set_loop(True)
+        mp.seek_ms(mp.duration_ms - 25)
+        mp.ticker.event_queue.pump()
+        mp.start()
+        time.sleep(0.1)
+        mp.pause()
+        time.sleep(0.05)
+        mp.ticker.event_queue.pump()
+        looped = mp.get_position_ms()
+    finally:
+        mp.close()
+    return held, sought, looped, len(eofs), mp.duration_ms
+
+
+def recorded_files(dev, card, rec, legs, directory):
+    """Phase 10b: the recordings of ``legs`` as WAV, SMFF (pcm16) and MKV
+    (A_PCM on even entries, A_MS/ACM µ-law on odd), each played to EOF by
+    ``MediaPlayer`` on the card and held to the file's content; six of
+    them resampled to 48 kHz, the card against the CPU; pause, seek and
+    loop on one; ``MediaRecorder`` on the card into .wav, .smff and .mkv.
+    The 48 kHz comparison takes the files of the first two legs: their
+    WAV, SMFF, A_PCM MKV and mu-law ACM MKV are every branch the player
+    decodes, and all 28 legs' would add ~20 s to phase 10 for the same
+    resampler."""
+    from mediastreamer2_tpu_torch import Factory
+    from mediastreamer2_tpu_torch.io import mkv, smff
+    from mediastreamer2_tpu_torch.io.wav import read_wav, write_wav
+    from mediastreamer2_tpu_torch.models import media_player as mpm
+    from mediastreamer2_tpu_torch.ops import host_codecs
+    from mediastreamer2_tpu_torch.ops.g711 import float_to_pcm16, ulaw_encode
+    from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
+    t0 = time.perf_counter()
+    files = []
+    for j, leg in enumerate(legs):
+        x = rec[leg]
+        base = os.path.join(directory, f"rec{leg:04d}")
+        write_wav(base + ".wav", x, 16000)
+        w = smff.SmffWriter(base + ".smff", [smff.SmffTrack(smff.KIND_AUDIO, "pcm16", 16000, 1)])
+        pcm = np.clip(x * 32768.0, -32768, 32767).astype("<i2")
+        for k in range(0, len(pcm), S16):
+            w.write_frame(0, k // 16, pcm[k:k + S16].tobytes())
+        w.close()
+        if j % 2:
+            codes = ulaw_encode(float_to_pcm16(torch.from_numpy(x))).to(torch.uint8).numpy()
+            track = mkv.MkvTrack(1, mkv.TRACK_TYPE_AUDIO, "A_MS/ACM", sampling_rate=16000,
+                                 channels=1, codec_private=struct.pack(
+                                     "<HHIIHHH", 7, 1, 16000, 16000, 1, 8, 0))
+            data, step = codes.tobytes(), S16
+        else:
+            track = mkv.MkvTrack(1, mkv.TRACK_TYPE_AUDIO, "A_PCM/INT/LIT", sampling_rate=16000,
+                                 channels=1)
+            data, step = pcm.tobytes(), 2 * S16
+        w = mkv.MkvWriter(base + ".mkv", [track])
+        for k in range(0, len(data), step):
+            w.write_frame(1, 10 * k // step, data[k:k + step])
+        w.close()
+        files += [base + ".wav", base + ".smff", base + ".mkv"]
+    content = {}
+    for path in files:                      # the files' content, read on the host
+        if path.endswith(".wav"):
+            content[path] = read_wav(path)[0]
+        elif path.endswith(".smff"):
+            content[path] = mpm._read_smff_audio(path)[0]
+        else:
+            content[path] = mpm._read_mkv_audio(path, "cpu")[0]
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bad, eof_counts = [], set()
+    for path in files:
+        out, eofs = play_to_eof(dev, path)
+        want = content[path]
+        eof_counts.add(eofs)
+        if not (np.array_equal(out[:len(want)], want) and not out[len(want):].any()
+                and eofs == 1):
+            bad.append(os.path.basename(path))
+    play_s = time.perf_counter() - t0
+    # through the resampler: the card against the CPU
+    resampled = 0.0
+    for path in files[:6]:
+        outs = [play_to_eof(d, path, out_rate=48000)[0] for d in ("cpu", dev)]
+        resampled = max(resampled, float(np.abs(outs[0] - outs[1]).max()))
+    # pause holds the position, seek moves it, loop wraps
+    held, sought, looped, loop_eofs, duration = player_controls(dev, files[0])
+    controls_ok = (held[0] == held[1] and 100 <= held[0] < duration and sought == 1000
+                   and loop_eofs >= 1 and 0 <= looped < 200)
+    # MediaRecorder on the card: 200 ticks of int16-grid speech
+    sig = np.round(speech_legs(1, S16 * RECORDER_TICKS, seed=600, rate=16000)[0] * 32767) / 32768
+    recorder = mpm.MediaRecorder(Factory(), rate=16000, max_seconds=3, device=dev)
+    recorder.set_input(lambda t: sig[t * S16:(t + 1) * S16])
+    recorder.ticker.realtime = False
+    recorder.run(RECORDER_TICKS)
+    back = {}
+    for ext in (".wav", ".smff"):
+        path = recorder.stop_and_save(os.path.join(directory, "recorder" + ext))
+        back[ext] = read_wav(path)[0] if ext == ".wav" else mpm._read_smff_audio(path)[0]
+    rec_ok = all(np.array_equal(v, sig.astype(np.float32)) for v in back.values())
+    mkv_path = os.path.join(directory, "recorder.mkv")
+    if host_codecs.opus_available():
+        recorder.stop_and_save(mkv_path)
+        opus = audio_diff(sig, play_to_eof(dev, mkv_path)[0])[0]
+        mkv_line = f"Opus round trip audio_diff {opus:.4f} (bar {OPUS_RECORDER_BAR})"
+        mkv_ok = opus > OPUS_RECORDER_BAR
+    else:
+        try:
+            recorder.stop_and_save(mkv_path)
+            err = None
+        except RuntimeError as e:
+            err = str(e)
+        mkv_ok = err is not None and "libopus" in err and not os.path.exists(mkv_path)
+        mkv_line = (f"no libopus: .mkv raised RuntimeError({err!r}), file written "
+                    f"{os.path.exists(mkv_path)}")
+    print(f"files 10b: {len(legs)} recordings of 10a (legs {legs[:3]} ...) as WAV, SMFF pcm16 and "
+          f"MKV (A_PCM / A_MS/ACM mu-law) written and read in {write_s:.1f} s; {len(files)} "
+          f"files played to EOF by MediaPlayer on the card in {play_s:.1f} s: not equal to the "
+          f"file's content {bad}, EOF events a file {sorted(eof_counts)}; 48 kHz through the "
+          f"resampler (legs {legs[:2]}'s 6 files), card vs CPU max abs err {resampled:.2e} "
+          f"(bar 1e-5); paced: pause held "
+          f"{held} ms, seek to 1000 ms while paused -> {sought} ms, loop from {duration - 25} "
+          f"ms -> {looped} ms after 100 ms (EOF events {loop_eofs}); MediaRecorder on "
+          f"the card, {RECORDER_TICKS} ticks: .wav and .smff read back equal {rec_ok}; "
+          f"{mkv_line} [{card}]", flush=True)
+    if bad or eof_counts != {1} or resampled > 1e-5 or not (controls_ok and rec_ok and mkv_ok):
+        raise AssertionError(f"files 10b: unequal {bad}, EOF counts {eof_counts}, resampled "
+                             f"{resampled}, controls {held} {sought} {looped} {loop_eofs}, "
+                             f"recorder {rec_ok}, mkv {mkv_ok}")
+
+
+def captured_cross(dev, legs, ticks, directory):
+    """Phase 10c: ``legs`` captures of ``ticks`` ticks built as 10a's (their
+    own, short enough that the lossy legs' lost and late packets fall inside
+    the run) and replayed on the CPU (plain versions) and on the card
+    (kernels): (the captures, [the replay on the CPU, on the card])."""
+    caps = g722_captures(dev, legs, ticks, seed=500, directory=directory)
+    return caps, [replay_captures(d, caps, legs, ticks) for d in (torch.device("cpu"), dev)]
 
 
 def main():
@@ -1972,14 +2408,51 @@ def main():
 
     phase_done(9)
 
+    # phase 10: captured and recorded calls: 10a G.722 captures replayed into
+    # a stream at full width, 10b its recordings through the containers, the
+    # player and the recorder, 10c the replay on the CPU against the card
+    t10 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ms2_captures_") as tmp:
+        built_launches, cap_launches, caps, replay = captured_calls(
+            kernels, dev, card, CAPTURE_LEGS, CAPTURE_TICKS, tmp)
+        phase_done("10a")
+        recorded_files(dev, card, replay.rec, list(range(0, CAPTURE_LEGS, 37)), tmp)
+        phase_done("10b")
+        os.mkdir(os.path.join(tmp, "cross"))
+        cross, replays = captured_cross(dev, CROSS_CAPTURE_LEGS, CROSS_CAPTURE_TICKS,
+                                        os.path.join(tmp, "cross"))
+    bar = quality_bar(replays[0].rec, replays[1].rec, leg_step=1)
+    counts = ["; ".join(f"leg {leg}: {r.recv[leg]}/{r.lost[leg]}/{r.late[leg]}/"
+                        f"{r.concealed[leg]} of {cross.packets[leg]}" for leg in cross.lossy)
+              for r in replays]
+    events = all((r.lost[cross.lossy] > 0).all() and (r.late[cross.lossy] > 0).all()
+                 for r in replays)
+    print(f"captured 10c: {CROSS_CAPTURE_LEGS} captures of {CROSS_CAPTURE_TICKS} ticks built as "
+          f"10a's (lossy legs {cross.lossy}) replayed over localhost UDP into the stream on the "
+          f"CPU and on the card; the lossy legs' received / lost / late / concealed ticks: on the "
+          f"CPU {counts[0]}, on the card {counts[1]}; the recordings: audio_diff_min "
+          f"{bar['audio_diff_min']:.6f}, rms_err {bar['rms_err']:.3e}, max_abs_err "
+          f"{bar['max_abs_err']:.3e}, energy_gap_db_max {bar['energy_gap_db_max']:.4f}, pass "
+          f"{bar['pass']}; phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
+    if not bar["pass"]:
+        raise AssertionError(f"captured 10c cpu vs gpu quality bar failed: {bar}")
+    if not events:
+        raise AssertionError(f"captured 10c: a lossy leg counted no lost or no late packet: "
+                             f"{counts}")
+
+    phase_done(10)
+
     # launches over the main-path runs that were counted: the flagship, the
-    # three e2e runs, the session and the wideband call at full width
+    # three e2e runs, the session and the wideband call at full width, the
+    # gateway and its codec chains, the captures' build and their replay
     runs = {"flagship": (launches, TICKS),
             "e2e": ({k: e2e_launches[k] + srtp_launches[k] + big_launches[k] for k in launches},
                     e2e_ticks + srtp_ticks + big_ticks),
             "session": (session_launches, SESSION_TICKS),
             "wideband": (wide_launches, WIDE_TICKS),
-            "gateway": (gw_launches, GATEWAY_ROUNDS)}
+            "gateway": (gw_launches, GATEWAY_ROUNDS),
+            "captures_built": (built_launches, CAPTURE_TICKS),
+            "captured": (cap_launches, CAPTURE_TICKS)}
     runs.update({f"chain_{codec}": (c, CHAIN_TICKS) for codec, c in chain_launches.items()})
     total = {k: sum(c[k] for c, _ in runs.values()) for k in launches}
     entries = []

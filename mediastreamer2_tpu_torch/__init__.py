@@ -13,15 +13,17 @@ package's:
 * :mod:`mediastreamer2_tpu_torch.core`   -- formats, filters, factory, graph,
   the ticker and event queue, worker pools, paced-section GC
 * :mod:`mediastreamer2_tpu_torch.ops`    -- the filters (G.711, G.722, G.726,
-  DVI4, PLC, mixers, tones, Baudot TTY, flow control, VAD, ...) and the
-  kernels
+  DVI4, PLC, mixers, tones, Baudot TTY, flow control, VAD, ...), the
+  kernels and the host codecs (Opus, Speex, GSM, G.729, BV16 via ctypes)
 * :mod:`mediastreamer2_tpu_torch.models` -- the flagship leg, the end-to-end
   G.711 conference bench over UDP, the audio stream session
   (``AudioStreamBatch``), the conference control and the QoS controllers,
-  the gateway transcoder (``TranscodeBatch``) and the ring stream
-  (``RingStreamBatch``)
+  the gateway transcoder (``TranscodeBatch``), the ring stream
+  (``RingStreamBatch``) and the media player and recorder
 * :mod:`mediastreamer2_tpu_torch.native` -- the batched RTP edge with inline
   SRTP, and the AES the port's SRTP uses (C++, g++)
+* :mod:`mediastreamer2_tpu_torch.io`     -- WAV, SMFF and Matroska files, pcap
+  and pcapng captures
 * :mod:`mediastreamer2_tpu_torch.net`    -- RTP sessions and transports, SRTP,
   RTCP, bandwidth estimators, jitter buffers, the edge's jitter controller
 * :mod:`mediastreamer2_tpu_torch.utils`  -- tree conversion, audio oracle,

@@ -47,9 +47,14 @@ The batch edge sends with UDP GSO only where ``native.udp_gso_supported()``
 says the kernel takes it, and by sendmmsg elsewhere (the JAX package turns
 GSO on unconditionally, which drops every packet under gVisor).
 
-Waiting, each raising ``NotImplementedError`` that names its wait: host
-codecs (opus, gsm, g729, speex, bv16, aac) wait for ``ops/host_codecs``;
-the video link and A/V recording for the video stream. ``g726_32`` is
+``save_av_recording`` writes a leg's recording as an Opus MKV
+(``models/media_player.write_av_mkv``).
+
+Waiting, each raising ``NotImplementedError`` that names its wait: the
+host-codec legs (opus, gsm, g729, speex, bv16, aac: the payload packing
+and the host decode / encode around the graph; ``ops/host_codecs`` has
+the codecs, not ``aac``); the video link (``link_video``), and with it the
+video track of ``save_av_recording``, for the video stream. ``g726_32`` is
 refused too, as in the JAX package, whose stream has no payload packing
 for it (``_decode_payload`` / ``_encode_payload`` and
 ``CODEC_BYTES_PER_SAMPLE`` know ulaw, alaw, g722 and l16 only): G.726 runs
@@ -86,8 +91,8 @@ SILENCE_CODE = {"ulaw": 0xFF, "alaw": 0xD5}
 
 def _codec_wait(codec: str) -> str:
     if codec in HOST_CODECS:
-        return (f"codec {codec!r}: host codecs wait for ops/host_codecs, not ported "
-                f"to mediastreamer2_tpu_torch yet")
+        return (f"codec {codec!r}: the stream's host-codec legs are not ported to "
+                f"mediastreamer2_tpu_torch yet")
     if codec == "g726_32":
         return (f"codec {codec!r}: the audio stream has no payload packing for it (in the JAX "
                 f"package neither); it runs over RTP through models/transcode.TranscodeBatch")
@@ -389,7 +394,15 @@ class AudioStreamBatch:
         raise NotImplementedError("the video link waits for the video stream, not "
                                   "ported to mediastreamer2_tpu_torch yet")
 
-    save_av_recording = link_video
+    def save_av_recording(self, path: str, leg: int = 0):
+        """Write ``leg``'s call recording as an MKV with an Opus audio
+        track (``write_av_mkv``; raises ``RuntimeError`` without libopus).
+        The linked video stream's frames wait with ``link_video``."""
+        from mediastreamer2_tpu_torch.models.media_player import write_av_mkv
+        rec = self.get_recording()
+        if rec is None:
+            raise RuntimeError("stream built without record_ticks")
+        write_av_mkv(path, rec[leg], self.rate, [], None)
 
     def enable_srtp(self, leg: int, tx_key: bytes, tx_salt: bytes,
                     rx_key: bytes, rx_salt: bytes, suite: str = None,
@@ -808,6 +821,13 @@ class AudioStreamBatch:
             self.on_tmmbr(leg, bps)
 
     # -- observability ------------------------------------------------------
+    @property
+    def edge_rx(self):
+        """The batch edge's receiver (``native.BatchRtpRx``: ``poll`` and
+        each leg's ``stats``, ``auth_failures`` and ``replay_drops``); None
+        before ``enable_batch_edge``."""
+        return getattr(self, "_edge_rx", None)
+
     def get_stats(self, leg: int):
         sess = self.sessions[leg]
         return None if sess is None else sess.stats

@@ -10,9 +10,8 @@ plain Python).
   sets the target depth each refresh window).
 * ``BatchEdgeJitterController``: adaptive prefill for the native batched
   edge's jitter ring.
-
-``replay_capture`` waits for ``io/pcap.py`` and raises
-``NotImplementedError``.
+* ``replay_capture``: a pcap/pcapng capture through a ``JitterBuffer`` in
+  capture time (``io/pcap.py`` reads it).
 """
 from __future__ import annotations
 
@@ -196,10 +195,46 @@ class JitterBuffer:
 
 def replay_capture(path: str, jb: JitterBuffer, payload_type=None,
                    tick_s: Optional[float] = None):
-    """Replay a pcap/pcapng capture through a JitterBuffer in capture time.
-    Waits for ``io/pcap.py``, which is not ported yet."""
-    raise NotImplementedError("replay_capture waits for io/pcap.py, which is not "
-                              "ported to mediastreamer2_tpu_torch yet")
+    """Replay a pcap/pcapng capture through a JitterBuffer in capture time
+    (the reference's pcap_sender + receiver-stream harness,
+    jitterbuffer_tester.c:86-122). Returns dict of counters."""
+    from mediastreamer2_tpu_torch.io.pcap import read_capture
+    pkts = []
+    for cp in read_capture(path):
+        try:
+            p = RtpPacket.unpack(cp.udp_payload)
+        except ValueError:
+            continue
+        if payload_type is not None and p.payload_type != payload_type:
+            continue
+        pkts.append((cp.ts, p))
+    if not pkts:
+        return {"recv": 0}
+    if tick_s is None:
+        # infer the packet interval from seq span over capture duration
+        # (robust to bursty arrivals, unlike inter-arrival medians)
+        span = (pkts[-1][1].seq - pkts[0][1].seq) & 0xFFFF
+        if span:
+            tick_s = (pkts[-1][0] - pkts[0][0]) / span
+        else:
+            tick_s = 0.02
+    t = pkts[0][0]
+    end = pkts[-1][0] + 10 * tick_s
+    i = 0
+    got = concealed = 0
+    while t < end:
+        while i < len(pkts) and pkts[i][0] <= t:
+            jb.put(pkts[i][1], now=pkts[i][0])
+            i += 1
+        if jb.get_tick() is None:
+            concealed += 1
+        else:
+            got += 1
+        t += tick_s
+    return {"recv": len(pkts), "played": got, "concealed": concealed,
+            "late": jb.late, "lost": jb.lost, "underruns": jb.underruns,
+            "discarded": jb.discarded, "stretched": jb.stretched,
+            "depth_target": jb._depth_target}
 
 
 class BatchEdgeJitterController:

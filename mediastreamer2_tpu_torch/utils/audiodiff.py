@@ -1,49 +1,53 @@
-"""Audio similarity oracle (numpy copy of ``audio_diff`` from
+"""Audio similarity oracle (a copy of ``audio_diff`` from
 ``mediastreamer2_tpu/utils/audiodiff.py``, which cannot be imported without
-jax): the reference's ``ms_audio_diff``, a normalized peak
-cross-correlation searched over time shifts, computed by FFT.
+jax, batched over rows in torch): the reference's ``ms_audio_diff``, a
+normalized peak cross-correlation searched over time shifts, computed by FFT.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
-def _normalize(x: np.ndarray) -> np.ndarray:
-    x = np.asarray(x, np.float64)
-    return x - x.mean()
-
-
-def audio_diff(ref: np.ndarray, rec: np.ndarray,
-               max_shift: int | None = None) -> Tuple[float, int]:
+def audio_diff(ref, rec, max_shift: int | None = None, device="cpu") -> Tuple:
     """Normalized peak cross-correlation between ref and rec.
 
-    Returns (similarity, shift) where shift>0 means rec lags ref.
+    ``ref`` and ``rec`` are [n] or, row i against row i, [rows, n] (numpy
+    arrays or tensors), computed in float64 on ``device``. Returns
+    (similarity, shift) where shift>0 means rec lags ref: a float and an
+    int for 1-D input, numpy arrays [rows] for 2-D.
     Similarity ~1.0 for identical-up-to-delay-and-gain signals.
     """
-    a, b = _normalize(ref), _normalize(rec)
-    n = max(len(a), len(b))
+    a, b = (torch.as_tensor(x if isinstance(x, torch.Tensor) else np.array(x, np.float64),
+                            dtype=torch.float64, device=device) for x in (ref, rec))
+    single = a.dim() == 1
+    a, b = torch.atleast_2d(a), torch.atleast_2d(b)
+    n = max(a.shape[1], b.shape[1])
     if n == 0:
-        return 0.0, 0
-    size = 1 << (2 * n - 1).bit_length()
-    fa = np.fft.rfft(a, size)
-    fb = np.fft.rfft(b, size)
-    xc = np.fft.irfft(fa.conj() * fb, size)
-    # valid lags: rec delayed by k in [0, n) -> xc[k]; rec early -> xc[size-k]
-    lags = np.concatenate([xc[: n], xc[size - n + 1:]])
-    if max_shift is not None:
-        mask = np.zeros_like(lags, dtype=bool)
-        mask[: max_shift + 1] = True
-        mask[-max_shift:] = True
-        lags = np.where(mask, lags, -np.inf)
-    k = int(np.argmax(lags))
-    shift = k if k < n else k - (2 * n - 1)
-    denom = np.sqrt((a * a).sum() * (b * b).sum())
-    if denom == 0:
-        return 0.0, 0
-    sim = float(lags[k] / denom)
-    return max(0.0, min(1.0, sim)), shift
+        sims, shifts = np.zeros(a.shape[0]), np.zeros(a.shape[0], np.int64)
+    else:
+        a, b = a - a.mean(dim=1, keepdim=True), b - b.mean(dim=1, keepdim=True)
+        size = 1 << (2 * n - 1).bit_length()
+        xc = torch.fft.irfft(torch.fft.rfft(a, size).conj() * torch.fft.rfft(b, size), size)
+        # valid lags: rec delayed by k in [0, n) -> xc[k]; rec early -> xc[size-k]
+        lags = torch.cat([xc[:, :n], xc[:, size - n + 1:]], dim=1)
+        if max_shift is not None:
+            mask = torch.zeros(lags.shape[1], dtype=torch.bool, device=lags.device)
+            mask[: max_shift + 1] = True
+            mask[-max_shift:] = True
+            lags = torch.where(mask, lags, -torch.inf)
+        k = torch.argmax(lags, dim=1)
+        denom = torch.sqrt((a * a).sum(dim=1) * (b * b).sum(dim=1))
+        live = denom > 0
+        sim = lags.gather(1, k[:, None])[:, 0] / torch.where(live, denom, 1.0)
+        shift = torch.where(k < n, k, k - (2 * n - 1))
+        sims = torch.where(live, sim.clamp(0.0, 1.0), 0.0).cpu().numpy()
+        shifts = torch.where(live, shift, 0).cpu().numpy()
+    if single:
+        return float(sims[0]), int(shifts[0])
+    return sims, shifts
 
 
 def quality_bar(ref: np.ndarray, got: np.ndarray, leg_step: int = 37) -> dict:
@@ -60,7 +64,7 @@ def quality_bar(ref: np.ndarray, got: np.ndarray, leg_step: int = 37) -> dict:
     (the mix-minus spreads that to the leg's conference)."""
     ref = np.asarray(ref, np.float64)
     got = np.asarray(got, np.float64)
-    sims = np.array([audio_diff(ref[i], got[i])[0] for i in range(ref.shape[0])])
+    sims = audio_diff(ref, got)[0]
     err = np.abs(ref - got)
     rms = float(np.sqrt(np.mean(err ** 2)))
     half = ref.shape[1] // 2

@@ -456,7 +456,9 @@ def test_session_entry_points_run_on_the_card_unless_told_cpu(monkeypatch):
 def test_waiting_features_raise():
     """What still waits raises, naming its wait (G.722, SRTP, RTCP and
     iterate are ported now: tests/test_torch_g722.py, test_torch_srtp.py,
-    test_torch_rtcp_qos.py; Baudot too: tests/test_torch_baudot.py).
+    test_torch_rtcp_qos.py; Baudot too: tests/test_torch_baudot.py; the
+    host codecs themselves: tests/test_torch_host_codecs.py, not the
+    stream's legs that would carry them).
     ``g726_32`` is refused as in the JAX package, whose stream cannot
     carry it, and the message names the path that does."""
     f = Factory()
@@ -465,6 +467,9 @@ def test_waiting_features_raise():
             t_as.AudioStreamBatch(f, 1, device="cpu", **kw)
     s = t_as.AudioStreamBatch(f, 1, device="cpu")
     s.set_transport(0, t_rtp.LoopbackPair().endpoint(0))
-    for fn in (lambda: s.link_video(None), lambda: s.save_av_recording("x.mkv")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fn()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        s.link_video(None)
+    # the A/V recording's audio track is ported (tests/test_torch_media_player.py);
+    # a stream that records nothing has nothing to save
+    with pytest.raises(RuntimeError, match="record_ticks"):
+        s.save_av_recording("x.mkv")

@@ -578,3 +578,69 @@ def test_variant_tools_build_earlier_sources_with_an_empty_entry(tmp_path):
     assert stub.read_text() == old.read_text() + g726_variants.EMPTY_STUB
     assert "ms2_adpcm_empty(int, int, void*)" in g726_variants.EMPTY_STUB
     assert g726_variants.with_empty_entry(tool.SOURCE) == tool.SOURCE
+
+
+def test_phase_10_captures_replay_and_files_on_the_cpu(smoke, tmp_path):
+    """Phase 10's harness at 8 legs x 60 ticks on the CPU (plain versions):
+    the speech of every leg is make_speechlike's; the captures hold each
+    leg's G.722 codes as RTP (its SSRC, consecutive sequence numbers and
+    timestamps, the lossy legs' missing and late packets); the replay
+    takes every packet into the stream's batch edge, the clean legs play
+    every one and record their speech as encoded, the lossy legs count
+    their lost and late packets; settled_sims is audio_diff of each leg's
+    settled window; 10b's files, player, controls and recorder pass on two
+    of the recordings."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)              # one core, as the other workers' tests
+    try:
+        _phase_10_on_the_cpu(smoke, tmp_path)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _phase_10_on_the_cpu(smoke, tmp_path):
+    import numpy as np
+    import torch
+    from mediastreamer2_tpu_torch.io.pcap import PcapRtpPlayer
+    from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
+    from mediastreamer2_tpu_torch.utils.signals import make_speechlike
+    cpu, legs, ticks = torch.device("cpu"), 8, 60
+    speech = smoke.speech_legs(130, 400, seed=7, rate=16000)   # two chunks of legs
+    for leg in (0, 1, 128, 129):
+        assert (speech[leg] == make_speechlike(400, 16000, seed=7 + leg)).all()
+    caps = smoke.g722_captures(cpu, legs, ticks, seed=500, directory=str(tmp_path))
+    assert caps.codes.shape == (legs, ticks * 80) and len(caps.lossy) == 2
+    per = smoke.S16 // 2
+    for leg in range(legs):
+        pkts = PcapRtpPlayer(caps.paths[leg], payload_type=9).packets
+        assert len(pkts) == caps.packets[leg]
+        assert {p.ssrc for _, p in pkts} == {smoke.CAPTURE_SSRC + leg}
+        seqs = [(p.seq - pkts[0][1].seq) & 0xFFFF for _, p in pkts]
+        for (t, p), k in zip(pkts, seqs):
+            assert p.payload == caps.codes[leg, k * per:(k + 1) * per].tobytes()
+            assert (p.timestamp - pkts[0][1].timestamp) & 0xFFFFFFFF == per * k
+        late = sum(t > k * smoke.TICK_S + 0.2 for (t, _), k in zip(pkts, seqs))
+        if leg in caps.lossy:
+            assert len(pkts) == ticks - 1 and late == smoke.CAPTURE_LATE
+        else:
+            assert seqs == list(range(ticks)) and late == 0
+    res = smoke.replay_captures(cpu, caps, legs, ticks)
+    assert (res.sent == caps.packets).all() and (res.recv == res.sent).all() and res.waits == 0
+    clean = [leg for leg in range(legs) if leg not in caps.lossy]
+    assert (res.lost[clean] == 0).all() and (res.late[clean] == 0).all()
+    assert (res.concealed[clean] == 4).all()                      # the edge's prefill
+    assert (res.late[caps.lossy] == smoke.CAPTURE_LATE).all()
+    assert (res.lost[caps.lossy] >= 1 + smoke.CAPTURE_LATE).all()
+    assert res.finite and res.state_finite and res.rec.shape == (legs, ticks * smoke.S16)
+    said = smoke.decode_captures(cpu, caps.codes, ticks)
+    start = smoke.S16 * smoke.CAPTURE_SETTLE
+    sims, lags = smoke.settled_sims(said, res.rec, start, cpu)
+    assert (sims[clean] > 0.999).all() and (lags == 4 * smoke.S16).all()
+    for leg in range(legs):
+        want = audio_diff(said[leg, start - lags[leg]:ticks * smoke.S16 - lags[leg]],
+                          res.rec[leg, start:])[0]
+        assert abs(sims[leg] - want) < 1e-9
+    assert smoke.capture_launches(300) == {"g722_encode": 300, "g722_decode": 300,
+                                           "fused_volume": 600}
+    smoke.recorded_files(cpu, "cpu", res.rec, [0, caps.lossy[0]], str(tmp_path))

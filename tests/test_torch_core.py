@@ -282,3 +282,39 @@ def test_conf_mixer_segment_sum_scales_with_legs(factory, tfactory):
         np.testing.assert_allclose(to["out"].numpy(), np.asarray(jo["out"]), rtol=0, atol=1e-6,
                                    err_msg=f"tick {t}")
         assert not [s for s in shapes.seen if list(s).count(B) >= 2], shapes.seen
+
+
+@pytest.mark.parametrize("seed,channels", [(0, 1), (9, 2), ((5, 6), 1), (range(3, 133), 1),
+                                           ((1, 2, 3), 2)])
+def test_make_speechlike_matches_jax(seed, channels):
+    """A seed gives the JAX signal bit for bit; a sequence of seeds (across
+    the 128-seed chunks too) gives one row a seed."""
+    from mediastreamer2_tpu.utils.signals import make_speechlike as jax_speech
+    from mediastreamer2_tpu_torch.utils.signals import make_speechlike
+    got = make_speechlike(1001, 16000, seed=seed, channels=channels)
+    if isinstance(seed, int):
+        want = jax_speech(1001, 16000, seed=seed, channels=channels)
+    else:
+        want = np.stack([jax_speech(1001, 16000, seed=s, channels=channels) for s in seed])
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,cut,max_shift", [(1, 0, None), (7, 2, 0), (100, 3, 3),
+                                             (1601, 2, None), (1601, 40, 50), (512, 0, None)])
+def test_audio_diff_matches_jax(n, cut, max_shift):
+    """The port's audio_diff against the JAX package's on a 1-D pair and,
+    batched, on rows of the same lengths (row i against row i), silent rows
+    included."""
+    from mediastreamer2_tpu.utils.audiodiff import audio_diff as jax_diff
+    from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
+    rng = np.random.default_rng(n + cut)
+    ref = rng.standard_normal((4, n))
+    rec = np.roll(ref, 5, axis=1)[:, :n - cut] + 0.2 * rng.standard_normal((4, n - cut))
+    rec[3] = 0.0
+    want = [jax_diff(a, b, max_shift) for a, b in zip(ref, rec)]
+    sim, shift = audio_diff(ref[0], rec[0], max_shift)
+    assert isinstance(sim, float) and isinstance(shift, int)
+    assert shift == want[0][1] and abs(sim - want[0][0]) < 1e-12
+    sims, shifts = audio_diff(ref, rec, max_shift, device="cpu")
+    assert shifts.tolist() == [k for _, k in want]
+    np.testing.assert_allclose(sims, [s for s, _ in want], rtol=0, atol=1e-12)

@@ -152,15 +152,14 @@ def test_udp_transport_roundtrip():
 
 def test_waiting_features_raise():
     """What still waits raises (the bandwidth estimators and RTCP are
-    ported now: tests/test_torch_rtcp_qos.py)."""
+    ported now: tests/test_torch_rtcp_qos.py; ``replay_capture`` too:
+    tests/test_torch_containers.py)."""
     t = trtp.UdpTransport()
     try:
         with pytest.raises(NotImplementedError, match="not ported"):
             t.attach_pump(None)
     finally:
         t.close()
-    with pytest.raises(NotImplementedError, match="io/pcap.py"):
-        tjit.replay_capture("x.pcap", tjit.JitterBuffer())
 
 
 def test_bandwidth_meter_and_volumes_match_jax():
