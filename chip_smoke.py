@@ -7,8 +7,10 @@ clear and with SRTP), the session layer, the secured wideband call
 (G.722, SRTP, RTCP and QoS), the gateway transcoder (G.711 <-> G.726-32,
 the DVI4 and G.726 codec chains, Baudot TTY) and captured and recorded
 calls (pcap replay into a G.722 stream, WAV / SMFF / MKV through
-MediaPlayer and MediaRecorder), and compares the port on the card with
-the port on the CPU.
+MediaPlayer and MediaRecorder) and negotiated calls (ICE, DTLS-SRTP, ZRTP
+and offer/answer through CallSetup, then the secured wideband session on
+the keys they agreed), and compares the port on the card with the port on
+the CPU.
 
     python3 chip_smoke.py
 
@@ -20,7 +22,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    and spill bytes from nvcc's ``-Xptxas -v`` report (a spill fails the
    run), the edge's AES path (``native.hw_crypto``) and which system codec,
    video and crypto libraries the machine has (opus, gsm, speex, bcg729,
-   bv16, avcodec, vpx, aom, X11, ssl, crypto: printed only);
+   bv16, avcodec, vpx, aom, X11, ssl, crypto: printed only), OpenSSL's
+   version (``OpenSSL_version``) and RLIMIT_NOFILE's soft and hard limits;
 2. each kernel against its plain version, at the flagship's shapes
    (fused_volume; mdf_apply with bf16 and with f32 shadow taps;
    mdf_update at cpos 0, 3, 7; mdf_update_fused, f32 and bf16 shadow)
@@ -150,7 +153,35 @@ Phases, in order (any failure raises and the script exits non-zero):
    10a's at 60 ticks (so that the lossy legs' lost and late packets fall
    inside the run: each lossy leg must count both, on both sides)
    replayed on the CPU and on the card, the recordings held to the bar of
-   phase 4.
+   phase 4;
+11. negotiated calls (``models/call_setup.CallSetup``; the soft
+   RLIMIT_NOFILE raised to the hard one first, failing where that cannot
+   hold the sockets). 11a: 1,024 calls, each a pair of CallSetups over
+   localhost UDP (client controlling, server controlled, every socket its
+   own receive buffer), calls 0-511 keyed by DTLS-SRTP (each side's
+   a=fingerprint from the other's ``local_fingerprint()``), 512-1,023 by
+   ZRTP; each client offers ``local_capabilities()`` with G722 first, each
+   server answers with ``negotiate``; every pending call's ``iterate()``s
+   driven round-robin with no sleep until every call is ready, within 60 s
+   (the seconds and rounds to ICE completion and to the end, calls a
+   second, the round times, the ICE checks sent and retransmitted and what
+   the demux sorted printed; a call that stalls printed by its index and
+   state). Bars: every answer leads with G722/8000 PT 9, every call ready
+   with a nominated selected pair on both sides, the client's keys the
+   mirror of its server's, one suite on both (a DTLS-SRTP profile's, or
+   AES_CM_128_HMAC_SHA1_80 for ZRTP), equal SAS on every ZRTP call. Then
+   phase 8a's session at 1,024 + 1,024 legs on those keys and suites,
+   installed per leg and direction through the batch edge's own
+   ``set_srtp`` (the edges own their sockets, so this media does not ride
+   the nominated ones), 150 tick pairs, with 8a's bars; then 8 DTLS calls
+   with a wrong expected fingerprint on one side, which must end with
+   security_failed, no keys and ``media_transport()`` raising. 11b: 16 + 16
+   legs of 8b's configuration whose transports are their calls'
+   ``media_transport()`` (8 DTLS-SRTP, 8 ZRTP, the last by trickle ICE),
+   every CallSetup iterated after every round: 8b's listener bars from
+   tick 40 on, every leg a remote report and an RTT, no SRTP authentication
+   failure, and no packet but RTP or RTCP handed to a jitter buffer (the
+   demux's counts printed). Phase 11's seconds are printed.
 
 Each phase prints the seconds elapsed when it ends. The last two lines of
 standard output are the kernels' JSON and the result's JSON; the card's
@@ -262,6 +293,13 @@ RECORDER_TICKS = 200          # phase 10b's MediaRecorder run
 OPUS_RECORDER_BAR = 0.75
 CROSS_CAPTURE_LEGS = 8        # phase 10c: captures of its own, a quarter of them lossy,
 CROSS_CAPTURE_TICKS = 60      # long enough to hold their late packets (sent by tick 15)
+SETUP_CALLS = 1024            # phase 11a: calls set up, then media on their keys (x 2 legs)
+SETUP_TICKS = 150
+SETUP_DEADLINE_S = 60.0       # the longest a phase 11 setup may take
+REFUSED_CALLS = 8             # 11a: DTLS calls with a wrong expected fingerprint on one side
+REFUSED_DEADLINE_S = 10.0
+ONE_SOCKET_LEGS = 16          # phase 11b: calls whose media rides their nominated sockets
+ONE_SOCKET_MAX_TICKS = 1200   # 8b's loop at a quarter of its legs runs more rounds in SECURE_MIN_S
 TICK_S = 0.01
 P, F, S = 8, 481, 480         # the flagship's AEC at 48 kHz
 SP, SF, S8 = 8, 81, 80        # the session's AEC at 8 kHz
@@ -1162,9 +1200,9 @@ def _tree_finite(tree):
 class Session:
     """Echo-cancelling clients (AEC + AGC) against a conference server, both
     ``AudioStreamBatch`` on ``dev``, G.711 mu-law at 8 kHz or G.722 at
-    16 kHz: legs 4k..4k+3 form conference k (``AudioConferenceControl``),
-    leg 4k talks. The clients' push is tapped for the talkers' sent codes
-    and for finite speakers."""
+    16 kHz: legs 4k..4k+3 form conference k (``AudioConferenceControl``; the
+    last one may have fewer), leg 4k talks. The clients' push is tapped for
+    the talkers' sent codes and for finite speakers."""
 
     def __init__(self, dev, legs, ticks, seed=3, codec="ulaw", rate=8000):
         """G.722 is stateful: its decoders start on the jitter buffers'
@@ -1179,11 +1217,12 @@ class Session:
         from mediastreamer2_tpu_torch.models.conference import AudioConferenceControl
         from mediastreamer2_tpu_torch.utils.signals import make_speechlike
         self.legs, self.ticks, self.codec, self.rate = legs, ticks, codec, rate
+        self.conferences = -(-legs // 4)
         self.S = tick_samples(rate)
         self.settle = 40 if codec == "g722" else 0
         n = self.S * (ticks + 60)
         self.mic = np.zeros((legs, n), np.float32)
-        for k in range(legs // 4):
+        for k in range(self.conferences):
             self.mic[4 * k] = make_speechlike(n, rate, seed=seed + k)
         f = Factory()
         self.clients = AudioStreamBatch(
@@ -1216,12 +1255,13 @@ class Session:
             self.clients.set_transport(leg, pair.endpoint(0))
             self.server.set_transport(leg, pair.endpoint(1))
 
-    def alternate(self, ticks, sample_every=0, iterate_every=0):
+    def alternate(self, ticks, sample_every=0, iterate_every=0, between=None):
         """``ticks`` rounds of clients.do_tick() then server.do_tick();
         returns host ms per round and the active talkers sampled every
         ``sample_every`` rounds. ``iterate_every``: each side's iterate()
         once in that many rounds, the server's half a period after the
-        clients' (so each side's report answers the other's latest SR)."""
+        clients' (so each side's report answers the other's latest SR).
+        ``between()`` runs after every round."""
         samples = []
         t0 = time.perf_counter()
         for t in range(ticks):
@@ -1233,6 +1273,8 @@ class Session:
                 self.clients.iterate()
             if iterate_every and t % iterate_every == iterate_every - 1:
                 self.server.iterate()
+            if between is not None:
+                between()
         return 1e3 * (time.perf_counter() - t0) / ticks, samples
 
     def state_finite(self):
@@ -1251,7 +1293,7 @@ class Session:
         if self.codec == "g722":
             from mediastreamer2_tpu_torch.ops.g722 import g722_state
             from mediastreamer2_tpu_torch.ops.kernels import g722_decode_reference
-            pcm, _ = g722_decode_reference(codes, g722_state(len(conferences)))
+            pcm, _ = g722_decode_reference(codes, g722_state(len(conferences), "cpu"))
         else:
             pcm = ulaw_decode(codes)
         return pcm16_to_float(pcm).numpy()
@@ -1269,10 +1311,10 @@ class Session:
         n = self.S * self.ticks
         start = self.S * self.settle
         rec = self.clients.get_recording()[:, :n]
-        confs = list(range(0, self.legs // 4, conf_step))
+        confs = list(range(0, self.conferences, conf_step))
         said = self.said(confs)
-        pairs = [(j, leg) for j, k in enumerate(confs) for leg in range(4 * k + 1, 4 * k + 4)
-                 if leg not in skip]
+        pairs = [(j, leg) for j, k in enumerate(confs)
+                 for leg in range(4 * k + 1, min(4 * k + 4, self.legs)) if leg not in skip]
         rows = [j for j, _ in pairs]
         listeners = [leg for _, leg in pairs]
         talkers = [4 * confs[j] for j in rows]
@@ -1376,14 +1418,15 @@ def session_launches(codec, ticks):
     return want
 
 
-def session_edge(kernels, dev, card, legs, ticks, phase="7a", codec="ulaw", rate=8000,
-                 srtp=False):
-    """Phases 7a and 8a: the session pair at full width over localhost UDP
-    through the native batched edge (UDP GSO only where the kernel takes
-    it); ``srtp``: AES_CM_128_HMAC_SHA1_80 on every leg, keys from a seeded
-    generator. Returns the launches of the counted run."""
-    from mediastreamer2_tpu_torch import native
-    sess = Session(dev, legs, ticks, codec=codec, rate=rate)
+def batch_edge(sess, srtp=False, calls=None):
+    """The session pair's batch edges over two localhost UDP sockets (UDP
+    GSO only where the kernel takes it); returns the sockets (server,
+    clients). ``srtp``: AES_CM_128_HMAC_SHA1_80 on every leg, keys from a
+    seeded generator; ``calls`` (phase 11a): each leg's keys and suite as
+    its call's setup agreed them, installed per leg and direction through
+    the edge's own ``set_srtp`` after ``enable_batch_edge``. The edges own
+    their sockets: the media of 11a does not ride the sockets that ICE
+    nominated (11b holds that one-socket path)."""
     socks = []
     for _ in range(2):
         sk = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
@@ -1397,12 +1440,35 @@ def session_edge(kernels, dev, card, legs, ticks, phase="7a", codec="ulaw", rate
     keys = None
     if srtp:
         rng = np.random.default_rng(8)
-        keys = [(rng.bytes(16), rng.bytes(14)) for _ in range(legs)]
+        keys = [(rng.bytes(16), rng.bytes(14)) for _ in range(sess.legs)]
     try:
         sess.clients.enable_batch_edge(rx_sock=cli, tx_sock=cli, remote=srv.getsockname(),
                                        ssrc_base=0x6000, srtp_keys=keys)
         sess.server.enable_batch_edge(rx_sock=srv, tx_sock=srv, remote=cli.getsockname(),
                                       ssrc_base=0x6000, srtp_keys=keys)
+        if calls is not None:
+            for leg, pair in enumerate(calls.pairs):
+                for stream, setup in zip((sess.clients, sess.server), pair):
+                    tk, ts, rk, rs = setup.srtp_keys
+                    stream.edge_tx.set_srtp(leg, tk, ts, setup.srtp_suite)
+                    stream.edge_rx.set_srtp(leg, rk, rs, setup.srtp_suite)
+    except BaseException:
+        srv.close()
+        cli.close()
+        raise
+    return srv, cli
+
+
+def session_edge(kernels, dev, card, legs, ticks, phase="7a", codec="ulaw", rate=8000,
+                 srtp=False, calls=None):
+    """Phases 7a, 8a and 11a: the session pair at full width over localhost
+    UDP through the native batched edge (``batch_edge``: ``srtp`` keys from
+    a seeded generator, or ``calls``' negotiated ones). Returns the launches
+    of the counted run."""
+    from mediastreamer2_tpu_torch import native
+    sess = Session(dev, legs, ticks, codec=codec, rate=rate)
+    srv, cli = batch_edge(sess, srtp, calls)
+    try:
         sess.clients.ticker.warm_up()
         sess.server.ticker.warm_up()
         kernels.reset_launch_counts()
@@ -1427,9 +1493,17 @@ def session_edge(kernels, dev, card, legs, ticks, phase="7a", codec="ulaw", rate
             stray.update(leg for leg in who if leg % 4)
     missing = [k for k, who in named.items() if 4 * k not in who]
     state_finite = sess.state_finite()
-    what = (f"{codec} at {rate // 1000} kHz" + (", AES_CM_128_HMAC_SHA1_80 on every leg "
-                                                f"(edge AES-NI {native.hw_crypto()})"
-                                                if srtp else ""))
+    what = f"{codec} at {rate // 1000} kHz"
+    if srtp:
+        what += ", AES_CM_128_HMAC_SHA1_80 on every leg"
+    if calls is not None:
+        suites = {}
+        for pair in calls.pairs:
+            suites[pair[0].srtp_suite] = suites.get(pair[0].srtp_suite, 0) + 1
+        what += ", the keys and suites the calls agreed (legs a suite: " + ", ".join(
+            f"{k} {v}" for k, v in suites.items()) + ")"
+    if srtp or calls is not None:
+        what += f" (edge AES-NI {native.hw_crypto()})"
     print(f"session {phase}: {legs} + {legs} legs (AEC+AGC clients, conference server, "
           f"{legs // 4} four-party conferences, {what}) x {ticks} ticks over the batch edge, "
           f"UDP GSO {sess.server.gso}: {ms:.3f} ms per tick pair (host clock); host ms/tick by "
@@ -1541,13 +1615,16 @@ def session_cross(dev, legs, ticks):
 
 
 # -- phase 8: the secured wideband call ---------------------------------------
-def secure_session(dev, legs, max_ticks, wrong_key_leg=None, seed=90):
+def secure_session(dev, legs, max_ticks, wrong_key_leg=None, seed=90, calls=None):
     """Phase 8b's configuration: the G.722 session pair over LoopbackPair
     with per-leg SRTP keyed by SDES (each side generates its key line, the
     other parses it), RTCP every RTCP_INTERVAL_S, and on every leg a
     quality indicator (counting the reports it was fed) and a bitrate
     controller (whose ptime ladder drives ``set_ptime``). The clients'
-    ``wrong_key_leg`` gets a receive key that is not the server's.
+    ``wrong_key_leg`` gets a receive key that is not the server's. With
+    ``calls`` (phase 11b), each leg's transport is its call's
+    ``CallSetup.media_transport()`` instead (the nominated socket, SRTP
+    keyed by the call's DTLS or ZRTP).
     Returns (session, {(side, leg): quality indicator})."""
     from mediastreamer2_tpu_torch.models import qos
     from mediastreamer2_tpu_torch.net.srtp import sdes_generate, sdes_parse
@@ -1560,16 +1637,21 @@ def secure_session(dev, legs, max_ticks, wrong_key_leg=None, seed=90):
             return super().update(stats)
 
     sess = Session(dev, legs, max_ticks, seed=seed, codec="g722", rate=16000)
-    sess.loopback()
-    for leg in range(legs):
-        offer, kc, sc = sdes_generate()
-        answer, ks, ss = sdes_generate()
-        _, rkc, rsc = sdes_parse("1 " + offer)           # the server reads the offer
-        _, rks, rss = sdes_parse("1 " + answer)          # the clients read the answer
-        if leg == wrong_key_leg:
-            rks = bytes(16)
-        sess.clients.enable_srtp(leg, kc, sc, rks, rss)
-        sess.server.enable_srtp(leg, ks, ss, rkc, rsc)
+    if calls is not None:
+        for leg, (client, server) in enumerate(calls.pairs):
+            sess.clients.set_transport(leg, client.media_transport())
+            sess.server.set_transport(leg, server.media_transport())
+    else:
+        sess.loopback()
+        for leg in range(legs):
+            offer, kc, sc = sdes_generate()
+            answer, ks, ss = sdes_generate()
+            _, rkc, rsc = sdes_parse("1 " + offer)       # the server reads the offer
+            _, rks, rss = sdes_parse("1 " + answer)      # the clients read the answer
+            if leg == wrong_key_leg:
+                rks = bytes(16)
+            sess.clients.enable_srtp(leg, kc, sc, rks, rss)
+            sess.server.enable_srtp(leg, ks, ss, rkc, rsc)
     qis = {}
     for side, stream in (("clients", sess.clients), ("server", sess.server)):
         stream.enable_rtcp(interval_s=RTCP_INTERVAL_S)
@@ -1584,44 +1666,62 @@ def secure_session(dev, legs, max_ticks, wrong_key_leg=None, seed=90):
     return sess, qis
 
 
+def secure_rounds(sess, phase, max_ticks, between=None):
+    """Alternating do_ticks with iterate() every 10 rounds until
+    SECURE_MIN_S of wall time and SECURE_MIN_TICKS rounds have passed
+    (``between()`` after every round); sets ``sess.ticks`` to the rounds
+    run and returns (rounds, seconds, ms per tick pair)."""
+    t0, ran, ms = time.perf_counter(), 0, []
+    while ran < SECURE_MIN_TICKS or time.perf_counter() - t0 < SECURE_MIN_S:
+        ms.append(sess.alternate(10, iterate_every=10, between=between)[0])
+        ran += 10
+        if ran >= max_ticks:
+            raise AssertionError(f"session {phase}: {ran} rounds in "
+                                 f"{time.perf_counter() - t0:.1f} s")
+    sess.ticks = ran
+    return ran, time.perf_counter() - t0, sum(ms) / len(ms)
+
+
+def secure_report(sess, qis, skip=()):
+    """8b's and 11b's per-leg readings, the legs in ``skip`` left out: the
+    legs without a remote report and without an RTT, the RTT line, the
+    least quality indicator rating and the SRTP authentication failures."""
+    legs_ok = [(side, leg) for side in ("clients", "server") for leg in range(sess.legs)
+               if leg not in skip]
+    unreported = [k for k in legs_ok if qis[k].reports == 0]
+    stream = {"clients": sess.clients, "server": sess.server}
+    rtts = {k: stream[k[0]].sessions[k[1]].rtcp.last_rtt_ms for k in legs_ok}
+    no_rtt = [k for k, v in rtts.items() if v is None]
+    known = sorted(v for v in rtts.values() if v is not None)
+    auth = sum(stream[side].sessions[leg].transport.auth_failures for side, leg in legs_ok)
+    rating = min(qis[k].rating for k in legs_ok)
+    line = (f"legs without a remote report {len(unreported)}, without an RTT {len(no_rtt)}, "
+            "RTT ms min/median/max "
+            + (f"{known[0]:.3f}/{known[len(known) // 2]:.3f}/{known[-1]:.3f}" if known else "-")
+            + f", quality indicator min {rating:.3f}, SRTP auth failures {auth}")
+    return SimpleNamespace(unreported=unreported, no_rtt=no_rtt, auth=auth, line=line,
+                           rating=rating)
+
+
 def session_secure(dev, card, legs):
     """Phase 8b: 8b's configuration, alternating do_ticks with iterate()
     every 10 rounds until SECURE_MIN_S of wall time and SECURE_MIN_TICKS
     rounds have passed."""
     wrong = 5                                             # a listener of conference 1
     sess, qis = secure_session(dev, legs, SECURE_MAX_TICKS, wrong_key_leg=wrong)
-    t0, ran, ms = time.perf_counter(), 0, []
-    while ran < SECURE_MIN_TICKS or time.perf_counter() - t0 < SECURE_MIN_S:
-        ms.append(sess.alternate(10, iterate_every=10)[0])
-        ran += 10
-        if ran >= SECURE_MAX_TICKS:
-            raise AssertionError(f"session 8b: {ran} rounds in {time.perf_counter() - t0:.1f} s")
-    wall = time.perf_counter() - t0
-    sess.ticks = ran
+    ran, wall, ms = secure_rounds(sess, "8b", SECURE_MAX_TICKS)
     ok, line = sess.check(conf_step=1, skip=(wrong,))
-    legs_ok = [(side, leg) for side in ("clients", "server") for leg in range(legs)
-               if leg != wrong]
-    unreported = [k for k in legs_ok if qis[k].reports == 0]
-    stream = {"clients": sess.clients, "server": sess.server}
-    rtts = {k: stream[k[0]].sessions[k[1]].rtcp.last_rtt_ms for k in legs_ok}
-    no_rtt = [k for k, v in rtts.items() if v is None]
-    rating = min(qis[k].rating for k in legs_ok)
+    rep = secure_report(sess, qis, skip=(wrong,))
     bad = sess.clients.sessions[wrong]
-    auth = sum(s.sessions[leg].transport.auth_failures for s in stream.values()
-               for leg in range(legs) if leg != wrong)
-    known = sorted(v for v in rtts.values() if v is not None)
     print(f"session 8b: {legs} + {legs} legs, G.722 at 16 kHz, per-leg SRTP (SDES), RTCP every "
           f"{RTCP_INTERVAL_S} s, quality indicator and bitrate controller on every leg, "
-          f"{ran} rounds in {wall:.2f} s ({sum(ms) / len(ms):.3f} ms per tick pair, host "
-          f"clock), iterate() every 10: legs without a remote report {len(unreported)}, "
-          f"without an RTT {len(no_rtt)}, RTT ms min/median/max "
-          + (f"{known[0]:.3f}/{known[len(known) // 2]:.3f}/{known[-1]:.3f}" if known else "-")
-          + f", quality indicator min {rating:.3f}, SRTP auth failures {auth} (the wrong-key "
-          f"leg: received {bad.stats.recv_packets} packets, auth failures "
-          f"{bad.transport.auth_failures}); {line} [{card}]", flush=True)
-    if unreported or no_rtt or rating < 4.5 or auth:
-        raise AssertionError(f"session 8b: unreported {unreported[:4]}, no RTT {no_rtt[:4]}, "
-                             f"quality indicator min {rating}, auth failures {auth}")
+          f"{ran} rounds in {wall:.2f} s ({ms:.3f} ms per tick pair, host clock), iterate() "
+          f"every 10: {rep.line} (the wrong-key leg: received {bad.stats.recv_packets} "
+          f"packets, auth failures {bad.transport.auth_failures}); {line} [{card}]", flush=True)
+    if rep.unreported or rep.no_rtt or rep.rating < 4.5 or rep.auth:
+        raise AssertionError(f"session 8b: unreported {rep.unreported[:4]}, no RTT "
+                             f"{rep.no_rtt[:4]}, quality indicator min {rep.rating}, auth "
+                             f"failures {rep.auth}")
     if bad.stats.recv_packets or not bad.transport.auth_failures:
         raise AssertionError("session 8b: the leg with the wrong key received media")
     if not ok:
@@ -2216,6 +2316,301 @@ def captured_cross(dev, legs, ticks, directory):
     return caps, [replay_captures(d, caps, legs, ticks) for d in (torch.device("cpu"), dev)]
 
 
+# -- phase 11: negotiated calls -----------------------------------------------
+def raise_nofile(need):
+    """Raise the soft RLIMIT_NOFILE to the hard one (11a opens 2,048
+    CallSetup sockets and the edges' beside what the process holds); prints
+    both and fails when the hard limit cannot hold ``need`` descriptors."""
+    import resource
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    target = hard if hard != resource.RLIM_INFINITY else max(soft, 1 << 20)
+    with contextlib.suppress(ValueError, OSError):
+        resource.setrlimit(resource.RLIMIT_NOFILE, (target, hard))
+    now = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    print(f"RLIMIT_NOFILE: soft {soft} -> {now}, hard {hard}; phase 11 needs about {need}",
+          flush=True)
+    if now < need:
+        raise AssertionError(f"phase 11: the file-descriptor limit ({now}, hard {hard}) cannot "
+                             f"hold the {need} descriptors of its calls")
+
+
+def open_calls(n, dtls_calls, trickle=(), wrong_fingerprint=False):
+    """``n`` calls, each a pair of ``CallSetup`` over localhost UDP, the
+    client controlling and the server controlled, every socket with its own
+    1 MiB receive buffer: calls below ``dtls_calls`` agree their keys by
+    DTLS-SRTP (each side's a=fingerprint from the other's
+    ``local_fingerprint()``), the rest by ZRTP. Each client offers
+    ``local_capabilities()`` with G722 first and each server answers with
+    ``negotiate(offer, local_capabilities())``. The calls in ``trickle``
+    start with no remote candidate (trickle ICE; ``drive_setup`` adds them).
+    ``wrong_fingerprint``: one side of every call (the client on even calls,
+    the server on odd ones) expects a fingerprint that is not its peer's."""
+    from mediastreamer2_tpu_torch.models.call_setup import CallSetup
+    from mediastreamer2_tpu_torch.models.offer_answer import local_capabilities, negotiate
+    calls = SimpleNamespace(pairs=[], answers=[], trickle=set(trickle), offer=None)
+    try:
+        for i in range(n):
+            ka = "dtls" if i < dtls_calls else "zrtp"
+            pair = (CallSetup(controlling=True, key_agreement=ka),
+                    CallSetup(controlling=False, key_agreement=ka))
+            calls.pairs.append(pair)
+            for setup in pair:
+                setup.sock.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 20)
+            client, server = pair
+            offer = sorted(local_capabilities(), key=lambda pt: pt.mime != "G722")
+            calls.offer = offer
+            calls.answers.append(negotiate(offer, local_capabilities()))
+            if i < dtls_calls:
+                wrong = ":".join(["00"] * 32)
+                client.set_remote_fingerprint(wrong if wrong_fingerprint and i % 2 == 0
+                                              else server.local_fingerprint())
+                server.set_remote_fingerprint(wrong if wrong_fingerprint and i % 2
+                                              else client.local_fingerprint())
+            for me, peer in (pair, pair[::-1]):
+                me.set_remote(*peer.local_credentials(),
+                              [] if i in calls.trickle else [("127.0.0.1", peer.sock.local_port)],
+                              trickle=i in calls.trickle)
+    except BaseException:
+        close_calls(calls)
+        raise
+    return calls
+
+
+def close_calls(calls):
+    for pair in calls.pairs:
+        for setup in pair:
+            setup.close()
+
+
+def call_state(i, pair):
+    """One line of a call's state, for a call that stalls."""
+    out = []
+    for who, setup in zip(("client", "server"), pair):
+        sec = ("dtls established" if setup.dtls.is_established else "dtls handshaking") \
+            if setup.dtls is not None else f"zrtp {setup.zrtp.state}"
+        out.append(f"{who} ice {setup.ice.state}, {sec}, keys {setup.srtp_keys is not None}, "
+                   f"demuxed {setup.demuxed}")
+        if setup.security_failed:
+            out[-1] += ", security failed"
+    return f"call {i}: " + "; ".join(out)
+
+
+def drive_setup(calls, deadline_s, done=lambda pair: pair[0].ready and pair[1].ready):
+    """Each pending call's two ``iterate()``s in turn, round after round with
+    no sleep, until ``done`` holds for every call; the trickled calls'
+    candidates (and their end-of-candidates) arrive after the third
+    round. Returns the seconds and rounds to every check list's ICE
+    completion and to the end, the round times (ms) and the seconds spent
+    in the iterate()s of the DTLS-SRTP and of the ZRTP calls; a call not
+    done within ``deadline_s`` is printed by its index and state, and the
+    run fails."""
+    from mediastreamer2_tpu_torch.net.ice import IS_COMPLETED
+    pending = list(range(len(calls.pairs)))
+    spent = {"dtls": 0.0, "zrtp": 0.0}
+    t0 = time.perf_counter()
+    rounds, ice, round_ms = 0, None, []
+    while pending and time.perf_counter() - t0 < deadline_s:
+        t = time.perf_counter()
+        for i in pending:
+            kind = "dtls" if calls.pairs[i][0].dtls is not None else "zrtp"
+            u = time.perf_counter()
+            for setup in calls.pairs[i]:
+                setup.iterate()
+            spent[kind] += time.perf_counter() - u
+        rounds += 1
+        round_ms.append(1e3 * (time.perf_counter() - t))
+        if rounds == 3:
+            for i in calls.trickle:
+                for me, peer in (calls.pairs[i], calls.pairs[i][::-1]):
+                    me.add_candidate("127.0.0.1", peer.sock.local_port)
+                    me.end_of_candidates()
+        if ice is None and all(setup.ice.state == IS_COMPLETED
+                               for pair in calls.pairs for setup in pair):
+            ice = (time.perf_counter() - t0, rounds)
+        pending = [i for i in pending if not done(calls.pairs[i])]
+    seconds = time.perf_counter() - t0
+    if pending:
+        for i in pending[:16]:
+            print(call_state(i, calls.pairs[i]), flush=True)
+        raise AssertionError(f"call setup: {len(pending)} of {len(calls.pairs)} calls not done "
+                             f"after {seconds:.1f} s and {rounds} rounds")
+    return SimpleNamespace(seconds=seconds, rounds=rounds, ice=ice, round_ms=round_ms,
+                           spent=spent)
+
+
+def check_setup(calls):
+    """11a's and 11b's setup bars: every answer leads with G722/8000 PT 9,
+    every call ready with a nominated selected pair on both check lists,
+    each client's keys the mirror of its server's, both naming one suite
+    (a DTLS-SRTP profile's for DTLS, AES_CM_128_HMAC_SHA1_80 for ZRTP),
+    equal SAS strings on every ZRTP call. Returns the suites a call."""
+    from mediastreamer2_tpu_torch.net.dtls import PROFILE_SUITES
+    from mediastreamer2_tpu_torch.models.audio_stream import PAYLOAD_TYPES
+    dtls_suites = {suite for suite, _, _ in PROFILE_SUITES.values()}
+    bad = []
+    for i, ((client, server), answer) in enumerate(zip(calls.pairs, calls.answers)):
+        first = answer[0] if answer else None
+        if first is None or (first.mime, first.clock_rate, first.number) != (
+                "G722", 8000, PAYLOAD_TYPES["g722"]):
+            bad.append(f"call {i}: answer leads with {first}")
+        if not (client.ready and server.ready):
+            bad.append(call_state(i, (client, server)))
+            continue
+        for setup in (client, server):
+            sel = setup.check_list.selected
+            if sel is None or not sel.nominated:
+                bad.append(f"call {i}: no nominated selected pair")
+        ck, sk = client.srtp_keys, server.srtp_keys
+        if ck[:2] != sk[2:] or ck[2:] != sk[:2]:
+            bad.append(f"call {i}: the client's keys do not mirror the server's")
+        want = dtls_suites if client.dtls is not None else {"AES_CM_128_HMAC_SHA1_80"}
+        if client.srtp_suite != server.srtp_suite or client.srtp_suite not in want:
+            bad.append(f"call {i}: suites {client.srtp_suite} / {server.srtp_suite}")
+        if client.zrtp is not None and (client.sas is None or client.sas != server.sas):
+            bad.append(f"call {i}: SAS {client.sas} / {server.sas}")
+    if bad:
+        raise AssertionError(f"call setup: {len(bad)} faults: " + "; ".join(bad[:8]))
+
+
+def setup_line(calls, st):
+    """The setup's timings and counts, for 11a's and 11b's lines."""
+    n = len(calls.pairs)
+    ms = sorted(st.round_ms)
+    ice = (f"{st.ice[0]:.3f} s, {st.ice[1]} rounds, the last handshake done "
+           f"{st.seconds - st.ice[0]:.3f} s and {st.rounds - st.ice[1]} rounds after it"
+           if st.ice else "not reached")
+    setups = [setup for pair in calls.pairs for setup in pair]
+    demux = {k: sum(setup.demuxed[k] for setup in setups) for k in ("stun", "dtls", "zrtp", "media")}
+    checks = sum(setup.check_list.checks_sent for setup in setups)
+    resent = sum(setup.check_list.retransmits for setup in setups)
+    crc = sum(setup.zrtp.crc_seconds for setup in setups if setup.zrtp is not None)
+    return (f"ICE completed on every check list in {ice}; every call ready in "
+            f"{st.seconds:.3f} s, {st.rounds} rounds ({n / st.seconds:.1f} calls a second; a "
+            f"round {ms[len(ms) // 2]:.3f} ms median, {ms[-1]:.3f} ms max); ICE checks sent "
+            f"{checks}, retransmitted {resent}; iterate() seconds: DTLS-SRTP calls "
+            f"{st.spent['dtls']:.3f}, ZRTP calls {st.spent['zrtp']:.3f} (ZRTP's framing, nearly "
+            f"all its per-byte CRC-32C, {crc:.3f}); packets demuxed {demux}")
+
+
+def negotiated_calls(kernels, dev, card, n, ticks):
+    """Phase 11a: ``n`` calls set up over localhost UDP (the first half
+    DTLS-SRTP, the second ZRTP), then the secured wideband session (8a) at
+    ``n`` + ``n`` legs on their negotiated keys and suites for ``ticks``
+    tick pairs, then REFUSED_CALLS DTLS calls with a wrong fingerprint.
+    Returns the launches of the counted media run."""
+    t0 = time.perf_counter()
+    calls = open_calls(n, dtls_calls=n // 2)
+    try:
+        opened = time.perf_counter() - t0
+        print("capabilities offered (G722 first): " + ", ".join(
+            f"{pt.mime}/{pt.clock_rate} PT {pt.number}" for pt in calls.offer), flush=True)
+        st = drive_setup(calls, SETUP_DEADLINE_S)
+        check_setup(calls)
+        n_dtls = sum(client.dtls is not None for client, _ in calls.pairs)
+        print(f"call setup 11a: {n} calls over localhost UDP ({n_dtls} DTLS-SRTP, "
+              f"{n - n_dtls} ZRTP; opened, offered and answered in {opened:.3f} s): "
+              f"{setup_line(calls, st)}; every answer G722/8000 PT 9, keys mirrored, suites "
+              f"agreed, ZRTP SAS equal [{card}]", flush=True)
+        launches = session_edge(kernels, dev, card, n, ticks, phase="11a", codec="g722",
+                                rate=16000, calls=calls)
+    finally:
+        close_calls(calls)
+    refused_calls(REFUSED_CALLS, card)
+    return launches
+
+
+def refused_calls(n, card):
+    """11a's refused calls: ``n`` DTLS calls, one side of each expecting a
+    wrong fingerprint, driven until that side has finished its handshake:
+    it must end with security_failed, no srtp_keys and media_transport()
+    raising."""
+    calls = open_calls(n, dtls_calls=n, wrong_fingerprint=True)
+    try:
+        wrong = [pair[i % 2] for i, pair in enumerate(calls.pairs)]
+        st = drive_setup(calls, REFUSED_DEADLINE_S,
+                         done=lambda pair: any(s.security_failed for s in pair))
+        bad = []
+        for i, setup in enumerate(wrong):
+            try:
+                setup.media_transport()
+                refused = False
+            except AssertionError:
+                refused = True
+            if not (setup.security_failed and setup.srtp_keys is None and refused
+                    and not setup.ready):
+                bad.append(call_state(i, calls.pairs[i]))
+        print(f"call setup 11a, refused: {n} DTLS calls, each with a wrong expected fingerprint "
+              f"on one side, handshakes done in {st.seconds:.3f} s: security failed on "
+              f"{sum(s.security_failed for s in wrong)}, keys on {sum(s.srtp_keys is not None for s in wrong)}, "
+              f"media_transport() refused on {n - len(bad)} [{card}]", flush=True)
+        if bad:
+            raise AssertionError("refused calls: " + "; ".join(bad))
+    finally:
+        close_calls(calls)
+
+
+def one_socket_session(dev, legs, max_ticks):
+    """11b's configuration: ``legs`` calls set up (the first half DTLS-SRTP,
+    the rest ZRTP, the last by trickle ICE), then 8b's session with each
+    leg's transport its call's ``media_transport()``; every packet the
+    media views hand on is checked to be RTP or RTCP (``leaked`` counts
+    any other). Returns (session, quality indicators, calls, setup
+    timings, leaked)."""
+    from mediastreamer2_tpu_torch.net import dtls, stun, zrtp
+    calls = open_calls(legs, dtls_calls=legs // 2, trickle=(legs - 1,))
+    try:
+        st = drive_setup(calls, SETUP_DEADLINE_S)
+        check_setup(calls)
+        sess, qis = secure_session(dev, legs, max_ticks, seed=130, calls=calls)
+    except BaseException:
+        close_calls(calls)
+        raise
+    leaked = [0]
+    for stream in (sess.clients, sess.server):
+        for rtp in stream.sessions:
+            view = rtp.transport.inner
+            recv = view.recv_all
+
+            def checked(recv=recv):
+                pkts = recv()
+                leaked[0] += sum(stun.is_stun(p) or dtls.is_dtls(p) or zrtp.is_zrtp(p)
+                                 or len(p) < 12 or p[0] >> 6 != 2 for p in pkts)
+                return pkts
+            view.recv_all = checked
+    return sess, qis, calls, st, leaked
+
+
+def one_socket_calls(dev, card, legs):
+    """Phase 11b: 11b's configuration, alternating do_ticks with iterate()
+    every 10 rounds as 8b, every CallSetup's iterate() after every round
+    (ICE keepalives and late handshake records are demuxed on the port the
+    media rides), until SECURE_MIN_S and SECURE_MIN_TICKS."""
+    sess, qis, calls, st, leaked = one_socket_session(dev, legs, ONE_SOCKET_MAX_TICKS)
+    try:
+        def between():
+            for pair in calls.pairs:
+                for setup in pair:
+                    setup.iterate()
+        ran, wall, ms = secure_rounds(sess, "11b", ONE_SOCKET_MAX_TICKS, between)
+        ok, line = sess.check(conf_step=1)
+        rep = secure_report(sess, qis)
+        print(f"session 11b: {legs} + {legs} legs, G.722 at 16 kHz over each call's nominated "
+              f"socket ({legs // 2} DTLS-SRTP, {legs - legs // 2} ZRTP, call {legs - 1} by "
+              f"trickle ICE): setup {setup_line(calls, st)}; RTCP every {RTCP_INTERVAL_S} s, "
+              f"quality indicator and bitrate controller on every leg, {ran} rounds in "
+              f"{wall:.2f} s ({ms:.3f} ms per tick pair, host clock): {rep.line}; packets "
+              f"other than RTP or RTCP handed to a jitter buffer {leaked[0]}; {line} [{card}]",
+              flush=True)
+    finally:
+        close_calls(calls)
+    if rep.unreported or rep.no_rtt or rep.auth or leaked[0]:
+        raise AssertionError(f"session 11b: unreported {rep.unreported[:4]}, no RTT "
+                             f"{rep.no_rtt[:4]}, auth failures {rep.auth}, non-media packets "
+                             f"on the media path {leaked[0]}")
+    if not ok:
+        raise AssertionError("session 11b: listener bars not met")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -2259,6 +2654,10 @@ def main():
     # package's ops/host_codecs.py and ops/h264.py look them up)
     print("system libraries: " + ", ".join(f"{name} {ctypes.util.find_library(name)}"
                                            for name in SYSTEM_LIBRARIES), flush=True)
+    import resource
+    from mediastreamer2_tpu_torch.net import openssl
+    print(f"OpenSSL: {openssl.openssl_version()}; RLIMIT_NOFILE soft / hard: "
+          + " / ".join(map(str, resource.getrlimit(resource.RLIMIT_NOFILE))), flush=True)
 
     phase_done(1)
 
@@ -2442,9 +2841,22 @@ def main():
 
     phase_done(10)
 
+    # phase 11: negotiated calls: 11a 1,024 calls set up over localhost UDP,
+    # then the secured wideband session on their keys, and refused calls;
+    # 11b calls whose media rides the sockets that ICE nominated
+    t11 = time.perf_counter()
+    raise_nofile(2 * SETUP_CALLS + 512)
+    setup_launches = negotiated_calls(kernels, dev, card, SETUP_CALLS, SETUP_TICKS)
+    phase_done("11a")
+    one_socket_calls(dev, card, ONE_SOCKET_LEGS)
+    print(f"phase 11 took {time.perf_counter() - t11:.1f} s", flush=True)
+
+    phase_done(11)
+
     # launches over the main-path runs that were counted: the flagship, the
     # three e2e runs, the session and the wideband call at full width, the
-    # gateway and its codec chains, the captures' build and their replay
+    # gateway and its codec chains, the captures' build and their replay, the
+    # negotiated calls' media
     runs = {"flagship": (launches, TICKS),
             "e2e": ({k: e2e_launches[k] + srtp_launches[k] + big_launches[k] for k in launches},
                     e2e_ticks + srtp_ticks + big_ticks),
@@ -2452,7 +2864,8 @@ def main():
             "wideband": (wide_launches, WIDE_TICKS),
             "gateway": (gw_launches, GATEWAY_ROUNDS),
             "captures_built": (built_launches, CAPTURE_TICKS),
-            "captured": (cap_launches, CAPTURE_TICKS)}
+            "captured": (cap_launches, CAPTURE_TICKS),
+            "negotiated": (setup_launches, SETUP_TICKS)}
     runs.update({f"chain_{codec}": (c, CHAIN_TICKS) for codec, c in chain_launches.items()})
     total = {k: sum(c[k] for c, _ in runs.values()) for k in launches}
     entries = []

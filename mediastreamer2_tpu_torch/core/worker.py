@@ -1,12 +1,125 @@
-"""Worker pools for host chores that must stay off the paced tick loop
-(port of ``reset_thread_priority`` and ``normal_priority_pool`` from
-``mediastreamer2_tpu/core/worker.py``; the rest of that module is not on
-the port's path yet)."""
+"""WorkerThread / Task — generic background task execution (port of
+``mediastreamer2_tpu/core/worker.py``: plain Python).
+
+Reference: MSWorkerThread (src/base/msasync.c:23-110): a thread with a task
+queue, cancellation, repeat-interval tasks and wait-for-completion — used
+by TURN TCP, screen sharing, video toolbox backends.  Same surface here;
+the framework uses it for host-side I/O chores that must stay off the tick
+loop (the reference's latency-isolation role).
+
+Also ms_discover_mtu parity (src/base/mtu.c): kernel path-MTU query, and the
+worker pools whose threads run at nice 0.
+
+Not ported yet: ``StreamRegulator`` (the media player's video pacing)
+waits for the port's video layer, and ``priority_pool`` (the mixed
+fleet's dispatch worker) for ``E2EStepper`` and the mixed fleet.
+"""
 from __future__ import annotations
 
+import heapq
 import os
+import socket
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Optional
+
+
+class Task:
+    def __init__(self, fn: Callable[[], Any], repeat_interval_s: float = 0.0):
+        self.fn = fn
+        self.repeat_interval_s = repeat_interval_s
+        self.done = threading.Event()
+        self.cancelled = False
+        self.result: Any = None
+        self.error: Optional[BaseException] = None
+
+    def cancel(self):
+        """cf. ms_task_cancel — skips (future) executions."""
+        self.cancelled = True
+        self.done.set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """cf. ms_task_wait_completion."""
+        return self.done.wait(timeout)
+
+
+class WorkerThread:
+    """cf. ms_worker_thread_new / add_task / add_repeated_task."""
+
+    def __init__(self, name: str = "ms2-worker"):
+        self._heap = []                      # (due_time, seq, Task)
+        self._seq = 0
+        self._cv = threading.Condition()
+        self._stop = False
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    def add_task(self, fn: Callable[[], Any]) -> Task:
+        return self._schedule(Task(fn), delay_s=0.0)
+
+    def add_repeated_task(self, fn: Callable[[], Any],
+                          interval_s: float) -> Task:
+        return self._schedule(Task(fn, repeat_interval_s=interval_s),
+                              delay_s=interval_s)
+
+    def _schedule(self, task: Task, delay_s: float) -> Task:
+        with self._cv:
+            self._seq += 1
+            heapq.heappush(self._heap, (time.monotonic() + delay_s,
+                                        self._seq, task))
+            self._cv.notify()
+        return task
+
+    def _run(self):
+        while True:
+            with self._cv:
+                while not self._stop and (
+                        not self._heap
+                        or self._heap[0][0] > time.monotonic()):
+                    timeout = (self._heap[0][0] - time.monotonic()
+                               if self._heap else None)
+                    self._cv.wait(timeout=timeout)
+                if self._stop:
+                    return
+                _, _, task = heapq.heappop(self._heap)
+            if task.cancelled:
+                continue
+            try:
+                task.result = task.fn()
+            except BaseException as e:        # surfaced via task.error
+                task.error = e
+            if task.repeat_interval_s > 0 and not task.cancelled:
+                self._schedule(task, task.repeat_interval_s)
+            else:
+                task.done.set()
+
+    def destroy(self):
+        """cf. ms_worker_thread_destroy."""
+        with self._cv:
+            self._stop = True
+            self._cv.notify()
+        self._thread.join(timeout=2.0)
+
+
+def discover_mtu(host: str, port: int = 5060) -> int:
+    """Path-MTU discovery (cf. ms_discover_mtu, src/base/mtu.c): connect a
+    UDP socket and read the kernel's cached path MTU."""
+    IP_MTU = 14
+    IP_MTU_DISCOVER = 10
+    IP_PMTUDISC_DO = 2
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        s.setsockopt(socket.IPPROTO_IP, IP_MTU_DISCOVER, IP_PMTUDISC_DO)
+        s.connect((host, port))
+        try:
+            s.send(b"\x00" * 16)
+        except OSError:
+            pass
+        return s.getsockopt(socket.IPPROTO_IP, IP_MTU)
+    finally:
+        s.close()
 
 
 def reset_thread_priority() -> None:

@@ -822,6 +822,12 @@ class AudioStreamBatch:
 
     # -- observability ------------------------------------------------------
     @property
+    def edge_tx(self):
+        """The batch edge's sender (``native.BatchRtpTx``: each leg's
+        ``set_srtp``); None before ``enable_batch_edge``."""
+        return getattr(self, "_edge_tx", None)
+
+    @property
     def edge_rx(self):
         """The batch edge's receiver (``native.BatchRtpRx``: ``poll`` and
         each leg's ``stats``, ``auth_failures`` and ``replay_drops``); None

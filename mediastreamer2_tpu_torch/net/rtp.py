@@ -6,9 +6,9 @@ received packets into the jitter buffer, which assembles the fixed-shape
 tick tensors the device graph consumes.
 
 Transports: real UDP sockets or an in-process loopback pair. A
-``LoopbackPair`` takes any network simulator with the JAX package's
-``shape(now, data) -> [(deliver_at, data), ...]`` method; ``net/netsim.py``
-itself is not ported yet.
+``LoopbackPair`` takes any network simulator with a
+``shape(now, data) -> [(deliver_at, data), ...]`` method, such as
+``net/netsim.NetworkSimulator``.
 
 Left out, raising ``NotImplementedError`` that names its wait:
 ``UdpTransport``'s native epoll pump waits for ``native/io_pump.cpp``.

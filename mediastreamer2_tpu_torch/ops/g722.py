@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from mediastreamer2_tpu_torch.core.filter import FilterDef, register_filter
+from mediastreamer2_tpu_torch.core.ticker import resolve_device
 from mediastreamer2_tpu_torch.ops.g711 import float_to_pcm16, pcm16_to_float
 from mediastreamer2_tpu_torch.ops.kernels import g722_decode, g722_encode
 
@@ -88,9 +89,11 @@ def _band_init(B, device, det):
             "det": torch.full((B,), det, dtype=torch.int32, device=device)}
 
 
-def g722_state(B: int, device="cpu") -> dict:
+def g722_state(B: int, device=None) -> dict:
     """Fresh encoder or decoder state for ``B`` legs (the JAX package's
-    ``g722_state``: det starts at 32 in the lower band, 8 in the upper)."""
+    ``g722_state``: det starts at 32 in the lower band, 8 in the upper), on
+    ``device`` (``None``: the card, as every entry point resolves it)."""
+    device = resolve_device(device)
     return {"lo": _band_init(B, device, 32), "hi": _band_init(B, device, 8),
             "x": torch.zeros((B, 24), dtype=torch.int32, device=device)}
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from mediastreamer2_tpu_torch.core.filter import FilterDef, register_filter
+from mediastreamer2_tpu_torch.core.ticker import resolve_device
 from mediastreamer2_tpu_torch.ops.g711 import float_to_pcm16, pcm16_to_float
 from mediastreamer2_tpu_torch.ops.kernels import g726_decode, g726_encode
 
@@ -67,8 +68,10 @@ def g726_tables(bits: int, device) -> dict:
     return _on_device[key]
 
 
-def g726_state(B: int, device="cpu") -> dict:
-    """Fresh encoder or decoder state for ``B`` legs."""
+def g726_state(B: int, device=None) -> dict:
+    """Fresh encoder or decoder state for ``B`` legs on ``device`` (``None``:
+    the card, as every entry point resolves it)."""
+    device = resolve_device(device)
     z = lambda *s: torch.zeros((B,) + s, dtype=torch.float32, device=device)  # noqa: E731
     full = lambda v: torch.full((B,), v, dtype=torch.float32, device=device)  # noqa: E731
     return {

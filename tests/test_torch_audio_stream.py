@@ -14,6 +14,7 @@ with ``do_tick`` loops (no wall clock), then compared:
 * the fixture's own bars from ``tests/test_audio_stream.py`` and
   ``tests/test_conference_server.py``.
 """
+import dataclasses
 import socket
 import types
 
@@ -28,11 +29,13 @@ torch.set_num_threads(1)
 from mediastreamer2_tpu.models import audio_stream as j_as  # noqa: E402
 from mediastreamer2_tpu.models import conference as j_conf  # noqa: E402
 from mediastreamer2_tpu.net import rtp as j_rtp  # noqa: E402
-from mediastreamer2_tpu.net.netsim import NetSimParams, NetworkSimulator  # noqa: E402
+from mediastreamer2_tpu.net import netsim as j_netsim  # noqa: E402
+from mediastreamer2_tpu.net.netsim import NetSimParams  # noqa: E402
 from mediastreamer2_tpu_torch import Factory  # noqa: E402
 from mediastreamer2_tpu_torch import native  # noqa: E402
 from mediastreamer2_tpu_torch.models import audio_stream as t_as  # noqa: E402
 from mediastreamer2_tpu_torch.models import conference as t_conf  # noqa: E402
+from mediastreamer2_tpu_torch.net import netsim as t_netsim  # noqa: E402
 from mediastreamer2_tpu_torch.net import rtp as t_rtp  # noqa: E402
 from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff, quality_bar  # noqa: E402
 from mediastreamer2_tpu_torch.utils.signals import make_speechlike  # noqa: E402
@@ -65,15 +68,19 @@ class _Pkg(types.SimpleNamespace):
 
 @pytest.fixture(scope="module")
 def pkgs(factory):
-    return {"jax": _Pkg(name="jax", mod=j_as, conf=j_conf, rtp=j_rtp, factory=factory,
-                        kw={}),
-            "torch": _Pkg(name="torch", mod=t_as, conf=t_conf, rtp=t_rtp, factory=Factory(),
-                          kw={"device": "cpu"})}
+    return {"jax": _Pkg(name="jax", mod=j_as, conf=j_conf, rtp=j_rtp, netsim=j_netsim,
+                        factory=factory, kw={}),
+            "torch": _Pkg(name="torch", mod=t_as, conf=t_conf, rtp=t_rtp, netsim=t_netsim,
+                          factory=Factory(), kw={"device": "cpu"})}
 
 
 def _connect(pkg, a, b, legs, netsim=None):
+    """``netsim``: NetSimParams fields, given to each package's own
+    simulator."""
     for leg in legs:
-        pair = pkg.rtp.LoopbackPair(netsim=NetworkSimulator(netsim) if netsim else None)
+        sim = (pkg.netsim.NetworkSimulator(pkg.netsim.NetSimParams(**dataclasses.asdict(netsim)))
+               if netsim else None)
+        pair = pkg.rtp.LoopbackPair(netsim=sim)
         a.set_transport(leg, pair.endpoint(0))
         b.set_transport(leg, pair.endpoint(1))
 

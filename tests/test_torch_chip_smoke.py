@@ -644,3 +644,102 @@ def _phase_10_on_the_cpu(smoke, tmp_path):
     assert smoke.capture_launches(300) == {"g722_encode": 300, "g722_decode": 300,
                                            "fused_volume": 600}
     smoke.recorded_files(cpu, "cpu", res.rec, [0, caps.lossy[0]], str(tmp_path))
+
+
+def test_phase_11a_setup_and_negotiated_keys_on_the_cpu(smoke):
+    """Phase 11a's harness at 8 calls on the CPU: every call set up (4 by
+    DTLS-SRTP, 4 by ZRTP) passes the setup bars, every answer leads with
+    G722/8000 PT 9; the session pair's batch edges take each leg's
+    negotiated keys and suite, one direction each, and 20 tick pairs run
+    with every leg received and no authentication failure or replay drop;
+    a leg whose client was given another call's keys fails
+    authentication, alone; refused calls end security_failed."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _phase_11a_on_the_cpu(smoke)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _phase_11a_on_the_cpu(smoke):
+    import torch
+    cpu, n, ticks = torch.device("cpu"), 8, 20
+    smoke.raise_nofile(64)
+    calls = smoke.open_calls(n, dtls_calls=n // 2)
+    try:
+        st = smoke.drive_setup(calls, 30.0)
+        smoke.check_setup(calls)
+        assert st.ice is not None and st.ice[1] <= st.rounds
+        assert sum(s.check_list.checks_sent for pair in calls.pairs for s in pair) >= 2 * n
+        assert [c.srtp_suite for c, _ in calls.pairs] == \
+            ["AEAD_AES_128_GCM"] * 4 + ["AES_CM_128_HMAC_SHA1_80"] * 4
+        assert "calls a second" in smoke.setup_line(calls, st)
+        client, server = calls.pairs[5]
+        client.srtp_keys = calls.pairs[6][0].srtp_keys       # a leg keyed wrong
+        sess = smoke.Session(cpu, n, ticks, codec="g722", rate=16000)
+        srv, cli = smoke.batch_edge(sess, calls=calls)
+        try:
+            for s in (sess.clients, sess.server):
+                s.ticker.warm_up()
+            sess.alternate(ticks)
+            sides = (sess.server, sess.clients)
+            recv = [[s.edge_rx.stats(i)["recv"] for i in range(n)] for s in sides]
+            auth = [[s.edge_rx.auth_failures(i) for i in range(n)] for s in sides]
+            replay = sum(s.edge_rx.replay_drops(i) for s in sides for i in range(n))
+        finally:
+            srv.close()
+            cli.close()
+        assert replay == 0
+        assert min(recv[0][i] for i in range(n) if i != 5) >= ticks - 2
+        assert min(recv[1][i] for i in range(n) if i != 5) >= ticks - 2
+        # leg 5's client sends and receives on call 6's keys: the server
+        # refuses what it sends, and the client what it is sent
+        assert auth[0][5] > 0 and auth[1][5] > 0
+        assert sum(auth[0]) == auth[0][5] and sum(auth[1]) == auth[1][5]
+    finally:
+        smoke.close_calls(calls)
+    smoke.refused_calls(2, "cpu")
+
+
+def test_phase_11b_one_socket_calls_on_the_cpu(smoke):
+    """Phase 11b's harness at 2 + 2 legs x 60 ticks on the CPU: one call
+    by DTLS-SRTP, one by ZRTP over trickle ICE; each leg's transport is its
+    call's media_transport(), every CallSetup iterated after every round:
+    each leg has a remote report and an RTT, no authentication failure,
+    only RTP and RTCP reach the jitter buffers while the demux sorts STUN,
+    DTLS and ZRTP away, and the listener hears its talker from tick 40 on."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _phase_11b_on_the_cpu(smoke)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _phase_11b_on_the_cpu(smoke):
+    import torch
+    cpu, legs, ticks = torch.device("cpu"), 2, 60
+    sess, qis, calls, st, leaked = smoke.one_socket_session(cpu, legs, ticks)
+    try:
+        assert calls.trickle == {1} and calls.pairs[1][0].zrtp is not None
+        assert calls.pairs[0][0].dtls is not None
+
+        def between():
+            for pair in calls.pairs:
+                for setup in pair:
+                    setup.iterate()
+        sess.alternate(ticks, iterate_every=10, between=between)
+        rep = smoke.secure_report(sess, qis)
+        demuxed = {k: sum(s.demuxed[k] for pair in calls.pairs for s in pair)
+                   for k in ("stun", "dtls", "zrtp", "media")}
+        ok, line = sess.check(conf_step=1)
+    finally:
+        smoke.close_calls(calls)
+    assert not rep.unreported and not rep.no_rtt and rep.auth == 0, rep.line
+    assert leaked[0] == 0
+    assert demuxed["stun"] > 0 and demuxed["dtls"] > 0 and demuxed["zrtp"] > 0
+    assert demuxed["media"] >= 2 * legs * ticks          # RTP both ways, and RTCP
+    assert ok, line

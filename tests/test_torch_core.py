@@ -181,6 +181,7 @@ def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['cryptography'] = None\n"
         f"sys.path.insert(0, {REPO!r})\n"
         "import torch\n"
         "import mediastreamer2_tpu_torch as m\n"
@@ -223,8 +224,24 @@ def test_port_never_imports_jax():
         "tk.async_publish = True\n"
         "tk.set_io(pull=lambda t: {'rtp_rx': np.zeros((2, 80), np.int32)})\n"
         "tk.run(3)\n"
+        # call setup, its lazy libcrypto and libssl included: one ZRTP and one
+        # DTLS-SRTP call over localhost UDP where OpenSSL is there
+        "from mediastreamer2_tpu_torch.models.call_setup import CallSetup\n"
+        "from mediastreamer2_tpu_torch.net import openssl\n"
+        "for ka in ('zrtp', 'dtls') if openssl.libssl() is not None else ():\n"
+        "    a = CallSetup(True, key_agreement=ka)\n"
+        "    b = CallSetup(False, key_agreement=ka)\n"
+        "    a.set_remote(*b.local_credentials(), [('127.0.0.1', b.sock.local_port)])\n"
+        "    b.set_remote(*a.local_credentials(), [('127.0.0.1', a.sock.local_port)])\n"
+        "    for _ in range(2000):\n"
+        "        a.iterate(); b.iterate()\n"
+        "        if a.ready and b.ready:\n"
+        "            break\n"
+        "    assert a.ready and b.ready and a.srtp_keys[:2] == b.srtp_keys[2:], ka\n"
+        "    a.close(); b.close()\n"
         "bad = [k for k in sys.modules if k == 'mediastreamer2_tpu'\n"
-        "       or k.startswith('mediastreamer2_tpu.') or k.startswith('jax.')]\n"
+        "       or k.startswith('mediastreamer2_tpu.') or k.startswith('jax.')\n"
+        "       or k.startswith('cryptography.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -61,11 +61,11 @@ def test_plain_versions_match_itu_vectors(direction):
     bundled ITU g722_encode.c / g722_decode.c (3,200 samples), bit for bit."""
     if direction == "encode":
         got, _ = kernels.g722_encode_reference(
-            torch.from_numpy(_VEC["pcm"].astype(np.int32)[None]), tg.g722_state(1))
+            torch.from_numpy(_VEC["pcm"].astype(np.int32)[None]), tg.g722_state(1, "cpu"))
         want = _VEC["code"]
     else:
         got, _ = kernels.g722_decode_reference(
-            torch.from_numpy(_VEC["code"].astype(np.int32)[None]), tg.g722_state(1))
+            torch.from_numpy(_VEC["code"].astype(np.int32)[None]), tg.g722_state(1, "cpu"))
         want = _VEC["dec"]
     np.testing.assert_array_equal(got[0].numpy(), want.astype(np.int32))
 
@@ -104,14 +104,14 @@ def test_batch_independence():
     encodes bit for bit beside two other signals."""
     pcm = _VEC["pcm"].astype(np.int32)
     batch = np.stack([pcm, np.roll(pcm, 160), pcm // 2])
-    codes, _ = tg.g722_encode(torch.from_numpy(batch), tg.g722_state(3))
+    codes, _ = tg.g722_encode(torch.from_numpy(batch), tg.g722_state(3, "cpu"))
     np.testing.assert_array_equal(codes[0].numpy(), _VEC["code"].astype(np.int32))
     assert (codes[2] != codes[0]).any()
 
 
 def test_wrappers_launch_nothing_on_the_cpu_and_refuse_other_devices():
     kernels.reset_launch_counts()
-    codes, st = tg.g722_encode(torch.zeros((2, S16), dtype=torch.int32), tg.g722_state(2))
+    codes, st = tg.g722_encode(torch.zeros((2, S16), dtype=torch.int32), tg.g722_state(2, "cpu"))
     tg.g722_decode(codes, st)
     assert kernels.launch_counts()["g722_encode"] == 0
     assert kernels.launch_counts()["g722_decode"] == 0
@@ -119,6 +119,17 @@ def test_wrappers_launch_nothing_on_the_cpu_and_refuse_other_devices():
         tg.g722_encode(torch.zeros((1, S16), dtype=torch.int32, device="meta"),
                        tg.g722_state(1, "meta"))
 
+
+
+def test_state_resolves_its_device_as_every_entry_point():
+    """``g722_state(B)`` with no device lands on the card, as every entry
+    point's ``device=None`` does (``core/ticker.resolve_device``), and
+    raises where there is none."""
+    if torch.cuda.is_available():
+        assert tg.g722_state(1)["x"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tg.g722_state(1)
 
 def test_filters_halve_and_double_the_rate():
     """g722_enc's output runs at half the input rate (one code per 8 kHz

@@ -56,7 +56,7 @@ def test_tables_and_fresh_state_equal_the_jax_package():
         T = tg.g726_tables(bits, "cpu")
         for k, v in jg._RATE_TABLES[bits].items():
             np.testing.assert_array_equal(T[k].numpy(), v.astype(np.float32))
-    jst, tst = jg.g726_state(3), tg.g726_state(3)
+    jst, tst = jg.g726_state(3), tg.g726_state(3, "cpu")
     assert list(tst) == list(kernels.G726_KEYS) == list(jst)
     for k in jst:
         np.testing.assert_array_equal(tst[k].numpy(), np.asarray(jst[k]))
@@ -70,13 +70,13 @@ def test_encoder_codes_equal_jax_and_decoder_close(bits):
     STATE_RTOL."""
     pcm = _legs(2400)
     jc, jes = jg.g726_encode(jnp.asarray(pcm), jg.g726_state(4), bits)
-    tc, tes = tg.g726_encode(torch.from_numpy(pcm), tg.g726_state(4), bits)
+    tc, tes = tg.g726_encode(torch.from_numpy(pcm), tg.g726_state(4, "cpu"), bits)
     jc = np.array(jc)
     assert tc.dtype == torch.int32
     np.testing.assert_array_equal(tc.numpy(), jc)
     _assert_state_close(jes, tes)
     jd, jds = jg.g726_decode(jnp.asarray(jc), jg.g726_state(4), bits)
-    td, tds = tg.g726_decode(torch.from_numpy(jc), tg.g726_state(4), bits)
+    td, tds = tg.g726_decode(torch.from_numpy(jc), tg.g726_state(4, "cpu"), bits)
     assert td.dtype == torch.float32
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=PCM_ATOL)
     _assert_state_close(jds, tds)
@@ -86,8 +86,8 @@ def test_encoder_codes_equal_jax_and_decoder_close(bits):
 def test_roundtrip_snr(bits, min_snr):
     """The JAX test's floors, on its fixture (one leg, 2,400 samples)."""
     pcm = _speech()[None]
-    codes, _ = tg.g726_encode(torch.from_numpy(pcm), tg.g726_state(1), bits)
-    dec, _ = tg.g726_decode(codes, tg.g726_state(1), bits)
+    codes, _ = tg.g726_encode(torch.from_numpy(pcm), tg.g726_state(1, "cpu"), bits)
+    dec, _ = tg.g726_decode(codes, tg.g726_state(1, "cpu"), bits)
     ref, dec = pcm[0].astype(np.float64), dec[0].numpy()
     e = ref[400:] - dec[400:]
     snr = 10 * np.log10((ref[400:] ** 2).mean() / max((e ** 2).mean(), 1e-9))
@@ -102,9 +102,9 @@ def test_tickwise_equals_oneshot(bits):
     """Ten 80-sample ticks equal one shot, codes, samples and state (the
     state carries exactly; updated in place)."""
     pcm = _legs(800)[:2]
-    one, st1 = kernels.g726_encode_reference(torch.from_numpy(pcm), tg.g726_state(2), bits)
-    dec1, ds1 = kernels.g726_decode_reference(one, tg.g726_state(2), bits)
-    st, ds = tg.g726_state(2), tg.g726_state(2)
+    one, st1 = kernels.g726_encode_reference(torch.from_numpy(pcm), tg.g726_state(2, "cpu"), bits)
+    dec1, ds1 = kernels.g726_decode_reference(one, tg.g726_state(2, "cpu"), bits)
+    st, ds = tg.g726_state(2, "cpu"), tg.g726_state(2, "cpu")
     keep = st["b"]
     parts, dparts = [], []
     for k in range(10):
@@ -126,9 +126,9 @@ def test_short_ticks_equal_oneshot(tick):
     tick."""
     pcm = _legs(14)[:3]
     for bits in RATES:
-        one, st1 = kernels.g726_encode_reference(torch.from_numpy(pcm), tg.g726_state(3), bits)
-        dec1, ds1 = kernels.g726_decode_reference(one, tg.g726_state(3), bits)
-        st, ds = tg.g726_state(3), tg.g726_state(3)
+        one, st1 = kernels.g726_encode_reference(torch.from_numpy(pcm), tg.g726_state(3, "cpu"), bits)
+        dec1, ds1 = kernels.g726_decode_reference(one, tg.g726_state(3, "cpu"), bits)
+        st, ds = tg.g726_state(3, "cpu"), tg.g726_state(3, "cpu")
         parts, dparts = [], []
         for k in range(0, 14, tick):
             c, _ = tg.g726_encode(torch.from_numpy(pcm[:, k:k + tick].copy()), st, bits)
@@ -143,8 +143,8 @@ def test_short_ticks_equal_oneshot(tick):
 def test_legs_are_independent():
     pcm = _speech(800)[None]
     batch = np.concatenate([pcm, pcm // 3], axis=0)
-    codes, _ = tg.g726_encode(torch.from_numpy(batch), tg.g726_state(2), 4)
-    solo, _ = tg.g726_encode(torch.from_numpy(pcm), tg.g726_state(1), 4)
+    codes, _ = tg.g726_encode(torch.from_numpy(batch), tg.g726_state(2, "cpu"), 4)
+    solo, _ = tg.g726_encode(torch.from_numpy(pcm), tg.g726_state(1, "cpu"), 4)
     assert torch.equal(codes[0], solo[0])
 
 
@@ -153,7 +153,7 @@ def test_codes_off_the_table_read_its_last_entry():
     package's clamped gather does, not with an index error."""
     codes = np.array([[0, 15, 16, 200, 7, 8, 65535, 3]], np.int32)
     jd, _ = jg.g726_decode(jnp.asarray(codes), jg.g726_state(1), 4)
-    td, _ = tg.g726_decode(torch.from_numpy(codes), tg.g726_state(1), 4)
+    td, _ = tg.g726_decode(torch.from_numpy(codes), tg.g726_state(1, "cpu"), 4)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=PCM_ATOL)
 
 
@@ -190,15 +190,26 @@ def test_state_crosses_the_packages_both_ways(bits):
     tc, _ = tg.g726_encode(torch.from_numpy(b.copy()), tst, bits)
     jc, _ = jg.g726_encode(jnp.asarray(b), jst, bits)
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
-    _, tst2 = tg.g726_encode(torch.from_numpy(a.copy()), tg.g726_state(2), bits)
+    _, tst2 = tg.g726_encode(torch.from_numpy(a.copy()), tg.g726_state(2, "cpu"), bits)
     back = to_numpy(tst2)
     assert all(v.dtype == np.float32 for v in back.values())
     jc2, _ = jg.g726_encode(jnp.asarray(b), {k: jnp.asarray(v) for k, v in back.items()}, bits)
     np.testing.assert_array_equal(np.asarray(jc2), np.asarray(jc))
 
 
+
+def test_state_resolves_its_device_as_every_entry_point():
+    """``g726_state(B)`` with no device lands on the card, as every entry
+    point's ``device=None`` does (``core/ticker.resolve_device``), and
+    raises where there is none."""
+    if torch.cuda.is_available():
+        assert tg.g726_state(1)["yu"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tg.g726_state(1)
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     meta = torch.zeros((1, 80), dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
-        kernels.g726_encode(meta, tg.g726_state(1), 4)
+        kernels.g726_encode(meta, tg.g726_state(1, "cpu"), 4)
     assert {"g726_encode", "g726_decode"} <= set(kernels.launch_counts())

@@ -19,12 +19,12 @@ torch.set_num_threads(1)
 from mediastreamer2_tpu.models import qos as jqos  # noqa: E402
 from mediastreamer2_tpu.net import bwe as jbwe  # noqa: E402
 from mediastreamer2_tpu.net import rtcp as jrtcp  # noqa: E402
-from mediastreamer2_tpu.net.netsim import NetSimParams, NetworkSimulator  # noqa: E402
 from mediastreamer2_tpu_torch import Factory  # noqa: E402
 from mediastreamer2_tpu_torch.models import qos  # noqa: E402
 from mediastreamer2_tpu_torch.models.audio_stream import AudioStreamBatch  # noqa: E402
 from mediastreamer2_tpu_torch.net import bwe, rtcp  # noqa: E402
 from mediastreamer2_tpu_torch.net.jitter import JBParams, JitterBuffer  # noqa: E402
+from mediastreamer2_tpu_torch.net.netsim import NetSimParams, NetworkSimulator  # noqa: E402
 from mediastreamer2_tpu_torch.net.rtp import LoopbackPair, RtpSession  # noqa: E402
 from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff  # noqa: E402
 from mediastreamer2_tpu_torch.utils.signals import make_speechlike  # noqa: E402

@@ -9,8 +9,9 @@ import pytest
 
 from mediastreamer2_tpu.net import jitter as jjit  # noqa: E402
 from mediastreamer2_tpu.net import rtp as jrtp  # noqa: E402
-from mediastreamer2_tpu.net.netsim import NetSimParams, NetworkSimulator  # noqa: E402
+from mediastreamer2_tpu.net import netsim as jnetsim  # noqa: E402
 from mediastreamer2_tpu_torch.net import jitter as tjit  # noqa: E402
+from mediastreamer2_tpu_torch.net import netsim as tnetsim  # noqa: E402
 from mediastreamer2_tpu_torch.net import rtp as trtp  # noqa: E402
 
 PACKAGES = {"jax": (jrtp, jjit), "torch": (trtp, tjit)}
@@ -89,8 +90,9 @@ def _call(rtp_mod, jit_mod, ticks=120):
     DTMF digit, DTX gaps, an RFC 6464 level extension; the receiver polls
     and plays out once a tick."""
     random.seed(1234)                        # SSRC, first seq and ts
-    pair = rtp_mod.LoopbackPair(netsim=NetworkSimulator(NetSimParams(loss_rate=10.0,
-                                                                     seed=5)))
+    ns = jnetsim if rtp_mod is jrtp else tnetsim    # each package's own simulator
+    pair = rtp_mod.LoopbackPair(netsim=ns.NetworkSimulator(ns.NetSimParams(loss_rate=10.0,
+                                                                           seed=5)))
     tx = rtp_mod.RtpSession(pair.endpoint(0), payload_type=0, clock_rate=8000)
     rx = rtp_mod.RtpSession(pair.endpoint(1), payload_type=0, clock_rate=8000,
                             jitter_buffer=jit_mod.JitterBuffer(jit_mod.JBParams()))
