@@ -7,10 +7,11 @@ clear and with SRTP), the session layer, the secured wideband call
 (G.722, SRTP, RTCP and QoS), the gateway transcoder (G.711 <-> G.726-32,
 the DVI4 and G.726 codec chains, Baudot TTY) and captured and recorded
 calls (pcap replay into a G.722 stream, WAV / SMFF / MKV through
-MediaPlayer and MediaRecorder) and negotiated calls (ICE, DTLS-SRTP, ZRTP
+MediaPlayer and MediaRecorder), negotiated calls (ICE, DTLS-SRTP, ZRTP
 and offer/answer through CallSetup, then the secured wideband session on
-the keys they agreed), and compares the port on the card with the port on
-the CPU.
+the keys they agreed) and the video call (VideoStreamBatch's pixel path at
+1,024 VGA-to-QVGA legs, VideoE2EBench over UDP), and compares the port on
+the card with the port on the CPU.
 
     python3 chip_smoke.py
 
@@ -181,7 +182,34 @@ Phases, in order (any failure raises and the script exits non-zero):
    every CallSetup iterated after every round: 8b's listener bars from
    tick 40 on, every leg a remote report and an RTT, no SRTP authentication
    failure, and no packet but RTP or RTCP handed to a jitter buffer (the
-   demux's counts printed). Phase 11's seconds are printed.
+   demux's counts printed). Phase 11's seconds are printed;
+12. the video call (``models/video_stream.VideoStreamBatch``; its pixel
+   path is PyTorch ops, so no hand kernel launches: the kernels' line
+   counts 0 for it). 12a: 1,024 legs, a 640x480 mire (leg i from frame i)
+   sent at 320x240 (``size_conv``, antialiased as ``jax.image.resize``), no
+   sessions, 100 unpaced do_ticks with each tick's rx block the previous
+   tx block, frames crossing the boundary as u8 through the ticker's
+   pinned slots: ms/tick and host phases, the device split of a tick
+   (upload, step, readback by CUDA events over 20 ticks run back to back),
+   the hand kernels' launches a tick (0), device bytes a tick
+   (``video_tick_bytes``) and peak memory printed; bars: legs 0, 37, ... of
+   the tx frames within one u8 code of the port on the CPU at ticks 0, 25,
+   50, 75, 99 (the share of pixels that differ printed), every leg's
+   ``frame_mean`` event within 1e-4 of numpy's mean of its rx luma. 12b:
+   ``VideoE2EBench``, 4 legs of the dummy codec at 320x240 and 15 fps,
+   each self-looped over localhost UDP, 1 s + 3 s paced: at the 10 ms tick
+   (printed, no bar: 84 packets a frame a leg through per-leg Python
+   outrun the tick on the card's host) and at a tick a frame with two
+   ticks in flight, the RTP I/O on the ticker's publish worker (the JAX
+   package's bench.py runs the bench so), whose bar is ``passes()`` (late
+   ticks <= ticks / 50, every leg >= 90% of 15 fps, luma carries the
+   mire); then its ``run_loss_recovery()`` must see FIR,
+   keyframe and decoding after a burst; VideoStreamBatch(codec="vp8",
+   "h264", "av1") must raise naming libvpx, libavcodec and libaom where
+   phase 1 found no library, and be made where it found one. 12c: 4 + 4
+   legs of 12a's shape over LoopbackPair, 60 tick pairs on the CPU and on
+   the card: equal frames received, received frames within one u8 code,
+   frame_mean within 1/255. Phase 12's seconds are printed.
 
 Each phase prints the seconds elapsed when it ends. The last two lines of
 standard output are the kernels' JSON and the result's JSON; the card's
@@ -198,6 +226,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
@@ -300,6 +329,25 @@ REFUSED_CALLS = 8             # 11a: DTLS calls with a wrong expected fingerprin
 REFUSED_DEADLINE_S = 10.0
 ONE_SOCKET_LEGS = 16          # phase 11b: calls whose media rides their nominated sockets
 ONE_SOCKET_MAX_TICKS = 1200   # 8b's loop at a quarter of its legs runs more rounds in SECURE_MIN_S
+VIDEO_LEGS = 1024             # phase 12a: the pixel path, no sessions
+VIDEO_TICKS = 100
+VIDEO_CAM = (640, 480)        # VGA camera (the mire) sent at QVGA: DEFAULT_LADDER's
+VIDEO_OUT = (320, 240)        # step for 170 kbit/s
+VIDEO_FPS = 25.0
+VIDEO_TIMED_TICKS = 20        # 12a's device split: ticks timed back to back by CUDA events
+VIDEO_SAMPLE_STEP = 37        # 12a: legs 0, 37, ... held to the CPU
+VIDEO_CHECK_EVERY = 25        # 12a: ticks 0, 25, ... and the last held to the CPU
+VIDEO_MEAN_TOL = 1e-4         # 12a: frame_mean against numpy's mean of the rx frames
+VIDEO_E2E_LEGS = 4            # phase 12b: VideoE2EBench, the dummy codec over UDP
+VIDEO_E2E_SIZE = (320, 240)
+VIDEO_E2E_FPS = 15.0
+VIDEO_E2E_WARMUP_S = 1.0
+VIDEO_E2E_SECONDS = 3.0
+VIDEO_E2E_DEPTH = 2            # the bar's run: bench.py's VideoE2EBench(pipeline_depth=2, frame_tick)
+VIDEO_CODECS = (("vp8", "vpx", "libvpx"), ("h264", "avcodec", "libavcodec"),
+                ("av1", "aom", "libaom"))        # (codec, find_library name, what the raise names)
+CROSS_VIDEO_LEGS = 4          # phase 12c: 4 + 4 legs over LoopbackPair, CPU vs card
+CROSS_VIDEO_TICKS = 60
 TICK_S = 0.01
 P, F, S = 8, 481, 480         # the flagship's AEC at 48 kHz
 SP, SF, S8 = 8, 81, 80        # the session's AEC at 8 kHz
@@ -2611,6 +2659,289 @@ def one_socket_calls(dev, card, legs):
         raise AssertionError("session 11b: listener bars not met")
 
 
+# -- phase 12: the video call ------------------------------------------------
+def video_formats(cam, out, fps):
+    from mediastreamer2_tpu_torch import Format
+    return (Format(kind="yuv420", width=cam[0], height=cam[1], fps=fps),
+            Format(kind="yuv420", width=out[0], height=out[1], fps=fps))
+
+
+def video_tick_bytes(legs, cam, out):
+    """(device bytes, bytes each way over PCIe) of one 12a tick, each tensor
+    of the pixel path written once and read once: the mire's f32 frame
+    (written, read by size_conv), the QVGA f32 frame (written, read by the
+    u8 conversion), the u8 tx block (written), the u8 rx block (read), its
+    f32 conversion (written) and luma (read by analyse_display)."""
+    cam_f32 = legs * cam[1] * 3 // 2 * cam[0] * 4
+    out_u8 = legs * out[1] * 3 // 2 * out[0]
+    out_f32 = 4 * out_u8
+    luma = legs * out[1] * out[0] * 4
+    return 2 * cam_f32 + 3 * out_f32 + 2 * out_u8 + luma, out_u8
+
+
+def video_stream(dev, legs, cam, out, fps, **kw):
+    from mediastreamer2_tpu_torch import Factory
+    from mediastreamer2_tpu_torch.models.video_stream import VideoStreamBatch
+    fmt, ofmt = video_formats(cam, out, fps)
+    vs = VideoStreamBatch(Factory(), legs, fmt=fmt, out_fmt=ofmt, fps=fps, device=dev, **kw)
+    vs.ticker.realtime = False
+    return vs
+
+
+def video_split(vs, dev, n):
+    """12a's device split of a tick (ms): ``n`` ticks' upload (the rx u8
+    block from the ticker's pinned slot), step (the stream's u8 step) and
+    readback (the tx u8 block into its pinned slot), enqueued behind a
+    spin so the device runs them back to back, each bracketed by CUDA
+    events on the ticker's stream; the mean of each over ``n``."""
+    tk = vs.ticker
+    rx_host, tx_host = tk._slots[0]["in:rx_frames"], tk._slots[0]["out:tx_frames"]
+    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(n)]
+    tk.sync()
+    with tk.on_stream():
+        torch.cuda._sleep(200_000_000)                       # ~0.1 s: the host enqueues ahead
+        for e in evs:
+            e[0].record()
+            rx = rx_host.to(dev, non_blocking=True)
+            e[1].record()
+            _, o, _ = tk._step(tk.state, tk.params, {"rx_frames": rx})
+            e[2].record()
+            tx_host.copy_(o["tx_frames"], non_blocking=True)
+            e[3].record()
+    tk.sync()
+    return {name: sum(e[i].elapsed_time(e[i + 1]) for e in evs) / n
+            for i, name in enumerate(("upload", "step", "readback"))}
+
+
+def video_pixel_path(kernels, dev, card, legs, ticks, cam=VIDEO_CAM, out=VIDEO_OUT,
+                     fps=VIDEO_FPS):
+    """12a: ``legs`` legs of VideoStreamBatch (a ``cam`` mire sent at
+    ``out``, no sessions; leg i's mire starts at frame i, as cameras
+    started apart), ``ticks`` unpaced do_ticks, each tick's rx block the
+    previous tick's tx block. Bars: legs 0, 37, ... of the tx frames within
+    one u8 code of the port on the CPU at ticks 0, 25, ... and the last
+    (the CPU's stream set to the same frame indices and stepped once for
+    each: the mire's frame is a function of its index); every leg's
+    ``frame_mean`` event within VIDEO_MEAN_TOL of numpy's mean of the luma
+    it was fed. Prints ms/tick, the device split, the hand kernels'
+    launches a tick, bytes a tick and peak memory. Returns the launches."""
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)               # the context exists before its stats reset
+        torch.cuda.reset_peak_memory_stats(dev)
+    vs = video_stream(dev, legs, cam, out, fps)
+    tk = vs.ticker
+    sampled = list(range(0, legs, VIDEO_SAMPLE_STEP))
+    checked = set(range(0, ticks, VIDEO_CHECK_EVERY)) | {ticks - 1}
+    fed = [vs._last_rx_u8]
+    tx_kept, want_mean, got_mean = {}, {}, {}
+
+    def pull(tick):
+        ext = vs._pull(tick)
+        ext["rx_frames"] = fed[0]
+        if tick in checked:
+            want_mean[tick] = fed[0][:, :out[1]].mean(axis=(1, 2)) / 255.0
+        return ext
+
+    def push(tick, ext_out):
+        vs._push(tick, ext_out)
+        fed[0] = ext_out["tx_frames"]
+        if tick in checked:
+            tx_kept[tick] = ext_out["tx_frames"][sampled].copy()
+
+    def on_mean(ev):                  # a leg whose mean is 0 posts no event
+        got_mean.setdefault(ev.tick, np.zeros(legs))[ev.leg] = ev.value
+
+    tk.event_queue.set_handler("display.frame_mean", on_mean)
+    tk.set_io(pull=pull, push=push)
+    start = torch.arange(legs, dtype=torch.int32)
+    tk.mutate(lambda t: t.state["cam"]["frame_idx"].copy_(start))
+    tk.warm_up()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        tk.do_tick()
+        tk.event_queue.pump()
+    tk.drain()
+    tk.sync()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    split = video_split(vs, dev, VIDEO_TIMED_TICKS) if cuda else None
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    phases = {k: round(tk.phase_ms[k] / ticks, 3) for k in ("pull", "dispatch", "publish")}
+    del vs, tk, fed
+    # the port on the CPU at the sampled legs' frame indices of each tick
+    ref = video_stream("cpu", len(sampled), cam, out, fps)
+    ref_tx = {}
+    for t in sorted(checked):
+        ref.ticker.state["cam"]["frame_idx"].copy_(start[sampled] + t)
+        ref.ticker.set_io(pull=ref._pull, push=lambda tick, ext, t=t: ref_tx.__setitem__(
+            t, ext["tx_frames"]))
+        ref.ticker.do_tick()
+    diff = np.stack([np.abs(tx_kept[t].astype(np.int16) - ref_tx[t].astype(np.int16))
+                     for t in sorted(checked)])
+    mean_err = max(float(np.abs(got_mean.get(t, np.zeros(legs)) - want_mean[t]).max())
+                   for t in checked)
+    nbytes, pcie = video_tick_bytes(legs, cam, out)
+    split_line = ("not measured (CPU)" if split is None else
+                  f"upload {split['upload']:.3f}, step {split['step']:.3f} "
+                  f"({nbytes / split['step'] / 1e6:.1f} GB/s of the bytes below), readback "
+                  f"{split['readback']:.3f} ms")
+    print(f"video 12a: {legs} legs, a {cam[0]}x{cam[1]} mire sent at {out[0]}x{out[1]}, "
+          f"{ticks} unpaced ticks through Ticker.do_tick, each tick's rx the previous tx: "
+          f"{1e3 * wall / ticks:.3f} ms/tick (host clock; host phases ms/tick {phases}); "
+          f"device split a tick ({VIDEO_TIMED_TICKS} ticks back to back, CUDA events): "
+          f"{split_line}; launches a tick "
+          f"{ {k: v / ticks for k, v in launches.items()} } (the pixel path is PyTorch "
+          f"ops, no hand kernel); device bytes a tick {nbytes / 1e6:.1f} MB, PCIe "
+          f"{pcie / 1e6:.1f} MB each way; peak memory "
+          f"{'not measured (CPU)' if peak is None else f'{peak / 1e9:.2f} GB'}; tx frames of "
+          f"legs 0, {VIDEO_SAMPLE_STEP}, ... against the CPU at ticks {sorted(checked)}: max "
+          f"diff {int(diff.max())} code, {100 * float((diff > 0).mean()):.4f}% of pixels "
+          f"differ; frame_mean max error {mean_err:.2e} [{card}]", flush=True)
+    if diff.max() > 1:
+        raise AssertionError(f"video 12a: tx frames differ from the CPU by {int(diff.max())} codes")
+    if mean_err > VIDEO_MEAN_TOL:
+        raise AssertionError(f"video 12a: frame_mean off numpy's mean by {mean_err:.3e}")
+    if any(launches.values()):
+        raise AssertionError(f"video 12a: hand kernels launched on the pixel path: {launches}")
+    return launches
+
+
+def video_e2e_run(dev, card, legs, seconds, warmup, size, fps, paced, frame_tick, depth=0):
+    """One VideoE2EBench run: ``legs`` legs of the dummy codec, each
+    self-looped over its own localhost UDP socket, ``warmup`` s then
+    ``seconds`` s; with ``frame_tick`` the ticker beats once a frame
+    (1000 / fps ms) instead of every 10 ms; with a ``depth`` the ticker
+    keeps that many ticks in flight and publishes them (the RTP sends and
+    receives) on its publish worker. Returns (result, bench); the caller
+    closes the bench."""
+    from mediastreamer2_tpu_torch import Factory
+    from mediastreamer2_tpu_torch.models.video_e2e_bench import VideoE2EBench
+    b = VideoE2EBench(Factory(), legs, codec=None, width=size[0], height=size[1], fps=fps,
+                      pipeline_depth=depth, frame_tick=frame_tick, device=dev)
+    count = lambda: sum(s.stats.sent_packets + s.stats.recv_packets     # noqa: E731
+                        for s in b.vs.sessions)
+    t0, n0 = time.perf_counter(), count()
+    res = b.run(seconds=seconds, paced=paced, warmup_seconds=warmup)
+    pps = (count() - n0) / (time.perf_counter() - t0)
+    ph = b.vs.ticker.phase_ms
+    n = b.vs.ticker.stats.ticks
+    print(f"video 12b: {legs} legs of the dummy codec at {size[0]}x{size[1]}, {fps:g} fps, "
+          f"self-looped over localhost UDP, a tick every {b.vs.ticker.interval_ms:.2f} ms, "
+          f"pipeline depth {depth}, {threading.active_count()} threads, {warmup:g} s + {seconds:g} s {'paced' if paced else 'unpaced'}: "
+          f"{res.ms_per_tick:.3f} ms/tick, late ticks {res.late_ticks} of {res.ticks}, fps "
+          f"received min {res.fps_received_min:.3f} / mean {res.fps_received_mean:.3f} of "
+          f"{res.fps_nominal:g}, luma {res.luma_ok}, packets sent + received {pps:.0f} a "
+          f"second, host ms/tick pull {ph['pull'] / n:.3f} (max {ph['pull_max']:.3f}), "
+          f"dispatch {ph['dispatch'] / n:.3f}, publish {ph['publish'] / n:.3f} (max "
+          f"{ph['publish_max']:.3f}), passes {res.passes()} [{card}]", flush=True)
+    return res, b
+
+
+def video_e2e(dev, card, legs, seconds=VIDEO_E2E_SECONDS, warmup=VIDEO_E2E_WARMUP_S,
+              size=VIDEO_E2E_SIZE, fps=VIDEO_E2E_FPS, paced=True):
+    """12b: ``video_e2e_run`` at the reference's 10 ms tick (printed, no
+    bar: every frame is 84 packets a leg through per-leg Python, more than
+    a 10 ms tick holds on the card's host), then a tick a frame at
+    pipeline depth ``VIDEO_E2E_DEPTH`` (the JAX package's bench.py runs
+    the bench so: the packet I/O on the publish worker, off the ticker's
+    beat), whose bar is ``passes()``; then that bench's
+    ``run_loss_recovery()`` (a burst on leg 0, FIR, keyframe, decoding
+    again), which must return True."""
+    _, b = video_e2e_run(dev, card, legs, seconds, warmup, size, fps, paced, frame_tick=False)
+    b.close()
+    res, b = video_e2e_run(dev, card, legs, seconds, warmup, size, fps, paced, frame_tick=True,
+                           depth=VIDEO_E2E_DEPTH)
+    try:
+        st = b.vs.stats[0]
+        fir0, kf0 = st.fir_sent, st.keyframes_sent
+        t1 = time.perf_counter()
+        recovered = b.run_loss_recovery()
+        print(f"video 12b, loss recovery (a tick a frame): {recovered} in "
+              f"{time.perf_counter() - t1:.2f} s (FIR {st.fir_sent - fir0}, keyframes "
+              f"{st.keyframes_sent - kf0}) [{card}]", flush=True)
+    finally:
+        b.close()
+    if not res.passes():
+        raise AssertionError(f"video 12b: {res}")
+    if not recovered:
+        raise AssertionError("video 12b: no FIR, keyframe and decoding after the loss burst")
+
+
+def refusal(make):
+    """The message of the RuntimeError ``make()`` raises, or None."""
+    try:
+        make()
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def video_codec_refusals(dev, card):
+    """12b: a VideoStreamBatch of each library codec: where phase 1's
+    ``find_library`` finds no library it must raise naming it (no fallback
+    to the dummy codec); where it finds one, the stream is made."""
+    lines, bad = [], []
+    for codec, so, lib in VIDEO_CODECS:
+        found = ctypes.util.find_library(so)
+        err = refusal(lambda: video_stream(dev, 1, (64, 48), (64, 48), 25.0, codec=codec))
+        lines.append(f"{codec}: {so} {found}, " + (f"raised {err!r}" if err else "made"))
+        if (found is None) != (err is not None) or (err is not None and lib not in err):
+            bad.append(lines[-1])
+    print(f"video 12b, library codecs: {'; '.join(lines)} [{card}]", flush=True)
+    if bad:
+        raise AssertionError(f"video 12b: codec legs {bad}")
+
+
+def video_call(dev, legs, ticks, cam, out, fps):
+    """``legs`` + ``legs`` legs (tx, rx) over LoopbackPair, ``ticks`` tick
+    pairs: (frames received, rx u8 frames a tick [ticks, legs, ...],
+    frame_mean events [(tick, leg, value)])."""
+    from mediastreamer2_tpu_torch.net.rtp import LoopbackPair
+    tx, rx = (video_stream(dev, legs, cam, out, fps) for _ in range(2))
+    for leg in range(legs):
+        pair = LoopbackPair()
+        tx.set_transport(leg, pair.endpoint(0))
+        rx.set_transport(leg, pair.endpoint(1))
+    tx.bind_assemblers()
+    rx.bind_assemblers()
+    means, frames = [], []
+    rx.ticker.event_queue.set_handler("display.frame_mean",
+                                      lambda ev: means.append((ev.tick, ev.leg, ev.value)))
+    for s in (tx, rx):
+        s.ticker.warm_up()
+    for _ in range(ticks):
+        tx.ticker.do_tick()
+        rx.ticker.do_tick()
+        rx.ticker.event_queue.pump()
+        frames.append(rx._last_rx_u8.copy())
+    return [s.frames_received for s in rx.stats], np.stack(frames), means
+
+
+def video_cross(dev, card, legs=CROSS_VIDEO_LEGS, ticks=CROSS_VIDEO_TICKS, cam=VIDEO_CAM,
+                out=VIDEO_OUT, fps=VIDEO_FPS):
+    """12c: ``video_call`` on the CPU and on the card. Bars: equal frames
+    received, received frames within one u8 code, frame_mean within
+    1/255 on the same ticks and legs."""
+    (c_rx, c_frames, c_means), (g_rx, g_frames, g_means) = (
+        video_call(d, legs, ticks, cam, out, fps) for d in ("cpu", dev))
+    diff = np.abs(c_frames.astype(np.int16) - g_frames.astype(np.int16))
+    same_events = [m[:2] for m in c_means] == [m[:2] for m in g_means]
+    mean_err = (max(abs(a[2] - b[2]) for a, b in zip(c_means, g_means))
+                if same_events and c_means else float("inf"))
+    print(f"video 12c: {legs} + {legs} legs, a {cam[0]}x{cam[1]} mire sent at "
+          f"{out[0]}x{out[1]} over LoopbackPair, {ticks} tick pairs on the CPU and on the "
+          f"card: frames received {c_rx} / {g_rx}, received frames max diff {int(diff.max())} "
+          f"code ({100 * float((diff > 0).mean()):.4f}% of pixels), frame_mean events "
+          f"{len(c_means)} / {len(g_means)}, max error {mean_err:.2e} [{card}]", flush=True)
+    if c_rx != g_rx or min(g_rx) == 0:
+        raise AssertionError(f"video 12c: frames received {c_rx} on the CPU, {g_rx} on the card")
+    if diff.max() > 1 or mean_err > 1 / 255:
+        raise AssertionError(f"video 12c: frames differ by {int(diff.max())} codes, frame_mean "
+                             f"by {mean_err:.3e}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -2853,10 +3184,23 @@ def main():
 
     phase_done(11)
 
+    # phase 12: the video call: 12a the pixel path at 1,024 legs, 12b the
+    # e2e bench over UDP and the library codecs' refusals, 12c CPU vs card
+    t12 = time.perf_counter()
+    video_launches = video_pixel_path(kernels, dev, card, VIDEO_LEGS, VIDEO_TICKS)
+    phase_done("12a")
+    video_e2e(dev, card, VIDEO_E2E_LEGS)
+    video_codec_refusals(dev, card)
+    phase_done("12b")
+    video_cross(dev, card)
+    print(f"phase 12 took {time.perf_counter() - t12:.1f} s", flush=True)
+
+    phase_done(12)
+
     # launches over the main-path runs that were counted: the flagship, the
     # three e2e runs, the session and the wideband call at full width, the
     # gateway and its codec chains, the captures' build and their replay, the
-    # negotiated calls' media
+    # negotiated calls' media, the video pixel path (none: PyTorch ops)
     runs = {"flagship": (launches, TICKS),
             "e2e": ({k: e2e_launches[k] + srtp_launches[k] + big_launches[k] for k in launches},
                     e2e_ticks + srtp_ticks + big_ticks),
@@ -2865,7 +3209,8 @@ def main():
             "gateway": (gw_launches, GATEWAY_ROUNDS),
             "captures_built": (built_launches, CAPTURE_TICKS),
             "captured": (cap_launches, CAPTURE_TICKS),
-            "negotiated": (setup_launches, SETUP_TICKS)}
+            "negotiated": (setup_launches, SETUP_TICKS),
+            "video": (video_launches, VIDEO_TICKS)}
     runs.update({f"chain_{codec}": (c, CHAIN_TICKS) for codec, c in chain_launches.items()})
     total = {k: sum(c[k] for c, _ in runs.values()) for k in launches}
     entries = []

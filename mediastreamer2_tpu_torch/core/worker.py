@@ -10,9 +10,11 @@ loop (the reference's latency-isolation role).
 Also ms_discover_mtu parity (src/base/mtu.c): kernel path-MTU query, and the
 worker pools whose threads run at nice 0.
 
-Not ported yet: ``StreamRegulator`` (the media player's video pacing)
-waits for the port's video layer, and ``priority_pool`` (the mixed
-fleet's dispatch worker) for ``E2EStepper`` and the mixed fleet.
+Also ``StreamRegulator``, the media player's timestamp pacing of video
+frames.
+
+Not ported yet: ``priority_pool`` (the mixed fleet's dispatch worker), for
+``E2EStepper`` and the mixed fleet.
 """
 from __future__ import annotations
 
@@ -120,6 +122,42 @@ def discover_mtu(host: str, port: int = 5060) -> int:
         return s.getsockopt(socket.IPPROTO_IP, IP_MTU)
     finally:
         s.close()
+
+
+class StreamRegulator:
+    """Timestamp-paced frame release (reference: utils/stream_regulator.c --
+    buffers frames and releases each when the stream clock reaches its
+    timestamp; the player's A/V pacing helper)."""
+
+    def __init__(self, clock_rate: int = 90000):
+        self.clock_rate = clock_rate
+        self._queue: list = []            # [(ts, frame)]
+        self._origin_ts = None
+        self._origin_time = None
+
+    def push(self, ts: int, frame):
+        self._queue.append((ts, frame))
+
+    def pop_due(self, now_s: float) -> list:
+        """Frames whose timestamp has been reached on the stream clock."""
+        if not self._queue:
+            return []
+        if self._origin_ts is None:
+            self._origin_ts = self._queue[0][0]
+            self._origin_time = now_s
+        elapsed_units = (now_s - self._origin_time) * self.clock_rate
+        due, rest = [], []
+        for ts, frame in self._queue:
+            if ts - self._origin_ts <= elapsed_units:
+                due.append(frame)
+            else:
+                rest.append((ts, frame))
+        self._queue = rest
+        return due
+
+    def reset(self):
+        self._queue.clear()
+        self._origin_ts = None
 
 
 def reset_thread_priority() -> None:

@@ -48,13 +48,13 @@ says the kernel takes it, and by sendmmsg elsewhere (the JAX package turns
 GSO on unconditionally, which drops every packet under gVisor).
 
 ``save_av_recording`` writes a leg's recording as an Opus MKV
-(``models/media_player.write_av_mkv``).
+(``models/media_player.write_av_mkv``), with a VP8 track of the frames a
+linked video stream decoded (``link_video``; libvpx).
 
 Waiting, each raising ``NotImplementedError`` that names its wait: the
 host-codec legs (opus, gsm, g729, speex, bv16, aac: the payload packing
 and the host decode / encode around the graph; ``ops/host_codecs`` has
-the codecs, not ``aac``); the video link (``link_video``), and with it the
-video track of ``save_av_recording``, for the video stream. ``g726_32`` is
+the codecs, not ``aac``). ``g726_32`` is
 refused too, as in the JAX package, whose stream has no payload packing
 for it (``_decode_payload`` / ``_encode_payload`` and
 ``CODEC_BYTES_PER_SAMPLE`` know ulaw, alaw, g722 and l16 only): G.726 runs
@@ -391,18 +391,39 @@ class AudioStreamBatch:
         self.snd_card = card
 
     def link_video(self, video_stream, leg: int = 0, video_leg: int = 0):
-        raise NotImplementedError("the video link waits for the video stream, not "
-                                  "ported to mediastreamer2_tpu_torch yet")
+        """audio_stream_link_video (audiostream.c:2616): route the video
+        stream's decoded frames into this call's A/V recording; save with
+        save_av_recording(). Requires record_ticks on this stream."""
+        self._av_frames: List[tuple] = []
+        self._av_wh = None
+        self._linked_video = (video_stream, video_leg)
+
+        def on_frame(ts_ms, frame):
+            f = np.asarray(frame)
+            self._av_wh = (f.shape[1], f.shape[0] * 2 // 3)
+            # bound memory: keep at most ~30 min at full rate
+            if len(self._av_frames) < 180_000:
+                self._av_frames.append((ts_ms, f))
+        video_stream.add_frame_listener(video_leg, on_frame)
+
+    def unlink_video(self):
+        """audio_stream_unlink_video."""
+        if getattr(self, "_linked_video", None):
+            vs, vleg = self._linked_video
+            vs.remove_frame_listeners(vleg)
+            self._linked_video = None
 
     def save_av_recording(self, path: str, leg: int = 0):
         """Write ``leg``'s call recording as an MKV with an Opus audio
-        track (``write_av_mkv``; raises ``RuntimeError`` without libopus).
-        The linked video stream's frames wait with ``link_video``."""
+        track and the linked video stream's received frames as VP8
+        (``write_av_mkv``; raises ``RuntimeError`` without libopus, or
+        without libvpx when there are frames)."""
         from mediastreamer2_tpu_torch.models.media_player import write_av_mkv
         rec = self.get_recording()
         if rec is None:
             raise RuntimeError("stream built without record_ticks")
-        write_av_mkv(path, rec[leg], self.rate, [], None)
+        write_av_mkv(path, rec[leg], self.rate, getattr(self, "_av_frames", []),
+                     getattr(self, "_av_wh", None))
 
     def enable_srtp(self, leg: int, tx_key: bytes, tx_salt: bytes,
                     rx_key: bytes, rx_salt: bytes, suite: str = None,

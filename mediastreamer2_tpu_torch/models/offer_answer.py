@@ -10,14 +10,15 @@ Here: PayloadTypeDesc carries mime/rate/channels/fmtp; providers are
 per-mime matcher functions registered on the Factory; `negotiate` produces
 the answer list the session layer feeds to AudioStreamBatch/VideoStream.
 
-Departure from the JAX module: ``local_capabilities`` offers no VP8, H.264,
-H.265, AV1, H.263, MPEG-4 video, Theora or AAC (mpeg4-generic), whatever
-libraries the host has, until the port's video layer and ``ops/aac.py``
-land: the port cannot encode or decode them, and an SDP offer must not
-promise what it cannot decode. The audio host codecs (GSM, Opus, Speex,
-G.729, BV16) are probed through the port's ``ops/host_codecs`` as the JAX
-module probes them. Every provider, the video and AAC ones included, is
-ported, so an answer to a remote offer is negotiated as in the JAX module.
+Departure from the JAX module: ``local_capabilities`` offers no AAC
+(mpeg4-generic), whatever libraries the host has, until ``ops/aac.py`` is
+ported: an SDP offer must not promise what the port cannot decode. The
+audio host codecs (GSM, Opus, Speex, G.729, BV16) and the video codecs
+(VP8, H.264, H.265, AV1, H.263, MPEG-4 video, Theora: the video stream's
+legs) are probed through the port's ``ops/host_codecs``, ``ops/vp8``,
+``ops/h264`` and ``ops/av1`` as the JAX module probes them. Every
+provider, the AAC one included, is ported, so an answer to a remote offer
+is negotiated as in the JAX module.
 """
 from __future__ import annotations
 
@@ -139,7 +140,7 @@ def negotiate(offered: List[PayloadTypeDesc], local: List[PayloadTypeDesc]
 
 # the framework's default local capability set, mirroring what the factory
 # registers (device codecs + host codecs when their libs are present; no
-# video or AAC in the port yet: see the module docstring)
+# AAC in the port yet: see the module docstring)
 def local_capabilities() -> List[PayloadTypeDesc]:
     caps = [
         PayloadTypeDesc("PCMU", 8000, 1, 0),
@@ -155,12 +156,32 @@ def local_capabilities() -> List[PayloadTypeDesc]:
         caps.append(PayloadTypeDesc("GSM", 8000, 1, 3))
     if hc.opus_available():
         caps.append(PayloadTypeDesc("opus", 48000, 2, 96, "useinbandfec=1"))
+    from mediastreamer2_tpu_torch.ops.vp8 import vp8_available
+    if vp8_available():
+        caps.append(PayloadTypeDesc("VP8", 90000, 1, 102))
+    from mediastreamer2_tpu_torch.ops.h264 import h264_available, h265_available
+    if h264_available():
+        caps.append(PayloadTypeDesc("H264", 90000, 1, 103,
+                                    "packetization-mode=1"))
+    if h265_available():
+        caps.append(PayloadTypeDesc("H265", 90000, 1, 104, "profile-id=1"))
+    from mediastreamer2_tpu_torch.ops.av1 import av1_available
+    if av1_available():
+        caps.append(PayloadTypeDesc("AV1", 90000, 1, 105, "profile=0"))
     if hc.speex_available():
         caps.append(PayloadTypeDesc("speex", 16000, 1, 106))
     if hc.g729_available():
         caps.append(PayloadTypeDesc("G729", 8000, 1, 18))
     if hc.bv16_available():
         caps.append(PayloadTypeDesc("BV16", 8000, 1, 107))   # RFC 4298
+    from mediastreamer2_tpu_torch.ops.h264 import legacy_codec_available
+    if legacy_codec_available("h263"):
+        caps.append(PayloadTypeDesc("H263", 90000, 1, 34))     # RFC 3551
+        caps.append(PayloadTypeDesc("H263-1998", 90000, 1, 109))
+    if legacy_codec_available("mpeg4"):
+        caps.append(PayloadTypeDesc("MP4V-ES", 90000, 1, 111))
+    if legacy_codec_available("theora"):
+        caps.append(PayloadTypeDesc("theora", 90000, 1, 112))  # RFC 5215
     return caps
 
 

@@ -13,6 +13,7 @@ from mediastreamer2_tpu_torch.ops import fileio    # noqa: F401
 from mediastreamer2_tpu_torch.ops import tones     # noqa: F401
 from mediastreamer2_tpu_torch.ops import vad       # noqa: F401
 from mediastreamer2_tpu_torch.ops import eq        # noqa: F401
+from mediastreamer2_tpu_torch.ops import video     # noqa: F401
 from mediastreamer2_tpu_torch.ops import flowcontrol  # noqa: F401
 from mediastreamer2_tpu_torch.ops import baudot    # noqa: F401
 from mediastreamer2_tpu_torch.ops import adpcm     # noqa: F401

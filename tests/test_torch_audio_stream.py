@@ -467,15 +467,26 @@ def test_waiting_features_raise():
     host codecs themselves: tests/test_torch_host_codecs.py, not the
     stream's legs that would carry them).
     ``g726_32`` is refused as in the JAX package, whose stream cannot
-    carry it, and the message names the path that does."""
+    carry it, and the message names the path that does. ``link_video`` is
+    ported: it subscribes to the video stream's decoded frames of one leg
+    and ``unlink_video`` ends that (the A/V recording itself:
+    tests/test_torch_media_player.py)."""
+    from mediastreamer2_tpu_torch import Format
+    from mediastreamer2_tpu_torch.models.video_stream import VideoStreamBatch
     f = Factory()
     for kw, why in (({"codec": "opus"}, "not ported"), ({"codec": "g726_32"}, "TranscodeBatch")):
         with pytest.raises(NotImplementedError, match=why):
             t_as.AudioStreamBatch(f, 1, device="cpu", **kw)
     s = t_as.AudioStreamBatch(f, 1, device="cpu")
     s.set_transport(0, t_rtp.LoopbackPair().endpoint(0))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        s.link_video(None)
+    vs = VideoStreamBatch(f, 2, fmt=Format(kind="yuv420", width=32, height=24, fps=25.0),
+                          device="cpu")
+    s.link_video(vs, video_leg=1)
+    assert list(vs._frame_listeners) == [1] and s._av_frames == []
+    vs._frame_listeners[1][0](40, np.zeros((36, 32), np.float32))
+    assert s._av_wh == (32, 24) and [t for t, _ in s._av_frames] == [40]
+    s.unlink_video()
+    assert vs._frame_listeners == {} and s._linked_video is None
     # the A/V recording's audio track is ported (tests/test_torch_media_player.py);
     # a stream that records nothing has nothing to save
     with pytest.raises(RuntimeError, match="record_ticks"):

@@ -4,7 +4,9 @@ P = 8, F = 481), the G.722 kernels' bytes and serial chain at B = 1,024,
 the DVI4 and G.726 kernels' the same (and dvi4_decode's scan depth),
 against the figures worked out by hand from the kernels' operands; the
 DVI4 clamp fixtures; the launches phases 8a and 9b expect a tick pair or
-round; and the loops that ``REPLACES`` names."""
+round; the loops that ``REPLACES`` names; and the harness of the later
+phases on the CPU at tiny sizes (10, 11 and the video call's phase 12,
+which catches no failure)."""
 import importlib.util
 import os
 
@@ -743,3 +745,64 @@ def _phase_11b_on_the_cpu(smoke):
     assert demuxed["stun"] > 0 and demuxed["dtls"] > 0 and demuxed["zrtp"] > 0
     assert demuxed["media"] >= 2 * legs * ticks          # RTP both ways, and RTCP
     assert ok, line
+
+
+PHASE_12 = ("video_formats", "video_tick_bytes", "video_stream", "video_split",
+            "video_pixel_path", "video_e2e_run", "video_e2e", "video_codec_refusals",
+            "video_call", "video_cross")
+
+
+def test_phase_12_video_on_the_cpu(smoke, monkeypatch):
+    """Phase 12's functions at B = 2, 5 ticks on the CPU (a 64x48 mire sent
+    at 32x24): 12a's bars hold and no hand kernel launches, 12b's bench
+    passes unpaced and recovers from the burst, the codec legs are made
+    where the libraries are and raise naming them where they are not,
+    12c's CPU-vs-CPU run agrees; and a failed bar raises out of the
+    phase."""
+    import torch
+    from mediastreamer2_tpu_torch.models import video_e2e_bench
+    from mediastreamer2_tpu_torch.ops import av1, h264, kernels, vp8
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = smoke.video_pixel_path(kernels, "cpu", "cpu", 2, 5, cam=(64, 48),
+                                          out=(32, 24))
+        assert set(launches) == set(smoke.REPLACES) and not any(launches.values())
+        smoke.video_e2e("cpu", "cpu", 2, seconds=1.0, warmup=0.3, size=(32, 24), paced=False)
+        smoke.video_cross("cpu", "cpu", 2, 5, cam=(64, 48), out=(32, 24))
+        smoke.video_codec_refusals("cpu", "cpu")
+        for module, attr in ((vp8, "_vpx"), (h264, "_av"), (h264, "_CTX_OFF"), (av1, "_aom")):
+            monkeypatch.setattr(module, attr, None)
+        monkeypatch.setattr(smoke.ctypes.util, "find_library", lambda name: None)
+        smoke.video_codec_refusals("cpu", "cpu")
+        monkeypatch.setattr(video_e2e_bench.VideoE2EResult, "passes", lambda self: False)
+        with pytest.raises(AssertionError, match="video 12b"):
+            smoke.video_e2e("cpu", "cpu", 1, seconds=0.2, warmup=0.1, size=(32, 24),
+                            paced=False)
+    finally:
+        torch.set_num_threads(threads)
+    # 12a's bytes: a VGA f32 frame written and read, the QVGA f32 frame three
+    # times, two u8 blocks, the rx luma; 118 MB each way over PCIe at 1,024 legs
+    nbytes, pcie = smoke.video_tick_bytes(1024, (640, 480), (320, 240))
+    assert pcie == 1024 * 115_200
+    assert nbytes == 2 * 4 * 1024 * 460_800 + 3 * 4 * pcie + 2 * pcie + 4 * 1024 * 76_800
+    assert nbytes / 1e6 == pytest.approx(5741.0, abs=0.1)
+
+
+def test_phase_12_catches_nothing(smoke):
+    """No phase-12 function handles an exception: a failure anywhere in it
+    ends the run. The one handler is ``refusal``'s, which returns the
+    message of the RuntimeError an expected refusal raises."""
+    import ast
+    import inspect
+    for name in PHASE_12:
+        tree = ast.parse(inspect.getsource(getattr(smoke, name)))
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)], name
+    tree = ast.parse(inspect.getsource(smoke.refusal))
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    assert [ast.unparse(h.type) for h in handlers] == ["RuntimeError"]
+    main = inspect.getsource(smoke.main)
+    block = main[main.index("# phase 12"):main.index("phase_done(12)")]
+    assert "try:" not in block and "except" not in block
+    for call in ("video_pixel_path(", "video_e2e(", "video_codec_refusals(", "video_cross("):
+        assert call in block

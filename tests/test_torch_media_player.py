@@ -3,9 +3,10 @@ JAX package's on the CPU: on the same WAV, SMFF and Matroska files (PCM,
 A_MS/ACM µ-law, A-law and PCM, Opus) the two players give equal output
 blocks tick by tick, bit for bit at the file's rate and within 1e-6
 through the resampler, with equal positions and EOF events, through
-pause, seek and loop; the recorders write byte-equal files; what raises
-waits for the video path; entry points run on the card unless told
-``"cpu"``."""
+pause, seek and loop; the recorders write byte-equal files; VP8 and
+H.264 video tracks play through ``on_video`` as JAX's, and the A/V
+recordings' VP8 tracks are byte-equal; entry points run on the card unless
+told ``"cpu"``."""
 import struct
 
 import numpy as np
@@ -242,42 +243,66 @@ def test_save_av_recording_writes_the_calls_audio(tmp_path):
     assert t_mkv.MkvReader(path).tracks[1].codec_id == "A_OPUS"
 
 
-def test_video_waits_raise(tmp_path):
-    """A file with a VP8 or H.264 track, on_video, enable_video,
-    push_video_frame and write_av_mkv's video track all raise the named
-    wait; a file whose video track is of another codec plays its audio."""
+def test_video_waits_raise(tmp_path, monkeypatch):
+    """The video branches are ported: a file with a VP8 or H.264 track opens
+    with its video branch (a StreamRegulator of the track's frames) and
+    plays its audio, a track of another codec (AV1) is left out, and
+    ``on_video`` takes a callback. Where the track's library is missing
+    (monkeypatched away) opening raises ``RuntimeError`` naming it
+    (libvpx, libavcodec), as do the recorder's ``enable_video`` and
+    ``write_av_mkv`` with frames, which then writes nothing; the only
+    refusal left is the library's own."""
+    from mediastreamer2_tpu_torch.ops import h264 as t_h264
+    from mediastreamer2_tpu_torch.ops import vp8 as t_vp8
     rate = 8000
     pcm = _pcm16(800, rate, seed=2).tobytes()
+    libs = {"V_VP8": (t_vp8, "_vpx", "libvpx", t_vp8.vp8_available()),
+            "V_MPEG4/ISO/AVC": (t_h264, "_av", "libavcodec", t_h264.h264_available())}
+    sps, pps = bytes([0x67, 0x42, 0x00, 0x1F, 0xAB]), bytes([0x68, 0xCE, 0x3C, 0x80])
+    avcc = (bytes([1, 0x42, 0x00, 0x1F, 0xFF, 0xE1]) + len(sps).to_bytes(2, "big") + sps
+            + bytes([1]) + len(pps).to_bytes(2, "big") + pps)
     for codec in ("V_VP8", "V_MPEG4/ISO/AVC", "V_AV1"):
         p = str(tmp_path / f"{codec.replace('/', '_')}.mkv")
         w = t_mkv.MkvWriter(p, [
             t_mkv.MkvTrack(1, t_mkv.TRACK_TYPE_AUDIO, "A_PCM/INT/LIT", sampling_rate=rate,
                            channels=1),
-            t_mkv.MkvTrack(2, t_mkv.TRACK_TYPE_VIDEO, codec, width=64, height=48)])
+            t_mkv.MkvTrack(2, t_mkv.TRACK_TYPE_VIDEO, codec, width=64, height=48,
+                           codec_private=avcc if "AVC" in codec else b"")])
         w.write_frame(1, 0, pcm)
         w.write_frame(2, 0, b"\x00" * 30)
         w.close()
         mp = t_mp.MediaPlayer(Factory(), device="cpu")
+        mp.on_video = print
         if codec == "V_AV1":
             mp.open(p)
-            assert mp.duration_ms == 100
+            assert mp.duration_ms == 100 and mp._video_reg is None
             continue
-        with pytest.raises(NotImplementedError, match="StreamRegulator"):
+        module, attr, lib, present = libs[codec]
+        if present:
             mp.open(p)
+            assert mp.duration_ms == 100 and mp._video_reg is not None
+        with monkeypatch.context() as m:
+            m.setattr(module, attr, None)
+            m.setattr(module, "_verified", None, raising=False)
+            m.setattr(module, "_checked", None, raising=False)
+            with pytest.raises(RuntimeError, match=lib):
+                t_mp.MediaPlayer(Factory(), device="cpu").open(p)
     p = str(tmp_path / "av.smff")
     w = t_smff.SmffWriter(p, [t_smff.SmffTrack(0, "pcm16", rate, 1),
                               t_smff.SmffTrack(1, "vp8", 64, 48)])
     w.write_frame(0, 0, pcm)
     w.close()
-    with pytest.raises(NotImplementedError, match="VP8"):
+    monkeypatch.setattr(t_vp8, "_vpx", None)
+    monkeypatch.setattr(t_vp8, "_verified", None)
+    with pytest.raises(RuntimeError, match="libvpx"):
         t_mp.MediaPlayer(Factory(), device="cpu").open(p)
-    with pytest.raises(NotImplementedError, match="VP8"):
-        t_mp.MediaPlayer(Factory(), device="cpu").on_video = print
     rec = t_mp.MediaRecorder(Factory(), rate=rate, max_seconds=1, device="cpu")
-    for fn in (lambda: rec.enable_video(64, 48), lambda: rec.push_video_frame(None),
+    with pytest.raises(RuntimeError, match="enable_video first"):
+        rec.push_video_frame(np.zeros((72, 64), np.float32))
+    for fn in (lambda: rec.enable_video(64, 48),
                lambda: t_mp.write_av_mkv(str(tmp_path / "v.mkv"), np.zeros(80, np.float32),
-                                         rate, [(0, None)], (64, 48))):
-        with pytest.raises(NotImplementedError, match="VP8"):
+                                         rate, [(0, np.zeros((72, 64), np.float32))], (64, 48))):
+        with pytest.raises(RuntimeError, match="libvpx"):
             fn()
     assert not (tmp_path / "v.mkv").exists()
 
@@ -299,3 +324,192 @@ def test_entry_points_run_on_the_card_unless_told_cpu(monkeypatch, tmp_path):
     files = _write_files(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_mp._read_mkv_audio(files["ulaw"])
+
+
+def _vp8_or_skip():
+    from mediastreamer2_tpu_torch.ops.vp8 import vp8_available
+    if not vp8_available():
+        pytest.skip("libvpx missing")
+
+
+def _fixed_vp8_speed(monkeypatch):
+    """Both packages' VP8 encoders at a fixed speed (``cpu_used=-10``): at
+    the default libvpx picks its speed from measured encode times, and the
+    bytes of one package's runs differ under load (tests/test_torch_vp8.py)."""
+    import functools
+    from mediastreamer2_tpu.ops import vp8 as j_vp8
+    from mediastreamer2_tpu_torch.ops import vp8 as t_vp8
+    for m in (j_vp8, t_vp8):
+        monkeypatch.setattr(m, "Vp8Encoder", functools.partial(m.Vp8Encoder, cpu_used=-10))
+
+
+def _mire_blocks(n, w=64, h=48, seed=0):
+    """Packed-I420 float blocks [h*3/2, w] that move from frame to frame."""
+    rng = np.random.default_rng(seed)
+    base = rng.random((h * 3 // 2, w)).astype(np.float32)
+    return [np.roll(base, 3 * k, axis=1) for k in range(n)]
+
+
+def _av_file(tmp_path, container, video):
+    """PCM audio (1 s) with a 25 fps VP8 or H.264 track of 20 frames, made
+    by the port's encoders."""
+    rate, w, h = 8000, 64, 48
+    pcm = _pcm16(rate, rate, seed=5)
+    blocks = _mire_blocks(20)
+    frames, priv = [], b""
+    if video == "vp8":
+        from mediastreamer2_tpu_torch.ops.vp8 import Vp8Encoder
+        enc = Vp8Encoder(w, h, fps=25)
+        for k, b in enumerate(blocks):
+            arr = (b * 255).astype(np.uint8)
+            uv = arr[h:].reshape(h // 2, 2, w // 2)
+            data, key = enc.encode_planes(arr[:h], uv[:, 0], uv[:, 1], force_keyframe=(k == 0))
+            frames.append((40 * k, data, key))
+    else:
+        from mediastreamer2_tpu_torch.net.h26x import split_annexb
+        from mediastreamer2_tpu_torch.ops.h264 import H264Encoder
+        enc = H264Encoder(w, h, 300_000, 25)
+        sets = None
+        for k, b in enumerate(blocks):
+            arr = (b * 255).astype(np.uint8)
+            uv = arr[h:].reshape(h // 2, 2, w // 2)
+            au = enc.encode(arr[:h].tobytes() + uv[:, 0].tobytes() + uv[:, 1].tobytes(),
+                            keyframe=(k == 0))
+            nals = split_annexb(au)
+            if sets is None:
+                sets = [n for n in nals if n[0] & 0x1F in (7, 8)]
+            body = b"".join(len(n).to_bytes(4, "big") + n for n in nals
+                            if n[0] & 0x1F not in (7, 8))
+            frames.append((40 * k, body, k == 0))
+        sps, pps = sets
+        priv = (bytes([1, sps[1], sps[2], sps[3], 0xFF, 0xE1]) + len(sps).to_bytes(2, "big")
+                + sps + bytes([1]) + len(pps).to_bytes(2, "big") + pps)
+    p = str(tmp_path / f"{video}.{container}")
+    if container == "mkv":
+        codec = "V_VP8" if video == "vp8" else "V_MPEG4/ISO/AVC"
+        wr = t_mkv.MkvWriter(p, [
+            t_mkv.MkvTrack(1, t_mkv.TRACK_TYPE_AUDIO, "A_PCM/INT/LIT", sampling_rate=rate,
+                           channels=1),
+            t_mkv.MkvTrack(2, t_mkv.TRACK_TYPE_VIDEO, codec, width=w, height=h,
+                           codec_private=priv)])
+        for k in range(0, len(pcm), 160):
+            wr.write_frame(1, k * 1000 // rate, pcm[k:k + 160].tobytes())
+        for ts, data, key in frames:
+            wr.write_frame(2, ts, data, keyframe=key)
+    else:
+        wr = t_smff.SmffWriter(p, [t_smff.SmffTrack(0, "pcm16", rate, 1),
+                                   t_smff.SmffTrack(1, "vp8", w, h)])
+        for k in range(0, len(pcm), 80):
+            wr.write_frame(0, k * 1000 // rate, pcm[k:k + 80].tobytes())
+        for ts, data, key in frames:
+            wr.write_frame(1, ts, data, keyframe=key)
+    wr.close()
+    return p
+
+
+@pytest.mark.parametrize("container,video", [("mkv", "vp8"), ("smff", "vp8"),
+                                             ("mkv", "h264")])
+def test_video_tracks_play_through_on_video_equal_jax(tmp_path, container, video):
+    """Both players on one A/V file in lockstep, paused for a stretch: the
+    same frames (every plane equal) reach ``on_video`` at the same ticks,
+    paced by the play position (a frame every 4 ticks at 25 fps), and the
+    audio blocks stay equal."""
+    _vp8_or_skip()
+    if video == "h264":
+        from mediastreamer2_tpu_torch.ops.h264 import h264_available
+        if not h264_available():
+            pytest.skip("libavcodec missing")
+    path = _av_file(tmp_path, container, video)
+    pair = _Pair(path)
+    seen = ([], [])
+    for k, mp in enumerate((pair.j, pair.t)):
+        mp.on_video = lambda yuv, k=k: seen[k].append(
+            (mp.ticker.stats.ticks, [np.array(p) for p in yuv]))
+    pair.tick(30)
+    pair.play(False)
+    pair.tick(10)
+    pair.play(True)
+    pair.tick(50)
+    pair.check(0)
+    assert len(seen[1]) == len(seen[0]) == pair.t.video_frames_played == 20
+    assert [t for t, _ in seen[1]] == [t for t, _ in seen[0]]
+    assert seen[1][1][0] - seen[1][0][0] in (3, 4, 5)
+    for (_, a), (_, b) in zip(*seen):
+        for p, q in zip(a, b):
+            np.testing.assert_array_equal(p, q)
+    assert seen[1][-1][1][0].shape == (48, 64)
+
+
+@needs_opus
+def test_av_recording_vp8_track_byte_equal_jax(tmp_path, monkeypatch):
+    """An audio call linked to a video call (``link_video``): the call's
+    A/V MKV (``save_av_recording``) is byte-equal to the JAX package's
+    ``write_av_mkv`` of the same recording and frames, VP8 track included
+    (both encoders at a fixed speed), and reads back with the frames'
+    timestamps."""
+    _vp8_or_skip()
+    _fixed_vp8_speed(monkeypatch)
+    from mediastreamer2_tpu_torch import Format
+    from mediastreamer2_tpu_torch.models.video_stream import VideoStreamBatch
+    ticks = 40
+    S = tick_samples(8000)
+    f = Factory()
+    tx = AudioStreamBatch(f, 1, mic_signal=make_speechlike(S * ticks, 8000, seed=4),
+                          device="cpu")
+    rx = AudioStreamBatch(f, 1, record_ticks=ticks, device="cpu")
+    fmt = Format(kind="yuv420", width=64, height=48, fps=25.0)
+    vtx = VideoStreamBatch(f, 1, fmt=fmt, fps=25.0, device="cpu")
+    vrx = VideoStreamBatch(f, 1, fmt=fmt, fps=25.0, device="cpu")
+    pair, vpair = LoopbackPair(), LoopbackPair()
+    tx.set_transport(0, pair.endpoint(0))
+    rx.set_transport(0, pair.endpoint(1))
+    vtx.set_transport(0, vpair.endpoint(0))
+    vrx.set_transport(0, vpair.endpoint(1))
+    vtx.bind_assemblers()
+    vrx.bind_assemblers()
+    rx.link_video(vrx)
+    streams = (tx, rx, vtx, vrx)
+    for s in streams:
+        s.ticker.realtime = False
+    for _ in range(ticks):
+        for s in streams:
+            s.ticker.do_tick()
+    assert len(rx._av_frames) == vrx.stats[0].frames_received >= 8
+    path, want = str(tmp_path / "call.mkv"), str(tmp_path / "want.mkv")
+    rx.save_av_recording(path)
+    j_mp.write_av_mkv(want, rx.get_recording()[0], 8000, rx._av_frames, rx._av_wh)
+    assert open(path, "rb").read() == open(want, "rb").read()
+    r = t_mkv.MkvReader(path)
+    assert [t.codec_id for t in r.tracks.values()] == ["A_OPUS", "V_VP8"]
+    ts = [fr.ts_ms for fr in r.frames() if fr.track == 2]
+    assert ts == [t for t, _ in rx._av_frames]
+    rx.unlink_video()
+    assert vrx._frame_listeners == {}
+
+
+@needs_opus
+@pytest.mark.parametrize("ext", ["mkv", "smff"])
+def test_recorder_video_track_byte_equal_jax(tmp_path, monkeypatch, ext):
+    """``MediaRecorder`` with ``enable_video``: the .mkv (Opus + VP8) and
+    .smff (pcm16 + VP8) files equal the JAX recorder's, byte for byte (both
+    encoders at a fixed speed)."""
+    _vp8_or_skip()
+    _fixed_vp8_speed(monkeypatch)
+    rate, ticks = 16000, 30
+    S = tick_samples(rate)
+    sig = make_speechlike(S * ticks, rate, seed=8).astype(np.float32)
+    blocks = _mire_blocks(8, seed=3)
+    paths = []
+    for k, rec in enumerate((j_mp.MediaRecorder(JFactory(), rate=rate, max_seconds=1),
+                             t_mp.MediaRecorder(Factory(), rate=rate, max_seconds=1,
+                                                device="cpu"))):
+        rec.ticker.realtime = False
+        rec.set_input(lambda t: sig[t * S:(t + 1) * S])
+        rec.enable_video(64, 48)
+        rec.ticker.warm_up()
+        for t in range(ticks):
+            if t % 4 == 0 and t // 4 < len(blocks):
+                rec.push_video_frame(blocks[t // 4])
+            rec.ticker.do_tick()
+        paths.append(rec.stop_and_save(str(tmp_path / f"r{k}.{ext}")))
+    assert open(paths[1], "rb").read() == open(paths[0], "rb").read()

@@ -2,8 +2,9 @@
 package's: ``negotiate`` gives equal answers over a table of offers that
 reaches every provider (opus, H.264, H.265, VP8, AV1, speex,
 mpeg4-generic) and the default matcher; ``local_capabilities`` is the JAX
-list without the codecs the port cannot run yet (the departure its
-docstring names: no video and no AAC), whatever this host's libraries."""
+list without the codec the port cannot run yet (the departure its
+docstring names: no AAC), whatever this host's libraries; the video
+codecs, which the port's video stream runs, are offered as in JAX."""
 import dataclasses
 
 import pytest
@@ -11,9 +12,10 @@ import pytest
 from mediastreamer2_tpu.models import offer_answer as joa
 from mediastreamer2_tpu_torch.models import offer_answer as toa
 
-#: what the port cannot encode or decode until its video layer and AAC land
-NOT_IN_PORT = {"VP8", "H264", "H265", "AV1", "H263", "H263-1998", "MP4V-ES", "theora",
-               "mpeg4-generic"}
+#: what the port cannot encode or decode until AAC lands
+NOT_IN_PORT = {"mpeg4-generic"}
+#: the video codecs the JAX list offers where their libraries are
+VIDEO = {"VP8", "H264", "H265", "AV1", "H263", "H263-1998", "MP4V-ES", "theora"}
 
 OFFERS = [
     # (mime, clock, channels, pt, fmtp)
@@ -40,8 +42,8 @@ OFFERS = [
     ("unknown", 8000, 1, 99, ""),
 ]
 
-#: local lists that reach the video and AAC providers, which the port's
-#: local_capabilities() leaves out
+#: local entries that reach every video provider and AAC's, whatever
+#: libraries this host has
 LOCAL_VIDEO = [("VP8", 90000, 1, 102, ""), ("H264", 90000, 1, 103, "packetization-mode=1"),
                ("H265", 90000, 1, 104, "profile-id=1"), ("AV1", 90000, 1, 105, "profile=0"),
                ("mpeg4-generic", 16000, 1, 108, "mode=AAC-hbr;config=1408")]
@@ -84,11 +86,14 @@ def test_a_registered_provider_overrides_the_default(monkeypatch):
 
 def test_local_capabilities_is_the_jax_list_without_video_or_aac():
     """The departure: the port offers what it runs. The JAX list filtered
-    to those codecs equals the port's, in the same order (this host's
-    libvpx, libavcodec or libaom put video in the JAX list, never in the
-    port's)."""
+    to those codecs equals the port's, in the same order: since the video
+    stream is ported, this host's libvpx, libavcodec or libaom put the same
+    video codecs in both lists; AAC stays out of the port's."""
+    from mediastreamer2_tpu_torch.ops.vp8 import vp8_available
     j = [dataclasses.astuple(p) for p in joa.local_capabilities()]
     t = [dataclasses.astuple(p) for p in toa.local_capabilities()]
     assert t == [p for p in j if p[0] not in NOT_IN_PORT]
     assert not {p[0] for p in t} & NOT_IN_PORT
+    assert ("VP8" in {p[0] for p in t}) == vp8_available()
+    assert {p[0] for p in t} & VIDEO == {p[0] for p in j} & VIDEO
     assert [p[0] for p in t[:4]] == ["PCMU", "PCMA", "L16", "G722"]

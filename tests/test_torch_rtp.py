@@ -152,6 +152,34 @@ def test_udp_transport_roundtrip():
         b.close()
 
 
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_udp_transport_learns_the_source_only_when_symmetric(symmetric):
+    """Both packages read the same datagrams; a symmetric transport
+    re-points its sends at the source of what it received, the other
+    keeps the remote it was given."""
+    for name, (rtp, _) in PACKAGES.items():
+        a, b = rtp.UdpTransport(0), rtp.UdpTransport(0)
+        try:
+            a.set_remote("127.0.0.1", 9)                 # the discard port
+            if symmetric:
+                a.set_symmetric()
+            b.set_remote("127.0.0.1", a.local_port)
+            for i in range(3):
+                b.send(bytes([i]) * 8)
+            got = []
+            for _ in range(200):
+                got += a.recv_all()
+                if len(got) == 3:
+                    break
+                time.sleep(0.001)
+            assert got == [bytes([i]) * 8 for i in range(3)], name
+            assert a.remote == (("127.0.0.1", b.local_port) if symmetric
+                                else ("127.0.0.1", 9)), name
+        finally:
+            a.close()
+            b.close()
+
+
 def test_waiting_features_raise():
     """What still waits raises (the bandwidth estimators and RTCP are
     ported now: tests/test_torch_rtcp_qos.py; ``replay_capture`` too:
