@@ -10,8 +10,10 @@ calls (pcap replay into a G.722 stream, WAV / SMFF / MKV through
 MediaPlayer and MediaRecorder), negotiated calls (ICE, DTLS-SRTP, ZRTP
 and offer/answer through CallSetup, then the secured wideband session on
 the keys they agreed) and the video call (VideoStreamBatch's pixel path at
-1,024 VGA-to-QVGA legs, VideoE2EBench over UDP), and compares the port on
-the card with the port on the CPU.
+1,024 VGA-to-QVGA legs, VideoE2EBench over UDP) and the SFU (1,024
+participants through the native receive pump, ranked by levels computed
+on the card, with the video router, FlexFEC, RFC 4103 text and UPnP beside
+it), and compares the port on the card with the port on the CPU.
 
     python3 chip_smoke.py
 
@@ -19,7 +21,7 @@ Needs one CUDA card, nvcc, g++ and nvidia-smi; imports nothing of JAX.
 Phases, in order (any failure raises and the script exits non-zero):
 
 1. card, versions, build times (one nvcc per kernel source and g++ for the
-   edge, started together), the G.722, DVI4 and G.726 kernels' registers
+   edge and the receive pump, started together), the G.722, DVI4 and G.726 kernels' registers
    and spill bytes from nvcc's ``-Xptxas -v`` report (a spill fails the
    run), the edge's AES path (``native.hw_crypto``) and which system codec,
    video and crypto libraries the machine has (opus, gsm, speex, bcg729,
@@ -209,7 +211,49 @@ Phases, in order (any failure raises and the script exits non-zero):
    phase 1 found no library, and be made where it found one. 12c: 4 + 4
    legs of 12a's shape over LoopbackPair, 60 tick pairs on the CPU and on
    the card: equal frames received, received frames within one u8 code,
-   frame_mean within 1/255. Phase 12's seconds are printed.
+   frame_mean within 1/255. Phase 12's seconds are printed;
+13. the SFU and the call's side channels (``net/router``, ``net/fec``,
+   ``net/rtt``, ``net/upnp``, ``native.NativeIoPump``). 13a: 1,024
+   participants in 128 conferences of 8, an ``AudioPacketRouter(top_n=3)``
+   each; every microphone carries room noise at -45 dBFS, members 0, 1, 2
+   of each conference speak at -12, -15 and -18 dBFS (speech legs) and at
+   tick 50 member 3 starts at -12 while member 2 stops; the senders' G.722
+   is encoded on the card (one g722_encode a tick) and sent through the
+   batch edge to 1,024 server ``UdpTransport``s on one ``NativeIoPump``;
+   a server tick drains them through the pump, unpacks, stacks the
+   payloads, runs ext_source -> g722_dec -> audio_levels -> ext_sink
+   through a ``Ticker`` on the card (one g722_decode a tick) with the
+   energies read back, gives them to the routers and routes every packet;
+   the receivers' sockets drain through a second pump. 100 unpaced ticks.
+   Bars: each member receives exactly the packets of members {0, 1, 2}
+   from tick 10 to 49 and {0, 1, 3} from tick 70 on, itself left out (the
+   fallen talker's smoothed level takes up to ~16 ticks to pass under a
+   talker's pause: ``sfu_speakers``), and on every tick exactly the top 3
+   by the energies the server read; payloads equal to the speaker's codes;
+   no packet missing, undelivered or stray; the pumps' dropped and
+   truncated counts 0; energies finite; launches a tick g722_encode 1,
+   g722_decode 1. Printed: ms a tick split (encode and send, pump drain,
+   unpack, device step with readback, route, sends, receive), the drain of
+   the 1,024 server sockets through the pump against a Python ``recv``
+   loop, and ``profile_nodes`` of the server graph. 13b: 8b's
+   configuration (no wrong key) over two localhost ``UdpTransport``s a
+   leg, with Python receive, then on one ``NativeIoPump``: 8b's bars both
+   times, ms per tick pair both ways. 13c: 8 members of a
+   ``VideoPacketRouter``, synthetic H.264 at 15 fps (an IDR every 30
+   frames) packetized by ``net/h26x``, the focus moved every 2 s by 13a's
+   first conference's ranks; each output FlexFEC-protected (2d, L = D = 5)
+   through ``netsim`` with 5% random loss: switches only on an IDR's first
+   packet, one key-frame request per focus change, contiguous output
+   sequence numbers, recovered packets equal to the originals; loss before
+   and after FEC printed. 13d: 64 ``TextStream`` pairs over
+   ``SrtpTransport``, 600 characters each: every 7th packet lost reads
+   exact, a burst of 3 reads one U+FFFD where the redundancy ran out;
+   ``UpnpIgdClient`` discovers an in-process fake gateway (SSDP by unicast,
+   then its description), reads the external address, adds a mapping,
+   finds it in the gateway's table and deletes it. 13e: one conference of 8
+   through 13a's path for 60 ticks on the CPU and on the card: energies
+   within 1e-5 relative, routed sources equal on every tick. Phase 13's
+   seconds are printed.
 
 Each phase prints the seconds elapsed when it ends. The last two lines of
 standard output are the kernels' JSON and the result's JSON; the card's
@@ -1303,6 +1347,24 @@ class Session:
             self.clients.set_transport(leg, pair.endpoint(0))
             self.server.set_transport(leg, pair.endpoint(1))
 
+    def udp(self, pump=None):
+        """Each leg over two localhost ``UdpTransport``s, one a side, each
+        the other's remote; on ``pump`` (a ``NativeIoPump``) when given,
+        else received by Python. They are kept in ``udp_transports`` for
+        the caller to close."""
+        from mediastreamer2_tpu_torch.net.rtp import UdpTransport
+        self.udp_transports = []
+        for leg in range(self.legs):
+            a, b = UdpTransport(), UdpTransport()
+            self.udp_transports += [a, b]
+            a.set_remote("127.0.0.1", b.local_port)
+            b.set_remote("127.0.0.1", a.local_port)
+            if pump is not None:
+                a.attach_pump(pump)
+                b.attach_pump(pump)
+            self.clients.set_transport(leg, a)
+            self.server.set_transport(leg, b)
+
     def alternate(self, ticks, sample_every=0, iterate_every=0, between=None):
         """``ticks`` rounds of clients.do_tick() then server.do_tick();
         returns host ms per round and the active talkers sampled every
@@ -1663,9 +1725,11 @@ def session_cross(dev, legs, ticks):
 
 
 # -- phase 8: the secured wideband call ---------------------------------------
-def secure_session(dev, legs, max_ticks, wrong_key_leg=None, seed=90, calls=None):
+def secure_session(dev, legs, max_ticks, wrong_key_leg=None, seed=90, calls=None,
+                   connect=None):
     """Phase 8b's configuration: the G.722 session pair over LoopbackPair
-    with per-leg SRTP keyed by SDES (each side generates its key line, the
+    (or what ``connect(session)`` sets: phase 13b's ``Session.udp``) with
+    per-leg SRTP keyed by SDES (each side generates its key line, the
     other parses it), RTCP every RTCP_INTERVAL_S, and on every leg a
     quality indicator (counting the reports it was fed) and a bitrate
     controller (whose ptime ladder drives ``set_ptime``). The clients'
@@ -1690,7 +1754,7 @@ def secure_session(dev, legs, max_ticks, wrong_key_leg=None, seed=90, calls=None
             sess.clients.set_transport(leg, client.media_transport())
             sess.server.set_transport(leg, server.media_transport())
     else:
-        sess.loopback()
+        (connect or Session.loopback)(sess)
         for leg in range(legs):
             offer, kc, sc = sdes_generate()
             answer, ks, ss = sdes_generate()
@@ -2365,21 +2429,22 @@ def captured_cross(dev, legs, ticks, directory):
 
 
 # -- phase 11: negotiated calls -----------------------------------------------
-def raise_nofile(need):
+def raise_nofile(need, phase="11"):
     """Raise the soft RLIMIT_NOFILE to the hard one (11a opens 2,048
-    CallSetup sockets and the edges' beside what the process holds); prints
-    both and fails when the hard limit cannot hold ``need`` descriptors."""
+    CallSetup sockets and the edges' beside what the process holds, 13a
+    2,048 UDP sockets and four for its pumps); prints both and fails when
+    the hard limit cannot hold ``need`` descriptors."""
     import resource
     soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
     target = hard if hard != resource.RLIM_INFINITY else max(soft, 1 << 20)
     with contextlib.suppress(ValueError, OSError):
         resource.setrlimit(resource.RLIMIT_NOFILE, (target, hard))
     now = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
-    print(f"RLIMIT_NOFILE: soft {soft} -> {now}, hard {hard}; phase 11 needs about {need}",
-          flush=True)
+    print(f"RLIMIT_NOFILE: soft {soft} -> {now}, hard {hard}; phase {phase} needs about "
+          f"{need}", flush=True)
     if now < need:
-        raise AssertionError(f"phase 11: the file-descriptor limit ({now}, hard {hard}) cannot "
-                             f"hold the {need} descriptors of its calls")
+        raise AssertionError(f"phase {phase}: the file-descriptor limit ({now}, hard {hard}) "
+                             f"cannot hold the {need} descriptors it opens")
 
 
 def open_calls(n, dtls_calls, trickle=(), wrong_fingerprint=False):
@@ -2942,6 +3007,759 @@ def video_cross(dev, card, legs=CROSS_VIDEO_LEGS, ticks=CROSS_VIDEO_TICKS, cam=V
                              f"by {mean_err:.3e}")
 
 
+# -- phase 13: the SFU and the call's side channels ---------------------------
+SFU_CONFERENCES = 128         # phase 13a: 1,024 participants in conferences of 8
+SFU_MEMBERS = 8
+SFU_TOP_N = 3                 # AudioPacketRouter's default
+SFU_TICKS = 100
+SFU_SWITCH = 50               # member 3 rises, member 2 falls
+SFU_GRACE = 10                # ticks the smoothed levels get to settle at the start
+SFU_SETTLE = 20               # and after the switch (see sfu_speakers)
+SFU_TALKERS = ((0, -12.0), (1, -15.0), (2, -18.0))     # (member, dBFS) before the switch
+SFU_RISER = (3, -12.0)        # from SFU_SWITCH on; member 2 is then quiet
+SFU_ROOM_DBFS = -45.0         # room noise on every member's microphone
+SFU_SSRC = 0x9000             # participant i sends with SSRC SFU_SSRC + i
+SFU_PT = 9                    # G.722
+SFU_WAIT_S = 2.0              # the longest a tick waits for its datagrams
+G722_SILENCE = 0xFA           # the G.722 code of digital silence from a fresh encoder
+SFU_DRAIN_ROUNDS = 5          # 13a's drain comparison, each way
+CROSS_SFU_TICKS = 60          # phase 13e
+PUMP_SESSION_LEGS = 64        # phase 13b: 8b's configuration over UDP
+VIDEO_ROUTER_MEMBERS = 8      # phase 13c
+VIDEO_ROUTER_FPS = 15
+VIDEO_ROUTER_GOP = 30         # an IDR every 30 frames
+VIDEO_ROUTER_FOCUS_S = 2.0
+VIDEO_ROUTER_SECONDS = 8.0
+VIDEO_ROUTER_LOSS = 5.0       # percent, netsim's random loss
+FEC_L, FEC_D = 5, 5
+TEXT_PAIRS = 64               # phase 13d
+TEXT_CHARS = 600
+TEXT_PER_FLUSH = 3            # characters typed a 310 ms flush
+TEXT_BURST = (10, 11, 12)     # the packets a burst of 3 loses
+
+
+def sfu_mics(conferences, ticks, seed):
+    """float32 [conferences * 8, ticks * 160] at 16 kHz: every member's
+    microphone carries room noise at SFU_ROOM_DBFS (RMS); the talkers of
+    SFU_TALKERS add speech (``utils/signals`` speech legs, each scaled to
+    its level over the whole leg) until SFU_SWITCH, members 0 and 1 to the
+    end and SFU_RISER's member from SFU_SWITCH on. The speech generator's
+    1.3 Hz envelope reaches zero; with the room noise under every talker,
+    no trough of a talker at -18 dBFS or louder falls below a silent
+    member's level."""
+    legs, n, cut = conferences * SFU_MEMBERS, ticks * S16, SFU_SWITCH * S16
+    rng = np.random.default_rng(seed)
+    mic = (rng.standard_normal((legs, n)) * 10 ** (SFU_ROOM_DBFS / 20)).astype(np.float32)
+    speech = speech_legs(legs, n, seed=seed + 1, rate=16000)
+    for member, db, span in ((*SFU_TALKERS[0], slice(None)), (*SFU_TALKERS[1], slice(None)),
+                             (*SFU_TALKERS[2], slice(0, cut)), (*SFU_RISER, slice(cut, None))):
+        rows = speech[member::SFU_MEMBERS]
+        gain = 10 ** (db / 20) / np.sqrt((rows.astype(np.float64) ** 2).mean(axis=1))
+        mic[member::SFU_MEMBERS, span] += (rows * gain[:, None].astype(np.float32))[:, span]
+    return mic
+
+
+def sfu_speakers(tick):
+    """The members (within a conference) whose packets every other member
+    must receive at ``tick`` by design, or None while the smoothed levels
+    settle: SFU_GRACE ticks at the start, SFU_SETTLE after the switch.
+    ``audio_levels`` smooths a member's energy by 0.7 a tick, so the talker
+    who falls silent at the switch loses 1.55 dB a tick, from up to ~5 dB
+    over its mean; a talker who goes on speaking pauses up to ~25 dB under
+    its mean (the speech's 1.3 Hz envelope reaches zero), and from a -18
+    dBFS talker to a -12 dBFS one's pause that decay takes up to ~16 ticks.
+    Until then the router rightly ranks the fallen talker over the paused
+    one; ``Sfu.level_failures`` holds every tick, these included, to the
+    levels the server read."""
+    if SFU_GRACE <= tick < SFU_SWITCH:
+        return {member for member, _ in SFU_TALKERS}
+    if tick >= SFU_SWITCH + SFU_SETTLE:
+        return {SFU_TALKERS[0][0], SFU_TALKERS[1][0], SFU_RISER[0]}
+    return None
+
+
+class Sfu:
+    """Phase 13a's audio SFU on ``dev``: ``conferences`` x 8 participants,
+    an ``AudioPacketRouter(top_n=3)`` a conference.
+
+    * Senders: a ``Ticker`` on ``dev`` runs ext_source (16 kHz) ->
+      g722_enc -> ext_sink, one g722_encode launch a tick; the codes go out
+      through the native batch edge (``BatchRtpTx``), participant i with
+      SSRC SFU_SSRC + i, sequence number and tick equal, to the server's
+      socket i.
+    * Server: a ``UdpTransport`` a participant, all on one
+      ``NativeIoPump``; a tick drains every socket through the pump, unpacks
+      the packets, stacks the payloads into one [legs, 80] block (a missing
+      one filled with G722_SILENCE), runs the server graph (ext_source codes
+      -> g722_dec -> audio_levels -> ext_sink, a ``Ticker`` on ``dev``,
+      the levels' energies read back with the tick), hands the energies to
+      every router and routes every packet to its conference's others;
+      the routers' sends are queued and sent after the routing, each from
+      the server socket of the member it goes to.
+    * Receivers: a ``UdpTransport`` a participant on a second pump; a tick
+      drains them until each has what the server sent it, recording the
+      sources it received and holding each payload to the speaker's codes.
+    """
+
+    def __init__(self, dev, conferences, ticks, seed=1300):
+        from mediastreamer2_tpu_torch import Factory, Format, GraphBuilder
+        from mediastreamer2_tpu_torch.core.ticker import Ticker
+        from mediastreamer2_tpu_torch.native import BatchRtpTx, NativeIoPump
+        from mediastreamer2_tpu_torch.net.router import AudioPacketRouter
+        from mediastreamer2_tpu_torch.net.rtp import UdpTransport
+        self.dev, self.conferences, self.ticks = dev, conferences, ticks
+        self.legs = legs = conferences * SFU_MEMBERS
+        self.mic = sfu_mics(conferences, ticks, seed)
+        f = Factory()
+        g = GraphBuilder(f, batch=legs)
+        g.chain(g.add("ext_source", "pcm", fmt=Format(rate=16000)), g.add("g722_enc", "enc"),
+                g.add("ext_sink", "codes"))
+        self.sender = Ticker(g.build(), device=dev, realtime=False)
+        self.sender.set_io(pull=lambda t: {"pcm": self.mic[:, t * S16:(t + 1) * S16]})
+        g = GraphBuilder(f, batch=legs)
+        g.chain(g.add("ext_source", "codes", fmt=Format(kind="g722", rate=8000)),
+                g.add("g722_dec", "dec"), g.add("audio_levels", "levels"),
+                g.add("ext_sink", "out"))
+        self.graph = g.build()
+        self.server = Ticker(self.graph, device=dev, realtime=False)
+        self.server.readback_state = [("levels", "energy")]
+        self.block = np.full((legs, S8), G722_SILENCE, np.uint8)
+        self.server.set_io(pull=lambda t: {"codes": self.block})
+        self.server_pump, self.client_pump = NativeIoPump(), NativeIoPump()
+        self.srv, self.rcv, self.tx_sock, self.tx = [], [], None, None
+        try:
+            for _ in range(legs):
+                self.srv.append(UdpTransport())
+                self.rcv.append(UdpTransport())
+            for s, r in zip(self.srv, self.rcv):
+                s.attach_pump(self.server_pump)
+                r.attach_pump(self.client_pump)
+                s.set_remote("127.0.0.1", r.local_port)
+            self.tx_sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            self.tx_sock.bind(("127.0.0.1", 0))
+            self.tx = BatchRtpTx(self.tx_sock, legs, S8)
+            for i, s in enumerate(self.srv):
+                self.tx.config(i, "127.0.0.1", s.local_port, SFU_SSRC + i, 0, 0, SFU_PT)
+        except BaseException:
+            self.close()
+            raise
+        self.outbox = []
+        self.routers = []
+        for c in range(conferences):
+            r = AudioPacketRouter(top_n=SFU_TOP_N)
+            for i in range(c * SFU_MEMBERS, (c + 1) * SFU_MEMBERS):
+                r.add_member(i, lambda data, i=i: self.outbox.append((i, data)))
+            self.routers.append(r)
+        self.sent = np.zeros((ticks, legs, S8), np.uint8)      # every speaker's codes
+        self.energies = np.zeros((ticks, legs), np.float32)
+        self.routed = []          # [tick] -> [receiver] -> frozenset of source legs
+        self.mismatched = 0       # forwarded payloads unequal to what was sent
+        self.missing = 0          # server packets filled with silence
+        self.undelivered = 0      # forwarded packets a receiver did not get in time
+        self.stray = 0            # datagrams of another tick than the one drained
+        self.ms = {k: [] for k in ("encode_send", "drain", "unpack", "step", "route",
+                                   "sends", "receive")}
+        for tk in (self.sender, self.server):
+            tk.warm_up()
+
+    def _drain(self, transports, want, tick):
+        """Each transport's datagrams of ``tick`` until transport i has
+        ``want[i]`` of them or SFU_WAIT_S passed: {i: [RtpPacket]} and the
+        unpack time; datagrams of other ticks are counted as stray."""
+        from mediastreamer2_tpu_torch.net.rtp import RtpPacket
+        got = {i: [] for i in range(len(transports)) if want[i]}
+        pending, unpack_s = list(got), 0.0
+        end = time.perf_counter() + SFU_WAIT_S
+        while pending:
+            left = []
+            for i in pending:
+                data = transports[i].recv_all()
+                if data:
+                    t0 = time.perf_counter()
+                    for d in data:
+                        p = RtpPacket.unpack(d)
+                        if p.seq == tick & 0xFFFF:
+                            got[i].append(p)
+                        else:
+                            self.stray += 1
+                    unpack_s += time.perf_counter() - t0
+                if len(got[i]) < want[i]:
+                    left.append(i)
+            pending = left
+            if pending and time.perf_counter() > end:
+                break
+        return got, unpack_s
+
+    def tick(self, t):
+        ms = self.ms
+        t0 = time.perf_counter()
+        codes = self.sender.do_tick()["codes"].astype(np.uint8)
+        self.sent[t] = codes
+        self.tx.send(codes, S8)
+        t1 = time.perf_counter()
+        got, unpack_s = self._drain(self.srv, [1] * self.legs, t)
+        t2 = time.perf_counter()
+        self.block[:] = G722_SILENCE
+        pkts = {}
+        for i, ps in got.items():
+            if ps:
+                pkts[i] = ps[0]
+                self.block[i] = np.frombuffer(ps[0].payload, np.uint8)
+        self.missing += self.legs - len(pkts)
+        t3 = time.perf_counter()
+        energy = self.server.do_tick()["levels.energy"]
+        self.energies[t] = energy
+        t4 = time.perf_counter()
+        self.outbox.clear()
+        for c, r in enumerate(self.routers):
+            r.update_volumes(energy)
+            for i in range(c * SFU_MEMBERS, (c + 1) * SFU_MEMBERS):
+                if i in pkts:
+                    r.route(i, pkts[i])
+        t5 = time.perf_counter()
+        want = [0] * self.legs
+        for to, data in self.outbox:
+            self.srv[to].send(data)
+            want[to] += 1
+        t6 = time.perf_counter()
+        recv, recv_unpack_s = self._drain(self.rcv, want, t)
+        heard = [frozenset()] * self.legs
+        for i, ps in recv.items():
+            self.undelivered += want[i] - len(ps)
+            heard[i] = frozenset(p.ssrc - SFU_SSRC for p in ps)
+            for p in ps:
+                src = p.ssrc - SFU_SSRC
+                if not (0 <= src < self.legs and p.payload == self.sent[t, src].tobytes()
+                        and p.payload_type == SFU_PT):
+                    self.mismatched += 1
+        self.routed.append(heard)
+        t7 = time.perf_counter()
+        for k, d in (("encode_send", t1 - t0), ("drain", t2 - t1 - unpack_s),
+                     ("unpack", t3 - t2 + unpack_s), ("step", t4 - t3), ("route", t5 - t4),
+                     ("sends", t6 - t5), ("receive", t7 - t6)):
+            ms[k].append(1e3 * d)
+
+    def run(self):
+        for t in range(self.ticks):
+            self.tick(t)
+
+    def route_failures(self, speakers_at=sfu_speakers):
+        """[(tick, receiver, heard, expected)] for every tick where
+        ``speakers_at(tick)`` names the speakers (None: no bar) and a member
+        did not receive exactly their packets, itself left out."""
+        bad = []
+        for t, heard in enumerate(self.routed):
+            speakers = speakers_at(t)
+            if speakers is None:
+                continue
+            for i in range(self.legs):
+                base = i - i % SFU_MEMBERS
+                want = {base + m for m in speakers} - {i}
+                if heard[i] != want:
+                    bad.append((t, i, sorted(heard[i]), sorted(want)))
+        return bad
+
+    def level_failures(self):
+        """[(tick, receiver, heard, expected)] for every tick where a member
+        did not receive exactly the packets of its conference's SFU_TOP_N
+        loudest by the energies the server read that tick (ties to the
+        lower member, as the router's stable sort), itself left out."""
+        bad = []
+        for t, heard in enumerate(self.routed):
+            for c in range(self.conferences):
+                base = c * SFU_MEMBERS
+                e = self.energies[t, base:base + SFU_MEMBERS]
+                top = {base + int(m) for m in np.argsort(-e, kind="stable")[:SFU_TOP_N]}
+                for i in range(base, base + SFU_MEMBERS):
+                    if heard[i] != top - {i}:
+                        bad.append((t, i, sorted(heard[i]), sorted(top - {i})))
+        return bad
+
+    def pump_counts(self):
+        """(dropped, truncated) summed over every socket of both pumps."""
+        pairs = [(pump, tr.sock) for pump, trs in ((self.server_pump, self.srv),
+                                                   (self.client_pump, self.rcv)) for tr in trs]
+        return (sum(pump.dropped(s) for pump, s in pairs),
+                sum(pump.truncated(s) for pump, s in pairs))
+
+    def drain_compare(self, rounds=SFU_DRAIN_ROUNDS):
+        """The drain of every server socket, timed ``rounds`` times through
+        the pump, then (the sockets taken off the pump) ``rounds`` times by
+        a Python ``recv`` loop on the same sockets; each round drains one
+        tick's datagrams, sent before and given 0.1 s to land. Returns the
+        ms of each way's rounds and the datagrams each way read."""
+        codes = self.sent[-1]
+        out = {}
+        for way in ("pump", "python"):
+            if way == "python":
+                for s in self.srv:
+                    self.server_pump.remove_socket(s.sock)
+            times, n = [], 0
+            for _ in range(rounds):
+                self.tx.send(codes, S8)
+                time.sleep(0.1)
+                t0 = time.perf_counter()
+                if way == "pump":
+                    for s in self.srv:
+                        n += len(self.server_pump.read(s.sock))
+                else:
+                    for s in self.srv:
+                        recv = s.sock.recv
+                        while True:
+                            try:
+                                recv(65536)
+                            except BlockingIOError:
+                                break
+                            n += 1
+                times.append(1e3 * (time.perf_counter() - t0))
+            out[way] = (times, n)
+        return out
+
+    def profile(self, iters=20):
+        """``profile_nodes`` of the server graph on its own state and the
+        last tick's codes (ms a node)."""
+        tk = self.server
+        tk.sync()
+        with tk.on_stream():
+            codes = torch.from_numpy(self.block.astype(np.int32)).to(tk.device)
+            return self.graph.profile_nodes(tk.state, tk.params, {"codes": codes}, iters=iters)
+
+    def close(self):
+        for tr in (*self.srv, *self.rcv):
+            tr.close()
+        if self.tx is not None:
+            self.tx.close()
+        if self.tx_sock is not None:
+            self.tx_sock.close()
+        self.server_pump.close()
+        self.client_pump.close()
+
+
+def audio_sfu(kernels, dev, card, conferences, ticks):
+    """Phase 13a: ``Sfu`` at ``conferences`` x 8 for ``ticks`` unpaced
+    ticks, the launch counts set to 0 just before the run and read just
+    after. Bars: the routed sources outside the grace windows, every
+    forwarded payload equal to what its speaker sent, no packet missing,
+    late or stray, the pumps' dropped and truncated counts 0, every energy
+    finite, one g722_encode and one g722_decode launch a tick. Prints the
+    tick's split, the drain through the pump against a Python loop and the
+    server graph's ``profile_nodes``. Returns (launches, first conference's
+    ranks at the last tick, the Sfu's energies)."""
+    raise_nofile(2 * conferences * SFU_MEMBERS + 256, phase="13a")
+    t_build = time.perf_counter()
+    sfu = Sfu(dev, conferences, ticks)
+    try:
+        build_s = time.perf_counter() - t_build
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        sfu.run()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        bad = sfu.route_failures()
+        off_levels = sfu.level_failures()
+        settling = sfu.route_failures(   # the design's ticks in SFU_SETTLE, no bar
+            lambda t: sfu_speakers(SFU_SWITCH + SFU_SETTLE)
+            if SFU_SWITCH + SFU_GRACE <= t < SFU_SWITCH + SFU_SETTLE else None)
+        dropped, truncated = sfu.pump_counts()
+        drains = sfu.drain_compare()
+        prof = sfu.profile()
+    finally:
+        sfu.close()
+    legs = sfu.legs
+    finite = bool(np.isfinite(sfu.energies).all())
+    fwd = sum(len(h) for heard in sfu.routed for h in heard)
+    levels = 10 * np.log10(sfu.energies[-1, :SFU_MEMBERS].astype(np.float64) + 1e-20)
+    ranks = [int(i) for i in np.argsort(-sfu.energies[-1, :SFU_MEMBERS], kind="stable")]
+    per_tick = {k: launches[k] / ticks for k in ("g722_encode", "g722_decode")}
+    drain_line = "; ".join(f"{way} median {np.median(ts):.3f} ms (min {min(ts):.3f}, max "
+                           f"{max(ts):.3f}, {n} datagrams)" for way, (ts, n) in drains.items())
+    print(f"sfu 13a: {conferences} conferences x {SFU_MEMBERS} = {legs} participants, "
+          f"AudioPacketRouter(top_n={SFU_TOP_N}), {ticks} unpaced ticks in {wall:.2f} s "
+          f"({1e3 * wall / ticks:.3f} ms a tick; built in {build_s:.2f} s): ms a tick "
+          f"{', '.join(f'{k} {np.mean(v):.3f}' for k, v in sfu.ms.items())}; launches a tick g722_encode {per_tick['g722_encode']:g}, "
+          f"g722_decode {per_tick['g722_decode']:g}; forwarded {fwd} packets "
+          f"({fwd / ticks:.1f} a tick), payloads unequal {sfu.mismatched}, missing "
+          f"{sfu.missing}, undelivered {sfu.undelivered}, stray {sfu.stray}; pumps dropped "
+          f"{dropped}, truncated {truncated}; routes off the levels {len(off_levels)} "
+          f"{off_levels[:3]}, off the design (ticks {SFU_GRACE}-{SFU_SWITCH - 1} and "
+          f"{SFU_SWITCH + SFU_SETTLE} on) {len(bad)} {bad[:3]} (ticks {SFU_SWITCH + SFU_GRACE}-"
+          f"{SFU_SWITCH + SFU_SETTLE - 1}, no bar: {len(settling)} member-ticks off the design, "
+          f"at ticks {sorted({b[0] for b in settling})}); energies "
+          f"finite {finite}; conference 0 at the last tick: dB {np.round(levels, 1).tolist()}, "
+          f"ranks {ranks} [{card}]", flush=True)
+    print(f"sfu 13a drain of {legs} server sockets, one datagram each: {drain_line} [{card}]",
+          flush=True)
+    print("sfu 13a profile_nodes (server graph, ms a call): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in prof.items()) + f" [{card}]", flush=True)
+    if torch.device(dev).type == "cuda":
+        _require_counts("sfu 13a", launches, {"g722_encode": ticks, "g722_decode": ticks})
+    if bad or off_levels or sfu.mismatched or sfu.missing or sfu.undelivered or sfu.stray:
+        raise AssertionError(f"sfu 13a: routes off the design {bad[:5]}, off the levels "
+                             f"{off_levels[:5]}, unequal payloads "
+                             f"{sfu.mismatched}, missing {sfu.missing}, undelivered "
+                             f"{sfu.undelivered}, stray {sfu.stray}")
+    if dropped or truncated or not finite:
+        raise AssertionError(f"sfu 13a: pumps dropped {dropped}, truncated {truncated}, "
+                             f"energies finite {finite}")
+    if set(prof) != {"dec", "levels"}:
+        raise AssertionError(f"sfu 13a: profile_nodes timed {sorted(prof)}")
+    if drains["pump"][1] != drains["python"][1] or drains["pump"][1] != SFU_DRAIN_ROUNDS * legs:
+        raise AssertionError(f"sfu 13a: the drains read {drains['pump'][1]} and "
+                             f"{drains['python'][1]} datagrams")
+    return launches, ranks, sfu.energies
+
+
+def sfu_cross(dev, card, ticks=CROSS_SFU_TICKS):
+    """Phase 13e: one conference of 8 through 13a's path on the CPU and on
+    ``dev``: energies within 1e-5 relative, the routed sources equal on
+    every tick."""
+    runs = []
+    for d in ("cpu", dev):
+        sfu = Sfu(d, 1, ticks)
+        try:
+            sfu.run()
+        finally:
+            sfu.close()
+        runs.append(sfu)
+    c, g = runs
+    rel = float(np.max(np.abs(c.energies - g.energies) / np.abs(c.energies)))
+    same = c.routed == g.routed
+    print(f"sfu 13e: 1 conference of {SFU_MEMBERS} x {ticks} ticks on the CPU and on the card: "
+          f"energies max relative error {rel:.3e}, routed sources equal on every tick {same}, "
+          f"route failures {len(c.route_failures())} / {len(g.route_failures())} [{card}]",
+          flush=True)
+    if rel > 1e-5 or not same:
+        raise AssertionError(f"sfu 13e: energies {rel:.3e} apart, routes equal {same}")
+
+
+def pump_session(dev, card, legs, pumped):
+    """Phase 13b: 8b's configuration (no wrong-key leg) with each leg over
+    two localhost ``UdpTransport``s, received by Python or, ``pumped``,
+    with every transport on one ``NativeIoPump``; 8b's rounds and bars.
+    Returns ms per tick pair."""
+    from mediastreamer2_tpu_torch.native import NativeIoPump
+    pump = NativeIoPump() if pumped else None
+    sess, qis = secure_session(dev, legs, SECURE_MAX_TICKS, seed=150,
+                               connect=lambda s: s.udp(pump))
+    try:
+        ran, wall, ms = secure_rounds(sess, "13b", SECURE_MAX_TICKS)
+        ok, line = sess.check(conf_step=1)
+        rep = secure_report(sess, qis)
+        counts = ([(pump.dropped(tr.sock), pump.truncated(tr.sock))
+                   for tr in sess.udp_transports] if pumped else [])
+    finally:
+        for tr in sess.udp_transports:
+            tr.close()
+        if pump is not None:
+            pump.close()
+    dropped = sum(d for d, _ in counts)
+    truncated = sum(x for _, x in counts)
+    print(f"session 13b ({'NativeIoPump' if pumped else 'Python receive'}): {legs} + {legs} "
+          f"legs of 8b over localhost UDP, {ran} rounds in {wall:.2f} s ({ms:.3f} ms per tick "
+          f"pair, host clock): {rep.line}; pump dropped {dropped}, truncated {truncated}; "
+          f"{line} [{card}]", flush=True)
+    if rep.unreported or rep.no_rtt or rep.auth or not ok or dropped or truncated:
+        raise AssertionError(f"session 13b: unreported {rep.unreported[:4]}, no RTT "
+                             f"{rep.no_rtt[:4]}, auth failures {rep.auth}, listener bars {ok}, "
+                             f"pump dropped {dropped}, truncated {truncated}")
+    return ms
+
+
+def h264_access_unit(rng, idr):
+    """A synthetic H.264 access unit: SPS, PPS and an IDR slice of 3,000 to
+    6,000 bytes, or one non-IDR slice of 400 to 1,600 bytes; the slices'
+    bytes random."""
+    if idr:
+        return [b"\x67" + rng.bytes(11), b"\x68" + rng.bytes(5),
+                b"\x65" + rng.bytes(int(rng.integers(3000, 6000)))]
+    return [b"\x41" + rng.bytes(int(rng.integers(400, 1600)))]
+
+
+def video_router_fec(card, ranks, seconds=VIDEO_ROUTER_SECONDS, seed=1330):
+    """Phase 13c: VIDEO_ROUTER_MEMBERS members, one ``VideoPacketRouter``.
+    Each member sends synthetic H.264 at VIDEO_ROUTER_FPS (an IDR every
+    VIDEO_ROUTER_GOP frames, and at once after a key-frame request),
+    packetized by ``net/h26x.packetize``; the focus moves every
+    VIDEO_ROUTER_FOCUS_S to the next of ``ranks``. Each member's output is
+    protected by ``FecEncoder(scheme="2d", L=5, D=5)`` and reaches its
+    receiver through ``NetworkSimulator`` with VIDEO_ROUTER_LOSS % random
+    loss; a ``FecDecoder`` a receiver. Bars: an output changes source only
+    on the first packet of an IDR; one key-frame request per focus change,
+    for the new focus; output sequence numbers contiguous per member; every
+    recovered packet equal to what the router sent. Prints the loss before
+    and after FEC."""
+    from mediastreamer2_tpu_torch.net import h26x
+    from mediastreamer2_tpu_torch.net.fec import FEC_PT, FecDecoder, FecEncoder
+    from mediastreamer2_tpu_torch.net.netsim import NetSimParams, NetworkSimulator
+    from mediastreamer2_tpu_torch.net.router import VideoPacketRouter
+    from mediastreamer2_tpu_torch.net.rtp import RtpPacket
+    n = VIDEO_ROUTER_MEMBERS
+    rngs = [np.random.default_rng(seed + m) for m in range(n)]
+    requests, want_idr = [], set()
+
+    def request(m):
+        requests.append(m)
+        want_idr.add(m)
+    router = VideoPacketRouter(request_keyframe=request)
+    starts = set()                      # (ssrc, timestamp) of every IDR's first packet
+    out = [dict(sent={}, last_seq=None, source=None, switches=0, bad_switch=0, gaps=0,
+                delivered=set(), recovered=[], enc=FecEncoder(L=FEC_L, D=FEC_D, scheme="2d",
+                                                             ssrc=0xFEC00000 + m),
+                dec=FecDecoder(),
+                net=NetworkSimulator(NetSimParams(loss_rate=VIDEO_ROUTER_LOSS, seed=seed + m)))
+           for m in range(n)]
+    now = [0.0]
+
+    def deliver(m, data):
+        o = out[m]
+        pkt = RtpPacket.unpack(data)
+        if o["last_seq"] is not None and pkt.seq != (o["last_seq"] + 1) & 0xFFFF:
+            o["gaps"] += 1
+        o["last_seq"] = pkt.seq
+        src = pkt.ssrc - 0x5EED0000
+        if src != o["source"]:
+            o["switches"] += 1
+            o["bad_switch"] += (pkt.ssrc, pkt.timestamp, pkt.payload) not in starts
+            o["source"] = src
+        o["sent"][pkt.seq] = pkt
+        for p in [pkt] + o["enc"].push(pkt):
+            if not o["net"].shape(now[0], p.pack()):
+                continue
+            if p.payload_type == FEC_PT:
+                for r in o["dec"].push_repair(RtpPacket.unpack(p.pack())):
+                    o["recovered"].append(r)
+            else:
+                o["delivered"].add(p.seq)
+                o["dec"].push_media(RtpPacket.unpack(p.pack()))
+    for m in range(n):
+        router.add_member(m, lambda data, m=m: deliver(m, data))
+    frames = int(seconds * VIDEO_ROUTER_FPS)
+    per_focus = int(VIDEO_ROUTER_FOCUS_S * VIDEO_ROUTER_FPS)
+    seqs, focus, changes = [0] * n, None, 0
+    for f in range(frames):
+        now[0] = f / VIDEO_ROUTER_FPS
+        if f % per_focus == 0:
+            new = ranks[(f // per_focus) % len(ranks)]
+            if new != focus:
+                router.set_focus(new)
+                focus, changes = new, changes + 1
+        for m in range(n):
+            idr = f % VIDEO_ROUTER_GOP == 0 or m in want_idr
+            want_idr.discard(m)
+            ts = f * 90000 // VIDEO_ROUTER_FPS
+            payloads = h26x.packetize(h264_access_unit(rngs[m], idr), mtu=1200)
+            for k, pl in enumerate(payloads):
+                pkt = RtpPacket(96, seqs[m], ts, 0x5EED0000 + m, pl,
+                                marker=k == len(payloads) - 1)
+                seqs[m] = (seqs[m] + 1) & 0xFFFF
+                if idr and k == 0:
+                    starts.add((pkt.ssrc, ts, pl))
+                router.route(m, pkt, is_keyframe_start=idr and k == 0)
+    sent = sum(len(o["sent"]) for o in out)
+    lost = sum(len(o["sent"]) - len(o["delivered"]) for o in out)
+    recovered = sum(len({r.seq for r in o["recovered"]} - o["delivered"]) for o in out)
+    unequal = sum(1 for o in out for r in o["recovered"]
+                  if (r.seq not in o["sent"] or r.payload != o["sent"][r.seq].payload
+                      or r.timestamp != o["sent"][r.seq].timestamp))
+    residual = lost - recovered
+    switches = sum(o["switches"] for o in out)
+    bad_switch = sum(o["bad_switch"] for o in out)
+    gaps = sum(o["gaps"] for o in out)
+    print(f"video router 13c: {n} members, synthetic H.264 at {VIDEO_ROUTER_FPS} fps (IDR every "
+          f"{VIDEO_ROUTER_GOP} frames), {frames} frames, focus every {VIDEO_ROUTER_FOCUS_S} s by "
+          f"the ranks {ranks}: {changes} focus changes, key-frame requests {requests}, output "
+          f"source switches {switches} (not on an IDR's first packet: {bad_switch}), sequence "
+          f"gaps {gaps}; FlexFEC 2d L={FEC_L} D={FEC_D} over {VIDEO_ROUTER_LOSS}% random loss: "
+          f"{sent} media packets routed, {lost} lost ({100 * lost / sent:.2f}%), {recovered} "
+          f"recovered ({unequal} unequal), residual loss {residual} "
+          f"({100 * residual / sent:.2f}%) [{card}]", flush=True)
+    if bad_switch or gaps or unequal or switches < changes:
+        raise AssertionError(f"video router 13c: {bad_switch} switches off an IDR start, "
+                             f"{gaps} sequence gaps, {unequal} unequal recoveries, {switches} "
+                             f"switches for {changes} focus changes")
+    if requests != [ranks[k % len(ranks)] for k in range(changes)]:
+        raise AssertionError(f"video router 13c: key-frame requests {requests} for "
+                             f"{changes} focus changes")
+    return lost, residual
+
+
+class _EveryNth:
+    """A netsim stand-in that loses every ``n``-th packet, or the packets
+    whose 0-based index is in ``lose``."""
+
+    def __init__(self, n=0, lose=()):
+        self.n, self.lose, self.count = n, set(lose), 0
+
+    def shape(self, now, data):
+        k = self.count
+        self.count += 1
+        if (self.n and k % self.n == self.n - 1) or k in self.lose:
+            return []
+        return [(now, data)]
+
+
+def text_streams(card, pairs=TEXT_PAIRS, chars=TEXT_CHARS, seed=1340):
+    """Phase 13d's text: ``pairs`` ``TextStream`` pairs over
+    ``SrtpTransport`` on ``LoopbackPair``s (keys from a seeded generator),
+    ``chars`` characters typed on each, TEXT_PER_FLUSH a 310 ms flush (a
+    virtual clock). With every 7th packet lost each leg must read its text
+    exactly; with a burst of 3 (TEXT_BURST) each must read it with one
+    U+FFFD in place of the burst's first packet, whose text the two RED
+    generations no longer hold."""
+    from mediastreamer2_tpu_torch.net.rtp import LoopbackPair, RtpSession
+    from mediastreamer2_tpu_torch.net.rtt import LOSS_CHAR, TextStream
+    from mediastreamer2_tpu_torch.net.srtp import SrtpContext, SrtpTransport
+    rng = np.random.default_rng(seed)
+    first = TEXT_BURST[0] * TEXT_PER_FLUSH
+    results = {}
+    for name, loss in (("every 7th lost", lambda: _EveryNth(n=7)),
+                       ("burst of 3", lambda: _EveryNth(lose=TEXT_BURST))):
+        texts, streams = [], []
+        for _ in range(pairs):
+            key, salt = rng.bytes(16), rng.bytes(14)
+            pair = LoopbackPair(netsim=loss())
+            ta = SrtpTransport(pair.endpoint(0), tx=SrtpContext(key, salt),
+                               rx=SrtpContext(key, salt))
+            tb = SrtpTransport(pair.endpoint(1), tx=SrtpContext(key, salt),
+                               rx=SrtpContext(key, salt))
+            streams.append((TextStream(RtpSession(ta, payload_type=98)),
+                            TextStream(RtpSession(tb, payload_type=98)), ta, tb))
+            texts.append("".join(chr(c) for c in rng.integers(0x21, 0x7F, chars)))
+        t0 = time.perf_counter()
+        now, flushes = 0, -(-chars // TEXT_PER_FLUSH) + 4
+        for k in range(flushes):
+            now += 310
+            for (a, b, _, _), text in zip(streams, texts):
+                a.source.put_text(text[k * TEXT_PER_FLUSH:(k + 1) * TEXT_PER_FLUSH])
+                a.iterate(now_ms=now)
+                b.iterate(now_ms=now)
+        wall = time.perf_counter() - t0
+        got = [b.get_received_text() for _, b, _, _ in streams]
+        auth = sum(ta.auth_failures + tb.auth_failures for _, _, ta, tb in streams)
+        if name == "burst of 3":
+            want = [t[:first] + LOSS_CHAR + t[first + TEXT_PER_FLUSH:] for t in texts]
+        else:
+            want = texts
+        wrong = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        results[name] = wrong
+        print(f"text 13d ({name}): {pairs} TextStream pairs over SRTP, {chars} characters "
+              f"typed each, {flushes} flushes in {wall:.2f} s; legs reading other text than "
+              f"expected {len(wrong)} {wrong[:4]}, U+FFFD read {sum(g.count(LOSS_CHAR) for g in got)}, "
+              f"SRTP auth failures {auth} [{card}]", flush=True)
+        if wrong or auth:
+            raise AssertionError(f"text 13d ({name}): legs {wrong[:8]} read other text, "
+                                 f"auth failures {auth}")
+    return results
+
+
+class _FakeIgd:
+    """An in-process UPnP Internet Gateway Device on localhost: an HTTP
+    server with the root description (/desc.xml) and WANIPConnection's
+    control URL (/ctl: AddPortMapping, DeletePortMapping,
+    GetExternalIPAddress), and an SSDP responder on a unicast UDP socket
+    that answers one M-SEARCH with the description's LOCATION."""
+    EXTERNAL_IP = "198.51.100.77"
+
+    def __init__(self):
+        import http.server
+        from mediastreamer2_tpu_torch.net import upnp
+        igd = self
+        self.mappings = {}
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _reply(self, body):
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path != "/desc.xml":
+                    self.send_error(404)
+                    return
+                self._reply(f"<root><device><serviceList><service><serviceType>"
+                            f"{upnp.SERVICE_WANIP}</serviceType><controlURL>/ctl</controlURL>"
+                            f"</service></serviceList></device></root>".encode())
+
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"])).decode()
+                action = self.headers.get("SOAPAction", "")
+                field = lambda name: re.search(f"<{name}>(.*?)</{name}>", body).group(1)
+                if "AddPortMapping" in action:
+                    igd.mappings[(field("NewExternalPort"), field("NewProtocol"))] = (
+                        field("NewInternalClient"), field("NewInternalPort"))
+                    resp = "<u:AddPortMappingResponse/>"
+                elif "DeletePortMapping" in action:
+                    igd.mappings.pop((field("NewExternalPort"), field("NewProtocol")), None)
+                    resp = "<u:DeletePortMappingResponse/>"
+                elif "GetExternalIPAddress" in action:
+                    resp = (f"<u:GetExternalIPAddressResponse><NewExternalIPAddress>"
+                            f"{igd.EXTERNAL_IP}</NewExternalIPAddress>"
+                            f"</u:GetExternalIPAddressResponse>")
+                else:
+                    self.send_error(500)
+                    return
+                self._reply(f"<s:Envelope><s:Body>{resp}</s:Body></s:Envelope>".encode())
+
+        self.http = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.http.server_port}"
+        self.ssdp = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.ssdp.bind(("127.0.0.1", 0))
+        self.ssdp.settimeout(5.0)
+        self.threads = [threading.Thread(target=self.http.serve_forever, daemon=True),
+                        threading.Thread(target=self._answer, args=(upnp.ST_IGD,), daemon=True)]
+        for t in self.threads:
+            t.start()
+
+    def _answer(self, st):
+        try:
+            data, addr = self.ssdp.recvfrom(4096)
+        except OSError:
+            return
+        if b"M-SEARCH" in data:
+            self.ssdp.sendto(f"HTTP/1.1 200 OK\r\nST: {st}\r\nLOCATION: {self.url}/desc.xml"
+                             f"\r\n\r\n".encode(), addr)
+
+    def close(self):
+        self.http.shutdown()
+        self.http.server_close()
+        self.ssdp.close()
+        for t in self.threads:
+            t.join(timeout=10)
+            if t.is_alive():
+                raise AssertionError("upnp 13d: the fake gateway's thread did not end")
+
+
+def upnp_mapping(card):
+    """Phase 13d's UPnP: ``UpnpIgdClient.discover`` against ``_FakeIgd``
+    (SSDP by unicast to its responder, then the root description), then
+    the external address read, a UDP mapping added, read back from the
+    gateway's table and deleted."""
+    from mediastreamer2_tpu_torch.net.upnp import UpnpIgdClient
+    igd = _FakeIgd()
+    try:
+        t0 = time.perf_counter()
+        client = UpnpIgdClient.discover(timeout_s=0.5, addr=igd.ssdp.getsockname())
+        if client is None or client.control_url != igd.url + "/ctl":
+            raise AssertionError(f"upnp 13d: discovered {client and client.control_url}")
+        ip = client.get_external_ip()
+        client.add_port_mapping(7078, 7078, "192.168.1.50")
+        added = dict(igd.mappings)
+        client.delete_port_mapping(7078)
+        wall = time.perf_counter() - t0
+    finally:
+        igd.close()
+    print(f"upnp 13d: discovered {client.control_url} through SSDP and the description, "
+          f"external address {ip}, mapping added {added}, after delete {igd.mappings}, client "
+          f"mappings {client.mappings} in {wall:.2f} s [{card}]", flush=True)
+    if (ip != _FakeIgd.EXTERNAL_IP or added != {("7078", "UDP"): ("192.168.1.50", "7078")}
+            or igd.mappings or client.mappings):
+        raise AssertionError(f"upnp 13d: ip {ip}, added {added}, left {igd.mappings}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -2964,13 +3782,14 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # nvcc (one per source) and g++ side by side
+    with ThreadPoolExecutor(3) as pool:     # nvcc (one per source) and g++ side by side
         k_build = pool.submit(kernels.build)
         e_build = pool.submit(native.build)
+        p_build = pool.submit(native.build_pump)
         libs, log = k_build.result()
-        edge = e_build.result()
+        edge, pump = e_build.result(), p_build.result()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
-          + ", ".join(os.path.relpath(p, REPO) for p in (*libs, edge)), flush=True)
+          + ", ".join(os.path.relpath(p, REPO) for p in (*libs, edge, pump)), flush=True)
     if log.strip():
         print(log.strip(), flush=True)
     for name, fragment in SPILL_CHECKED.items():
@@ -3197,10 +4016,34 @@ def main():
 
     phase_done(12)
 
+    # phase 13: the SFU and the call's side channels: 13a the audio SFU at
+    # 1,024 participants through the pump, 13b 8b's session over UDP without
+    # and with the pump, 13c the video router with FlexFEC, 13d text and
+    # UPnP, 13e the SFU's path on the CPU against the card
+    t13 = time.perf_counter()
+    sfu_launches, ranks, _ = audio_sfu(kernels, dev, card, SFU_CONFERENCES, SFU_TICKS)
+    phase_done("13a")
+    ms_python = pump_session(dev, card, PUMP_SESSION_LEGS, pumped=False)
+    ms_pump = pump_session(dev, card, PUMP_SESSION_LEGS, pumped=True)
+    print(f"session 13b: {PUMP_SESSION_LEGS} + {PUMP_SESSION_LEGS} legs of 8b over localhost UDP, "
+          f"ms per tick pair: Python receive {ms_python:.3f}, NativeIoPump {ms_pump:.3f} "
+          f"[{card}]", flush=True)
+    phase_done("13b")
+    video_router_fec(card, ranks)
+    phase_done("13c")
+    text_streams(card)
+    upnp_mapping(card)
+    phase_done("13d")
+    sfu_cross(dev, card)
+    print(f"phase 13 took {time.perf_counter() - t13:.1f} s [{card}]", flush=True)
+
+    phase_done(13)
+
     # launches over the main-path runs that were counted: the flagship, the
     # three e2e runs, the session and the wideband call at full width, the
     # gateway and its codec chains, the captures' build and their replay, the
-    # negotiated calls' media, the video pixel path (none: PyTorch ops)
+    # negotiated calls' media, the video pixel path (none: PyTorch ops), the
+    # audio SFU
     runs = {"flagship": (launches, TICKS),
             "e2e": ({k: e2e_launches[k] + srtp_launches[k] + big_launches[k] for k in launches},
                     e2e_ticks + srtp_ticks + big_ticks),
@@ -3210,7 +4053,8 @@ def main():
             "captures_built": (built_launches, CAPTURE_TICKS),
             "captured": (cap_launches, CAPTURE_TICKS),
             "negotiated": (setup_launches, SETUP_TICKS),
-            "video": (video_launches, VIDEO_TICKS)}
+            "video": (video_launches, VIDEO_TICKS),
+            "sfu": (sfu_launches, SFU_TICKS)}
     runs.update({f"chain_{codec}": (c, CHAIN_TICKS) for codec, c in chain_launches.items()})
     total = {k: sum(c[k] for c, _ in runs.values()) for k in launches}
     entries = []

@@ -49,7 +49,10 @@ class FilterDef:
     process: Callable = None
     # runtime_params(ctx, device) -> dict name -> tensor
     runtime_params: Optional[Callable] = None
+    category: str = "other"            # MSFilterCategory: "encoder", "decoder", ...
     interfaces: Tuple[str, ...] = ()
+    # encoder/decoder mime type for Factory.find_encoder / find_decoder
+    enc_fmt: str = ""
 
     def implements(self, interface: str) -> bool:
         return interface in self.interfaces
@@ -66,16 +69,16 @@ def register_filter(fdef: FilterDef) -> FilterDef:
     return fdef
 
 
-def filter_def(name: str, ninputs: int, noutputs: int, *,
-               interfaces: Sequence[str] = (), out_formats=None, init=None,
-               runtime_params=None):
+def filter_def(name: str, ninputs: int, noutputs: int, *, category: str = "other",
+               interfaces: Sequence[str] = (), enc_fmt: str = "", out_formats=None,
+               init=None, runtime_params=None):
     """Decorator: the decorated function is the ``process`` callback."""
     def deco(process_fn):
         fdef = FilterDef(
             name=name, ninputs=ninputs, noutputs=noutputs,
             out_formats=out_formats or (lambda ctx: ctx.in_formats[:1] * max(noutputs, 0)),
             init=init, process=process_fn, runtime_params=runtime_params,
-            interfaces=tuple(interfaces),
+            category=category, interfaces=tuple(interfaces), enc_fmt=enc_fmt,
         )
         register_filter(fdef)
         return fdef

@@ -14,13 +14,18 @@ Differences from the JAX package:
 * ``run_scan`` is a Python loop of K steps that stacks its outputs; PyTorch
   runs eagerly, so there is nothing to fuse at this level.
 * ``init_state`` / ``init_params`` take the device the tensors live on.
-* ``profile_nodes`` is not ported yet.
+* ``profile_nodes`` times each node with CUDA events around its calls on
+  the card (the host clock on the CPU), on a copy of the node's state. The
+  JAX version ends each timed run with a one-scalar readback, a workaround
+  for a TPU link where ``block_until_ready`` returned early; it is left
+  out.
 
 ``ext_source`` / ``ext_sink`` are special-cased by name, as in JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -111,6 +116,13 @@ def _toposort(n_nodes: int, links: Sequence[Link]) -> List[int]:
                          "state (like the reference's EC far-end reference buffer), "
                          "not graph edges")
     return order
+
+
+def clone_tree(tree):
+    """A copy of a state entry (None, or a dict of tensors and dicts)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 class CompiledGraph:
@@ -239,6 +251,53 @@ class CompiledGraph:
         stack = lambda seq: ({k: torch.stack([d[k] for d in seq]) for k in seq[0]}
                              if seq else {})
         return state, stack(outs), stack(evs)
+
+    def profile_nodes(self, state, params, ext_in=None, iters: int = 20) -> Dict[str, float]:
+        """Per-node timing attribution (cf. per-filter MSFilterStats
+        box-plots, msfilter.h:154-159 / ms_factory_log_statistics).
+
+        The tick runs every node back to back, so per-filter time does not
+        exist at run time; this diagnostic runs each node's process alone,
+        ``iters`` times after one warm-up call, on the inputs the previous
+        nodes produced (same shapes), and returns mean milliseconds by node
+        name. The ext nodes are not timed. Each node runs on a copy of its
+        state, so ``state`` is left as it was. ``ext_in`` holds tensors on
+        the graph's device. On the card the calls are timed by a pair of
+        CUDA events on the current stream.
+        """
+        ext_in = ext_in or {}
+        edge_vals: Dict[Tuple[int, int], Any] = {}
+        results: Dict[str, float] = {}
+        for i in self.order:
+            node = self.nodes[i]
+            ctx = self.ctxs[i]
+            ins = tuple(edge_vals[(l.src, l.srcpin)]
+                        for l in (self._in_link[(i, pin)] for pin in range(node.fdef.ninputs)))
+            if node.fdef.name == "ext_source":
+                outs = (torch.as_tensor(ext_in[node.name]),)
+            elif node.fdef.name == "ext_sink":
+                outs = ()
+            else:
+                st = clone_tree(state.get(node.name))
+                p = params.get(node.name, {})
+                st, outs, _ = node.fdef.process(st, ins, p, ctx)
+                cuda = any(t.is_cuda for t in (*ins, *outs) if isinstance(t, torch.Tensor))
+                if cuda:
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    for _ in range(iters):
+                        st, _, _ = node.fdef.process(st, ins, p, ctx)
+                    end.record()
+                    end.synchronize()
+                    results[node.name] = start.elapsed_time(end) / iters
+                else:
+                    t0 = time.perf_counter()
+                    for _ in range(iters):
+                        st, _, _ = node.fdef.process(st, ins, p, ctx)
+                    results[node.name] = (time.perf_counter() - t0) / iters * 1e3
+            for pin, v in enumerate(outs):
+                edge_vals[(i, pin)] = v
+        return results
 
     def describe(self) -> str:
         lines = [f"CompiledGraph batch={self.batch} nodes={len(self.nodes)}"]

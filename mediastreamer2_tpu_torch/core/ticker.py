@@ -71,6 +71,7 @@ import torch
 
 from mediastreamer2_tpu_torch.core.block import TICK_MS
 from mediastreamer2_tpu_torch.core.events import EventQueue
+from mediastreamer2_tpu_torch.core.graph import clone_tree
 
 _UINT32_LEAVES = frozenset({"srk"})     # uint32 scalars in the JAX package
 
@@ -83,13 +84,6 @@ def resolve_device(device) -> torch.device:
             raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
-
-
-def _clone_tree(tree):
-    """A copy of a state entry (None, or a dict of tensors and dicts)."""
-    if tree is None:
-        return None
-    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
 
 
 class _FifoLock:
@@ -357,7 +351,7 @@ class Ticker(_PacedBeat):
         reference's ``preprocess`` before the first tick,
         msticker.c:145-185). The state is left as it was."""
         with self.on_stream():
-            state = {node: _clone_tree(st) for node, st in self.state.items()}
+            state = {node: clone_tree(st) for node, st in self.state.items()}
             if self.warmup_ext is not None:
                 ext_in = {k: torch.from_numpy(np.array(v)).to(self.device)
                           for k, v in self.warmup_ext.items()}

@@ -1,5 +1,6 @@
 """The batched native RTP edge (port of ``mediastreamer2_tpu/native``'s
-``BatchRtpTx`` / ``BatchRtpRx`` bindings) and the port's AES.
+``BatchRtpTx`` / ``BatchRtpRx`` bindings), the port's AES and the native
+receive pump (``NativeIoPump``).
 
 ``rtp_edge.cpp`` and ``aesni_crypto.h`` started as copies of the JAX
 package's sources: header pack + sendmmsg, recvmmsg drain + jitter-ring
@@ -22,9 +23,23 @@ Differences from the JAX package:
   package returns None and its callers skip). ``-O3 -march=native`` is
   retried as ``-O2`` on a g++ that rejects it;
 * ``set_srtp`` raises on a suite or key the edge refuses (a leg is never
-  sent in plaintext); the session keys come from the port's ``derive_key``;
-* ``NativeIoPump`` (``io_pump.cpp``) is not on the port's path and is not
-  ported yet.
+  sent in plaintext); the session keys come from the port's ``derive_key``.
+
+``NativeIoPump`` binds ``io_pump.cpp``, the epoll receive pump on a native
+thread (a copy of the JAX package's source, built the same way into
+``_build/``: ``build_pump``). It departs from the JAX binding in four
+places:
+
+* ``add_socket`` raises when epoll refuses the socket (the JAX binding
+  drops ``epoll_ctl``'s result, and the pump then never reads it);
+* ``read``, ``dropped`` and ``truncated`` raise for a socket the pump does
+  not know (the JAX ``read`` turns the C side's -1 into ``[]``);
+* ``read`` copies only the bytes the C side wrote (the JAX binding copies
+  the whole 1 MB buffer with ``.raw`` on every call: ~1 GB a tick at
+  1,024 sockets, before a packet is looked at);
+* a datagram longer than 2,048 bytes is still cut to 2,048, as in the JAX
+  pump, but it is counted: the C side receives with ``MSG_TRUNC`` and
+  ``truncated(sock)`` reports the count beside ``dropped(sock)``.
 """
 from __future__ import annotations
 
@@ -43,6 +58,7 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 _SOURCES = (_DIR / "rtp_edge.cpp", _DIR / "aesni_crypto.h")
+_PUMP_SOURCES = (_DIR / "io_pump.cpp",)
 BUILD_DIR = _DIR.parent / "_build"
 _FLAG_SETS = (("-O3", "-march=native"), ("-O2",))
 
@@ -50,6 +66,7 @@ _UDP_SEGMENT = 103          # linux/udp.h
 _GSO_PROBE_SEG = 12
 
 _lib = None
+_pump_lib = None
 _build_lock = threading.Lock()
 
 
@@ -66,32 +83,46 @@ def _cpu_flags() -> bytes:
     return b""
 
 
-def build() -> Path:
-    """Compile the edge unless a build of these sources, flags and CPU
-    exists; returns the library's path. Raises with g++'s output when no
-    flag set compiles."""
+def _compile(stem: str, sources, what: str) -> Path:
+    """Compile ``sources[0]`` (the rest are headers it includes) into
+    ``_build/<stem>_<hash>.so`` unless a build of these sources, flags and
+    CPU exists; returns the library's path. Raises with g++'s output when
+    no flag set compiles."""
     digest = hashlib.sha256()
-    for src in _SOURCES:
+    for src in sources:
         digest.update(src.read_bytes())
     digest.update(repr(_FLAG_SETS).encode() + _cpu_flags())
-    out = BUILD_DIR / f"libms2rtp_{digest.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the native RTP edge is built from source")
+        raise RuntimeError(f"g++ not found: the {what} is built from source")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     logs = []
     for flags in _FLAG_SETS:
         res = subprocess.run([gxx, *flags, "-shared", "-fPIC", "-pthread",
-                              str(_SOURCES[0]), "-o", str(tmp), "-ldl"],
+                              str(sources[0]), "-o", str(tmp), "-ldl"],
                              capture_output=True, text=True, timeout=300)
         if res.returncode == 0:
             os.replace(tmp, out)
             return out
         logs.append(f"g++ {' '.join(flags)} ({res.returncode}):\n{res.stdout}{res.stderr}")
-    raise RuntimeError("native RTP edge build failed:\n" + "\n".join(logs))
+    raise RuntimeError(f"{what} build failed:\n" + "\n".join(logs))
+
+
+def build() -> Path:
+    """Compile the edge unless a build of these sources, flags and CPU
+    exists; returns the library's path. Raises with g++'s output when no
+    flag set compiles."""
+    return _compile("libms2rtp", _SOURCES, "native RTP edge")
+
+
+def build_pump() -> Path:
+    """Compile the receive pump (``io_pump.cpp``) as ``build`` does the
+    edge; returns the library's path."""
+    return _compile("libms2io", _PUMP_SOURCES, "native receive pump")
 
 
 def _load():
@@ -357,4 +388,107 @@ class BatchRtpRx:
 
     def __del__(self):
         if getattr(self, "_h", None):
+            self.close()
+
+
+# ---------------------------------------------------------------------------
+# The receive pump (io_pump.cpp): an epoll loop on a native thread drains
+# every registered socket as data lands and queues stamped datagrams, which
+# the tick loop empties with one call a socket.
+# ---------------------------------------------------------------------------
+def _load_pump():
+    global _pump_lib
+    with _build_lock:
+        if _pump_lib is None:
+            lib = ctypes.CDLL(str(build_pump()))
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            u64p = ctypes.POINTER(ctypes.c_uint64)
+            lib.ms2_pump_create.restype = vp
+            lib.ms2_pump_create.argtypes = []
+            lib.ms2_pump_destroy.argtypes = [vp]
+            lib.ms2_pump_add_socket.argtypes = [vp, i]
+            lib.ms2_pump_remove_socket.argtypes = [vp, i]
+            lib.ms2_pump_read.argtypes = [vp, i, ctypes.c_char_p, i]
+            lib.ms2_pump_counters.argtypes = [vp, i, u64p, u64p]
+            for fn in (lib.ms2_pump_add_socket, lib.ms2_pump_remove_socket,
+                       lib.ms2_pump_read, lib.ms2_pump_counters):
+                fn.restype = i
+            _pump_lib = lib
+    return _pump_lib
+
+
+def native_available() -> bool:
+    """True when the pump is built or can be: g++ is installed. A build
+    that then fails raises (no silent fallback)."""
+    if shutil.which("g++") is None:
+        return False
+    _load_pump()
+    return True
+
+
+_FRAME = struct.Struct("<QI")          # t_ns, len: io_pump.cpp's framing
+
+
+class NativeIoPump:
+    """Epoll-based datagram pump on a native thread (``io_pump.cpp``).
+
+    ``read(sock)`` returns ``[(t_ns, bytes), ...]`` drained since the last
+    call, stamped with CLOCK_MONOTONIC nanoseconds when the pump took
+    them off the socket. Each socket queues at most 4,096 datagrams;
+    beyond that the oldest is dropped and counted (``dropped``). The
+    module docstring lists where this binding departs from the JAX
+    package's."""
+
+    def __init__(self, read_buf_size: int = 1 << 20):
+        self._lib = _load_pump()
+        self._pump = self._lib.ms2_pump_create()
+        self._buf = ctypes.create_string_buffer(read_buf_size)
+
+    def add_socket(self, sock) -> None:
+        rc = self._lib.ms2_pump_add_socket(self._pump, sock.fileno())
+        if rc != 0:
+            raise OSError(-rc, f"pump: epoll refused socket {sock.fileno()}: "
+                               f"{os.strerror(-rc)}")
+
+    def remove_socket(self, sock) -> None:
+        self._lib.ms2_pump_remove_socket(self._pump, sock.fileno())
+
+    def read(self, sock) -> list:
+        n = self._lib.ms2_pump_read(self._pump, sock.fileno(), self._buf, len(self._buf))
+        if n < 0:
+            raise KeyError(f"pump: socket {sock.fileno()} was never added")
+        if n == 0:
+            return []
+        raw = ctypes.string_at(self._buf, n)        # only the bytes written
+        out = []
+        off = 0
+        while off < n:
+            t_ns, ln = _FRAME.unpack_from(raw, off)
+            off += _FRAME.size
+            out.append((t_ns, raw[off:off + ln]))
+            off += ln
+        return out
+
+    def _counters(self, sock):
+        dropped, truncated = ctypes.c_uint64(), ctypes.c_uint64()
+        if self._lib.ms2_pump_counters(self._pump, sock.fileno(), ctypes.byref(dropped),
+                                       ctypes.byref(truncated)) != 0:
+            raise KeyError(f"pump: socket {sock.fileno()} was never added")
+        return dropped.value, truncated.value
+
+    def dropped(self, sock) -> int:
+        """Datagrams of ``sock`` dropped because its queue was full."""
+        return self._counters(sock)[0]
+
+    def truncated(self, sock) -> int:
+        """Datagrams of ``sock`` longer than 2,048 bytes, cut to 2,048."""
+        return self._counters(sock)[1]
+
+    def close(self):
+        if self._pump:
+            self._lib.ms2_pump_destroy(self._pump)
+            self._pump = None
+
+    def __del__(self):
+        if getattr(self, "_pump", None):
             self.close()

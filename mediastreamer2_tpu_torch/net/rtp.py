@@ -8,10 +8,8 @@ tick tensors the device graph consumes.
 Transports: real UDP sockets or an in-process loopback pair. A
 ``LoopbackPair`` takes any network simulator with a
 ``shape(now, data) -> [(deliver_at, data), ...]`` method, such as
-``net/netsim.NetworkSimulator``.
-
-Left out, raising ``NotImplementedError`` that names its wait:
-``UdpTransport``'s native epoll pump waits for ``native/io_pump.cpp``.
+``net/netsim.NetworkSimulator``. A ``UdpTransport`` may be drained by the
+native epoll pump (``native.NativeIoPump``, ``attach_pump``).
 """
 from __future__ import annotations
 
@@ -176,9 +174,10 @@ class Transport:
 
 class UdpTransport(Transport):
     """UDP datagram transport; optionally drained by the native C++ epoll
-    pump (NativeIoPump, not ported) so packet reception and
-    arrival timestamping happen off the Python thread — the role oRTP's
-    socket layer plays under the reference's ticker."""
+    pump (``native.NativeIoPump``) so packet reception and arrival
+    timestamping happen off the Python thread — the role oRTP's socket
+    layer plays under the reference's ticker. With a pump, ``last_recv_ns``
+    is the pump's CLOCK_MONOTONIC stamp (ns) of the newest packet read."""
 
     def __init__(self, local_port: int = 0, remote: Optional[Tuple[str, int]] = None,
                  bind_host: str = "127.0.0.1", reuse_addr: bool = False):
@@ -194,8 +193,8 @@ class UdpTransport(Transport):
         self.symmetric = False
 
     def attach_pump(self, pump) -> None:
-        raise NotImplementedError("the native epoll pump (native/io_pump.cpp) is not "
-                                  "ported to mediastreamer2_tpu_torch yet")
+        pump.add_socket(self.sock)
+        self._pump = pump
 
     def set_remote(self, host: str, port: int):
         self.remote = (host, port)

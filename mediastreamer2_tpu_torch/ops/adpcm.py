@@ -80,10 +80,12 @@ def _dec_process(state, ins, params, ctx):
 register_filter(FilterDef(
     name="dvi4_enc", ninputs=1, noutputs=1,
     out_formats=lambda ctx: (ctx.in_formats[0].with_(kind="dvi4"),),
-    init=_adpcm_state, process=_enc_process, interfaces=("audio_encoder",),
+    init=_adpcm_state, process=_enc_process, category="encoder", enc_fmt="dvi4",
+    interfaces=("audio_encoder",),
 ))
 register_filter(FilterDef(
     name="dvi4_dec", ninputs=1, noutputs=1,
     out_formats=lambda ctx: (ctx.in_formats[0].with_(kind="pcm"),),
-    init=_adpcm_state, process=_dec_process, interfaces=("audio_decoder",),
+    init=_adpcm_state, process=_dec_process, category="decoder", enc_fmt="dvi4",
+    interfaces=("audio_decoder",),
 ))

@@ -78,13 +78,13 @@ def _register_codec(name, kind, encode, decode):
         name=f"{name}_enc", ninputs=1, noutputs=1,
         out_formats=lambda ctx: (ctx.in_formats[0].with_(kind=kind),),
         process=lambda state, ins, params, ctx: (state, (encode(ins[0]),), {}),
-        interfaces=("audio_encoder",),
+        category="encoder", enc_fmt=kind, interfaces=("audio_encoder",),
     ))
     register_filter(FilterDef(
         name=f"{name}_dec", ninputs=1, noutputs=1,
         out_formats=lambda ctx: (ctx.in_formats[0].with_(kind="pcm"),),
         process=lambda state, ins, params, ctx: (state, (decode(ins[0]),), {}),
-        interfaces=("audio_decoder",),
+        category="decoder", enc_fmt=kind, interfaces=("audio_decoder",),
     ))
 
 

@@ -117,11 +117,13 @@ register_filter(FilterDef(
     name="g722_enc", ninputs=1, noutputs=1,
     out_formats=lambda ctx: (ctx.in_formats[0].with_(kind="g722",
                                                      rate=ctx.in_formats[0].rate // 2),),
-    init=_g722_init, process=_g722_enc_process, interfaces=("audio_encoder",),
+    init=_g722_init, process=_g722_enc_process, category="encoder", enc_fmt="g722",
+    interfaces=("audio_encoder",),
 ))
 register_filter(FilterDef(
     name="g722_dec", ninputs=1, noutputs=1,
     out_formats=lambda ctx: (ctx.in_formats[0].with_(kind="pcm",
                                                      rate=ctx.in_formats[0].rate * 2),),
-    init=_g722_init, process=_g722_dec_process, interfaces=("audio_decoder",),
+    init=_g722_init, process=_g722_dec_process, category="decoder", enc_fmt="g722",
+    interfaces=("audio_decoder",),
 ))

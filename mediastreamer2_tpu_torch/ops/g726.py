@@ -137,12 +137,14 @@ def _mk(bits, kbps):
     register_filter(FilterDef(
         name=f"g726_{kbps}_enc", ninputs=1, noutputs=1,
         out_formats=lambda ctx: (ctx.in_formats[0].with_(kind=f"g726_{kbps}"),),
-        init=init, process=enc_process, interfaces=("audio_encoder",),
+        init=init, process=enc_process, category="encoder",
+        enc_fmt=f"g726_{kbps}", interfaces=("audio_encoder",),
     ))
     register_filter(FilterDef(
         name=f"g726_{kbps}_dec", ninputs=1, noutputs=1,
         out_formats=lambda ctx: (ctx.in_formats[0].with_(kind="pcm"),),
-        init=init, process=dec_process, interfaces=("audio_decoder",),
+        init=init, process=dec_process, category="decoder",
+        enc_fmt=f"g726_{kbps}", interfaces=("audio_decoder",),
     ))
 
 

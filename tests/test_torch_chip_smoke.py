@@ -806,3 +806,133 @@ def test_phase_12_catches_nothing(smoke):
     assert "try:" not in block and "except" not in block
     for call in ("video_pixel_path(", "video_e2e(", "video_codec_refusals(", "video_cross("):
         assert call in block
+
+
+PHASE_13 = ("sfu_mics", "sfu_speakers", "Sfu", "audio_sfu", "sfu_cross", "pump_session",
+            "video_router_fec", "text_streams", "upnp_mapping")
+
+
+def test_phase_13_speakers_and_microphones(smoke):
+    """13a's design: every microphone carries the room noise; members 0, 1,
+    2 speak before the switch at their levels, member 2 stops and member 3
+    starts at it; the designed speaker sets hold outside the settle
+    windows."""
+    import numpy as np
+    mic = smoke.sfu_mics(2, 100, seed=5)
+    assert mic.shape == (16, 100 * 160) and mic.dtype == np.float32
+    cut = smoke.SFU_SWITCH * 160
+    db = lambda x: 10 * np.log10((x.astype(np.float64) ** 2).mean())
+    for c in range(2):
+        m = mic[8 * c:8 * c + 8]
+        for k in range(4, 8):
+            assert abs(db(m[k]) - smoke.SFU_ROOM_DBFS) < 0.5
+        assert db(m[0]) > db(m[1]) > db(m[2, :cut]) > smoke.SFU_ROOM_DBFS + 20
+        assert abs(db(m[2, cut:]) - smoke.SFU_ROOM_DBFS) < 0.5      # member 2 stopped
+        assert abs(db(m[3, :cut]) - smoke.SFU_ROOM_DBFS) < 0.5      # member 3 not yet
+        assert db(m[3, cut:]) > smoke.SFU_ROOM_DBFS + 25
+    assert np.abs(mic).max() < 1.0                                  # nothing clips
+    assert smoke.sfu_speakers(5) is None and smoke.sfu_speakers(55) is None
+    assert smoke.sfu_speakers(10) == smoke.sfu_speakers(49) == {0, 1, 2}
+    assert smoke.sfu_speakers(smoke.SFU_SWITCH + smoke.SFU_SETTLE) == {0, 1, 3}
+
+
+def test_phase_13a_audio_sfu_on_the_cpu(smoke, capsys):
+    """13a at one conference of 8 x 100 ticks on the CPU: the routes hold
+    the design and the levels, payloads equal, nothing missing or stray,
+    the pumps drop nothing; the drains read the same datagrams both ways;
+    profile_nodes times the decoder and the levels. Then a router that
+    forwards a quiet member fails the phase."""
+    import numpy as np
+    import torch
+    from mediastreamer2_tpu_torch.net import router
+    from mediastreamer2_tpu_torch.ops import kernels
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, ranks, energies = smoke.audio_sfu(kernels, "cpu", "cpu", 1, 100)
+        out = capsys.readouterr().out
+        assert "routes off the levels 0" in out and "pumps dropped 0, truncated 0" in out
+        assert "profile_nodes (server graph, ms a call): dec" in out
+        assert energies.shape == (100, 8) and np.isfinite(energies).all()
+        assert sorted(ranks[:3]) == [0, 1, 3]            # after the switch
+        assert not any(launches.values())                # plain versions on the CPU
+        sfu = smoke.Sfu("cpu", 1, 12)
+        try:
+            sfu.run()
+            assert sfu.route_failures() == [] and sfu.level_failures() == []
+            assert [sorted(h) for h in sfu.routed[11]] == [
+                [1, 2], [0, 2], [0, 1], [0, 1, 2], [0, 1, 2], [0, 1, 2], [0, 1, 2], [0, 1, 2]]
+            pkt = sfu.sent[11]
+            assert (pkt != smoke.G722_SILENCE).any()
+        finally:
+            sfu.close()
+    finally:
+        torch.set_num_threads(threads)
+    route = router.AudioPacketRouter.route
+
+    def louder_quiet(self, from_idx, pkt):     # a router that forwards member 7 too
+        if from_idx % 8 == 7:
+            self.top_n = 8
+            n = route(self, from_idx, pkt)
+            self.top_n = 3
+            return n
+        return route(self, from_idx, pkt)
+    router.AudioPacketRouter.route = louder_quiet
+    try:
+        with pytest.raises(AssertionError, match="sfu 13a: routes off the design"):
+            smoke.audio_sfu(kernels, "cpu", "cpu", 1, 15)
+    finally:
+        router.AudioPacketRouter.route = route
+
+
+def test_phase_13b_to_13e_on_the_cpu(smoke, capsys):
+    """13b's session over UDP on one pump at 4 + 4 legs x 60 ticks: remote
+    reports, RTTs, no auth failure, the listener bars; 13c's router and
+    FEC bars; 13d's text (4 pairs) and UPnP; 13e's CPU-vs-CPU run."""
+    import torch
+    from mediastreamer2_tpu_torch.native import NativeIoPump
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    pump = NativeIoPump()
+    try:
+        sess, qis = smoke.secure_session("cpu", 4, 60, seed=150,
+                                         connect=lambda s: s.udp(pump))
+        try:
+            sess.alternate(60, iterate_every=10)
+            rep = smoke.secure_report(sess, qis)
+            ok, line = sess.check(conf_step=1)
+            assert all(pump.dropped(t.sock) == 0 for t in sess.udp_transports)
+            assert all(t.last_recv_ns for t in sess.udp_transports)
+        finally:
+            for t in sess.udp_transports:
+                t.close()
+        assert not rep.unreported and not rep.no_rtt and rep.auth == 0, rep.line
+        assert ok, line
+        lost, residual = smoke.video_router_fec("cpu", [2, 5, 0, 7], seconds=4.0)
+        assert lost > 0 and residual < lost
+        wrong = smoke.text_streams("cpu", pairs=4, chars=120)
+        assert wrong == {"every 7th lost": [], "burst of 3": []}
+        smoke.upnp_mapping("cpu")
+        smoke.sfu_cross("cpu", "cpu", ticks=20)
+        out = capsys.readouterr().out
+        assert "key-frame requests [2, 5]" in out and "U+FFFD read 4" in out
+    finally:
+        pump.close()
+        torch.set_num_threads(threads)
+
+
+def test_phase_13_catches_nothing(smoke):
+    """No phase-13 function handles an exception: a failure anywhere in it
+    ends the run. ``Sfu.__init__`` closes what it opened and re-raises, and
+    ``Sfu.drain_compare``'s Python loop ends a socket's drain on
+    BlockingIOError."""
+    import ast
+    with open(smoke.__file__) as f:
+        defs = {n.name: n for n in ast.parse(f.read()).body
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    for name in PHASE_13:
+        for n in ast.walk(defs[name]):
+            if isinstance(n, ast.ExceptHandler):
+                assert name == "Sfu", name
+                assert (isinstance(n.body[-1], ast.Raise)
+                        or ast.unparse(n.type) == "BlockingIOError"), ast.unparse(n)

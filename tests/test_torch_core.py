@@ -130,6 +130,110 @@ def test_factory_enable_disable():
     assert f.lookup("echo_canceller").name == "echo_canceller"
 
 
+def test_registry(tfactory):
+    assert tfactory.has("tee")
+    assert tfactory.find_encoder("ulaw").name == "ulaw_enc"
+    assert tfactory.find_decoder("alaw").name == "alaw_dec"
+    assert tfactory.find_encoder("G722").name == "g722_enc"        # mime case ignored
+    assert tfactory.find_decoder("opus") is None
+    encs = tfactory.filters_implementing("audio_encoder")
+    assert any(f.name == "ulaw_enc" for f in encs)
+
+
+def test_registry_matches_jax(factory, tfactory):
+    """Every filter both registries hold declares the same category,
+    interfaces and codec format, and every codec lookup finds the same
+    filter (the JAX registry is the reference)."""
+    jf, tf = factory.filters(), tfactory.filters()
+    assert set(tf) == set(jf)
+    for name in jf:
+        assert ((tf[name].category, tf[name].interfaces, tf[name].enc_fmt)
+                == (jf[name].category, jf[name].interfaces, jf[name].enc_fmt)), name
+    fmts = {f.enc_fmt for f in jf.values() if f.enc_fmt}
+    assert {"ulaw", "alaw", "l16", "g722", "dvi4", "g726_32"} <= fmts
+    for fmt in fmts:
+        assert tfactory.find_encoder(fmt).name == factory.find_encoder(fmt).name
+        assert tfactory.find_decoder(fmt).name == factory.find_decoder(fmt).name
+    for iface in {i for f in jf.values() for i in f.interfaces}:
+        assert (sorted(f.name for f in tfactory.filters_implementing(iface))
+                == sorted(f.name for f in factory.filters_implementing(iface)))
+
+
+def test_factory_filter_enable_disable():
+    """The JAX ``test_core.py`` case: a disabled filter is neither found
+    nor looked up, and codec lookup skips it."""
+    f = Factory()
+    assert f.filter_enabled("ulaw_enc")
+    f.enable_filter("ulaw_enc", False)
+    assert not f.filter_enabled("ulaw_enc") and not f.has("ulaw_enc")
+    assert f.find_encoder("ulaw") is None
+    assert "ulaw_enc" not in f.filters()
+    with pytest.raises(KeyError):
+        f.lookup("ulaw_enc")
+    f.enable_filter("ulaw_enc", True)
+    assert f.has("ulaw_enc") and f.find_encoder("ulaw") is not None
+    with pytest.raises(KeyError):
+        f.enable_filter("nonexistent")
+    f.enable_statistics()
+    assert f.statistics_enabled
+
+
+def test_load_plugin(tmp_path, monkeypatch):
+    """``load_plugin`` imports a module and calls its
+    ``ms_plugin_init(factory)``, which registers a filter in that factory
+    only; a module without it raises."""
+    (tmp_path / "ms2_torch_test_plugin.py").write_text(
+        "from mediastreamer2_tpu_torch.core.filter import FilterDef\n"
+        "def ms_plugin_init(factory):\n"
+        "    factory.register(FilterDef(\n"
+        "        name='plugin_negate', ninputs=1, noutputs=1,\n"
+        "        out_formats=lambda ctx: (ctx.in_formats[0],),\n"
+        "        process=lambda st, ins, p, ctx: (st, (-ins[0],), {}),\n"
+        "        category='other', interfaces=('negate',)))\n")
+    (tmp_path / "ms2_torch_not_a_plugin.py").write_text("X = 1\n")
+    monkeypatch.syspath_prepend(str(tmp_path))
+    f = Factory()
+    f.load_plugin("ms2_torch_test_plugin")
+    assert f.plugins == ["ms2_torch_test_plugin"]
+    assert [d.name for d in f.filters_implementing("negate")] == ["plugin_negate"]
+    assert not Factory().has("plugin_negate")
+    g = GraphBuilder(f, batch=2)
+    g.chain(g.add("ext_source", "in", fmt=Format(rate=8000)), g.add("plugin_negate", "n"),
+            g.add("ext_sink", "out"))
+    x = torch.full((2, 80), 0.5)
+    assert torch.equal(g.build().step({}, {}, {"in": x})[1]["out"], -x)
+    with pytest.raises(ImportError, match="ms_plugin_init"):
+        f.load_plugin("ms2_torch_not_a_plugin")
+
+
+def test_profile_nodes_reports_per_node_times(factory, tfactory):
+    """The JAX ``test_core.py`` case on the port: a time for every node but
+    the ext ones (the same nodes as the JAX package reports), and the
+    state passed in is left as it was (a stateful codec's too)."""
+    S = 80
+
+    def build(gb_cls, f, fmt):
+        g = gb_cls(f, batch=4)
+        src = g.add("ext_source", "in", fmt=fmt(rate=8000))
+        g.chain(src, g.add("ulaw_enc", "enc"), g.add("ulaw_dec", "dec"),
+                g.add("audio_levels", "levels"), g.add("dvi4_enc", "denc"),
+                g.add("ext_sink", "out"))
+        return g.build()
+    tcg = build(GraphBuilder, tfactory, Format)
+    st = tcg.init_state("cpu")
+    before = {k: {n: v.clone() for n, v in e.items()} for k, e in st.items()}
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-0.5, 0.5, (4, S)).astype(np.float32))
+    times = tcg.profile_nodes(st, tcg.init_params("cpu"), ext_in={"in": x}, iters=3)
+    jcg = build(JGraphBuilder, factory, JFormat)
+    jtimes = jcg.profile_nodes(jcg.init_state(), jcg.init_params(),
+                               ext_in={"in": np.zeros((4, S), np.float32)}, iters=3)
+    assert set(times) == set(jtimes) == {"enc", "dec", "denc", "levels"}
+    assert all(v >= 0 for v in times.values())
+    for k, e in st.items():
+        for n, v in e.items():
+            assert torch.equal(v, before[k][n]), (k, n)
+
+
 @pytest.mark.parametrize("rate_in,rate_out,channels", [
     (48000, 16000, 1), (8000, 48000, 1), (44100, 48000, 1), (16000, 8000, 2)])
 def test_resample_matches_jax(factory, tfactory, rate_in, rate_out, channels):

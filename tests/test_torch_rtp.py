@@ -181,15 +181,24 @@ def test_udp_transport_learns_the_source_only_when_symmetric(symmetric):
 
 
 def test_waiting_features_raise():
-    """What still waits raises (the bandwidth estimators and RTCP are
-    ported now: tests/test_torch_rtcp_qos.py; ``replay_capture`` too:
-    tests/test_torch_containers.py)."""
+    """Nothing of ``net/rtp.py`` waits any more (the bandwidth estimators
+    and RTCP: tests/test_torch_rtcp_qos.py; ``replay_capture``:
+    tests/test_torch_containers.py; the pump: tests/test_torch_io_pump.py).
+    ``attach_pump`` puts the socket on the native pump, and ``close`` takes
+    it off again: the pump then raises for it."""
+    from mediastreamer2_tpu_torch.native import NativeIoPump
+    pump = NativeIoPump()
     t = trtp.UdpTransport()
     try:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t.attach_pump(None)
+        t.attach_pump(pump)
+        assert t.recv_all() == []
+        sock = t.sock
+        t.close()
+        with pytest.raises(KeyError, match="never added"):
+            pump.read(sock)
     finally:
         t.close()
+        pump.close()
 
 
 def test_bandwidth_meter_and_volumes_match_jax():
