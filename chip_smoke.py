@@ -13,7 +13,10 @@ the keys they agreed) and the video call (VideoStreamBatch's pixel path at
 1,024 VGA-to-QVGA legs, VideoE2EBench over UDP) and the SFU (1,024
 participants through the native receive pump, ranked by levels computed
 on the card, with the video router, FlexFEC, RFC 4103 text and UPnP beside
-it), and compares the port on the card with the port on the CPU.
+it) and the mixed fleet (1,024 + 256 e2e legs co-resident in one paced
+loop and in per-member threads), the host-codec legs and the
+quirk-configured session on sound cards, and compares the port on the card
+with the port on the CPU.
 
     python3 chip_smoke.py
 
@@ -24,9 +27,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    edge and the receive pump, started together), the G.722, DVI4 and G.726 kernels' registers
    and spill bytes from nvcc's ``-Xptxas -v`` report (a spill fails the
    run), the edge's AES path (``native.hw_crypto``) and which system codec,
-   video and crypto libraries the machine has (opus, gsm, speex, bcg729,
-   bv16, avcodec, vpx, aom, X11, ssl, crypto: printed only), OpenSSL's
-   version (``OpenSSL_version``) and RLIMIT_NOFILE's soft and hard limits;
+   video, crypto and sound libraries the machine has (opus, gsm, speex,
+   bcg729, bv16, avcodec, vpx, aom, X11, ssl, crypto, asound, pulse-simple:
+   printed only), OpenSSL's version (``OpenSSL_version``), RLIMIT_NOFILE's
+   soft and hard limits, whether cv2 imports, /dev/video* and DISPLAY;
 2. each kernel against its plain version, at the flagship's shapes
    (fused_volume; mdf_apply with bf16 and with f32 shadow taps;
    mdf_update at cpos 0, 3, 7; mdf_update_fused, f32 and bf16 shadow)
@@ -253,7 +257,42 @@ Phases, in order (any failure raises and the script exits non-zero):
    finds it in the gateway's table and deletes it. 13e: one conference of 8
    through 13a's path for 60 ticks on the CPU and on the card: energies
    within 1e-5 relative, routed sources equal on every tick. Phase 13's
-   seconds are printed.
+   seconds are printed;
+14. the mixed fleet, the host-codec legs and the device layer
+   (``models/mixed_fleet``, ``E2EStepper``, ``core/quirks``,
+   ``core/devices``). 14a: ``MixedFleetBench`` at its defaults, 1,024
+   flagship and 256 SRTP e2e legs (PALLAS_MDF=1), 32 Opus legs where phase
+   1 found libopus and 2 VP8 streams where it found libvpx, 8 s in one
+   paced loop (``mode="loop"``): printed, each member's legs, ms/tick, late
+   ticks, loss, fidelity and authentication failures, the loop's trace
+   (each member's mean and max ms a tick, the sleep share, the first
+   stalls), ``passes()`` and the launches; bars: no member error,
+   flagship and SRTP fidelity >= 0.9 and loss < 0.02, no SRTP
+   authentication failure, Opus delivery >= 0.95 where it ran, and
+   fused_volume, mdf_apply and mdf_update launched once a tick of each e2e
+   member (the ticks each dispatched; an Opus member's receive volume once
+   a tick and once for its warm-up), mdf_update_fused never; no deadline
+   is held. 14b: the same fleet in per-member threads with 14a's bars.
+   14c: each of opus, gsm, speex, g729, bv16 and aac where phase 1 found
+   its library as a 16 + 16 stream pair over LoopbackPair, the listeners
+   above the JAX package's bar for that codec (``HOST_CODEC_BARS``), and
+   where it did not, ``AudioStreamBatch(codec=...)`` raising RuntimeError
+   naming the library before any graph is built; local_capabilities()
+   offers mpeg4-generic iff aac_available(). 14d: phase 7a at its width
+   with the clients built through the quirk DB ("generic", "usb headset":
+   mic EQ, a 120 ms EC delay line ahead of the AEC's far pin, AEC, AGC)
+   plus a speaker EQ, capturing from and playing to a ``FileSndCard``
+   whose gains are set through the stream (the listeners' mics muted):
+   7a's launches and bars, the graph holding mic_eq, ec_delay, ec and
+   spk_eq, and the card's played blocks equal to the stream's spk output
+   times the output gain, bit for bit; ms per tick pair beside 7a's. 14e:
+   14d at 4 + 4 legs over LoopbackPair on the CPU against the card, the
+   bar of phase 4 on the listeners' recordings. 14f: ALSA, Pulse, V4L2,
+   screenshare and the QR reader's availability and what the card
+   detectors registered (an absent backend registers nothing and raises
+   naming its library), and a ``MireWebCam``'s frames through its graph
+   source on the card within one u8 code of the CPU's. Phase 14's seconds
+   are printed.
 
 Each phase prints the seconds elapsed when it ends. The last two lines of
 standard output are the kernels' JSON and the result's JSON; the card's
@@ -296,7 +335,7 @@ REPLACES = {  # the TPU kernel (or lax.scan) each CUDA kernel replaces
 }
 SOURCES = {"g722": G722_SOURCE, "dvi4": ADPCM_SOURCE, "g726": ADPCM_SOURCE}   # by name prefix
 SYSTEM_LIBRARIES = ("opus", "gsm", "speex", "bcg729", "bv16", "avcodec", "vpx", "aom", "X11",
-                    "ssl", "crypto")
+                    "ssl", "crypto", "asound", "pulse-simple")
 # kernels whose registers phase 1 prints and whose spills fail it, by a
 # fragment of the mangled name (G.726 at 40 kbit/s: the most thresholds
 # and candidates a lane)
@@ -395,6 +434,38 @@ CROSS_VIDEO_TICKS = 60
 TICK_S = 0.01
 P, F, S = 8, 481, 480         # the flagship's AEC at 48 kHz
 SP, SF, S8 = 8, 81, 80        # the session's AEC at 8 kHz
+FLEET_FLAGSHIP = 1024         # phase 14a / 14b: MixedFleetBench's defaults
+FLEET_SRTP = 256
+FLEET_OPUS = 32               # where phase 1 found libopus, else 0
+FLEET_VIDEO = 2               # where phase 1 found libvpx, else 0
+FLEET_SECONDS = 8.0
+HOST_CODEC_LEGS = 16          # phase 14c: a 16 + 16 stream pair a codec
+HOST_CODEC_TICKS = 150
+# (codec, rate, find_library name, what the raise names)
+HOST_CODEC_LIBS = (("opus", 48000, "opus", "libopus"), ("gsm", 8000, "gsm", "libgsm"),
+                   ("speex", 8000, "speex", "libspeex"), ("g729", 8000, "bcg729", "libbcg729"),
+                   ("bv16", 8000, "bv16", "libbv16"), ("aac", 16000, "avcodec", "libavcodec"))
+# 14c's listener bars against the speech sent, the JAX package's for each
+# codec: gsm tests/test_audio_stream.py (0.85), aac tests/test_aac.py (0.8),
+# bv16 tests/test_aac.py (0.7), g729 tests/test_speex.py's SNR > 6 dB after
+# the best gain, which is a normalized correlation above
+# sqrt(10**0.6 / (1 + 10**0.6)) = 0.894; opus and speex (a number: the
+# codec's own offline round trip of the signal less that much) as
+# tests/test_audio_stream.py's opus ptime case (0.05) and
+# tests/test_speex.py's stream case (0.07) hold them: the two codecs keep
+# less of a synthetic signal than the others, by how much depends on it
+HOST_CODEC_BARS = {"gsm": 0.85, "aac": 0.8, "bv16": 0.7, "g729": 0.894}
+HOST_CODEC_MARGINS = {"opus": 0.05, "speex": 0.07}
+QUIRK_DEVICE = ("generic", "usb headset")     # phase 14d's quirk DB entry
+QUIRK_SPK_EQ = [(1000.0, 0.9, 400.0)]         # and speaker EQ (tests/test_quirks_alsa.py's)
+QUIRK_GAINS = (0.8, 1.25)                     # the card's input and output gains
+QUIRK_LEGS = 1024             # phase 14d: phase 7a's width
+QUIRK_TICKS = 150
+CROSS_QUIRK_LEGS = 4          # phase 14e
+CROSS_QUIRK_TICKS = 150
+MIRE_LEGS = 4                 # phase 14f: MireWebCam frames, card against CPU
+MIRE_TICKS = 5
+PAIR_MS = {}                  # ms per tick pair of session_edge's phases
 WF, S16 = 161, 160            # the wideband call's AEC at 16 kHz
 
 
@@ -1296,14 +1367,24 @@ class Session:
     last one may have fewer), leg 4k talks. The clients' push is tapped for
     the talkers' sent codes and for finite speakers."""
 
-    def __init__(self, dev, legs, ticks, seed=3, codec="ulaw", rate=8000):
+    def __init__(self, dev, legs, ticks, seed=3, codec="ulaw", rate=8000, sound_card=False):
         """G.722 is stateful: its decoders start on the jitter buffers'
         empty ticks (code 0, as in the JAX package) and play a loud
         transient until the first packets have re-synchronised their
         predictors (~10 ticks), which the clients' echo cancellers and
         AGC then take ~30 more ticks to shed; ``settle`` = 40 ticks are left
-        out of the bars (``bars``) and of the talker samples."""
+        out of the bars (``bars``) and of the talker samples.
+
+        ``sound_card`` (phase 14d): the clients are the quirk-configured
+        session (``quirk_features``: mic EQ, the EC delay line, AEC, AGC,
+        speaker EQ) on a ``FileSndCard`` that captures one speech signal
+        for every leg and collects the playback, its gains set through
+        the stream (``QUIRK_GAINS``); the listeners' microphones are muted
+        (``enable_mic``), so that leg 4k alone talks in conference k. The
+        send volume ramps a muted leg down (its gain x 0.88 a tick: -44 dB
+        by tick 40), so ``settle`` is 40 ticks here too."""
         from mediastreamer2_tpu_torch import Factory, tick_samples
+        from mediastreamer2_tpu_torch.core.devices import FileSndCard
         from mediastreamer2_tpu_torch.models.audio_stream import (AudioStreamBatch,
                                                                   AudioStreamFeatures)
         from mediastreamer2_tpu_torch.models.conference import AudioConferenceControl
@@ -1311,21 +1392,39 @@ class Session:
         self.legs, self.ticks, self.codec, self.rate = legs, ticks, codec, rate
         self.conferences = -(-legs // 4)
         self.S = tick_samples(rate)
-        self.settle = 40 if codec == "g722" else 0
+        self.settle = 40 if codec == "g722" or sound_card else 0
         n = self.S * (ticks + 60)
-        self.mic = np.zeros((legs, n), np.float32)
-        for k in range(self.conferences):
-            self.mic[4 * k] = make_speechlike(n, rate, seed=seed + k)
         f = Factory()
-        self.clients = AudioStreamBatch(
-            f, legs, codec=codec, rate=rate, mic_signal=self.mic, record_ticks=ticks + 60,
-            device=dev, features=AudioStreamFeatures(echo_canceller=True, agc=True))
+        self.card = None
+        if sound_card:
+            gain_in, gain_out = QUIRK_GAINS
+            self.card = FileSndCard(signal=make_speechlike(n, rate, seed=seed), rate=rate)
+            # every leg captures the card's signal; the talkers send it
+            self.mic = np.broadcast_to(self.card.signal * np.float32(gain_in), (legs, n))
+            self.clients = AudioStreamBatch(
+                f, legs, codec=codec, rate=rate, snd_card=self.card, record_ticks=ticks + 60,
+                device=dev, features=quirk_features())
+            self.clients.set_sound_card_input_gain(gain_in)
+            self.clients.set_sound_card_output_gain(gain_out)
+            for leg in range(legs):
+                if leg % 4:
+                    self.clients.enable_mic(leg, False)
+            delay = self.clients.features.ec_delay_ms // 10
+            self.clients.ticker.mutate(
+                lambda tk: tk.params["ec_delay"]["delay_ticks"].fill_(delay))
+        else:
+            self.mic = np.zeros((legs, n), np.float32)
+            for k in range(self.conferences):
+                self.mic[4 * k] = make_speechlike(n, rate, seed=seed + k)
+            self.clients = AudioStreamBatch(
+                f, legs, codec=codec, rate=rate, mic_signal=self.mic, record_ticks=ticks + 60,
+                device=dev, features=AudioStreamFeatures(echo_canceller=True, agc=True))
         self.server = AudioStreamBatch(f, legs, codec=codec, rate=rate, conference=True,
                                        device=dev)
         self.ctl = AudioConferenceControl(self.server.ticker)
         for leg in range(legs):
             self.ctl.add_member(leg, leg // 4)
-        self.sent, self.finite = [], [True]
+        self.sent, self.finite, self.spk = [], [True], []
         for s, keep in ((self.clients, True), (self.server, False)):
             s.ticker.realtime = False
             self._tap(s, keep)
@@ -1336,9 +1435,20 @@ class Session:
         def tapped(tick, out):
             if keep:
                 self.sent.append(out["rtp_tx"][::4].copy())
+                if self.card is not None:
+                    self.spk.append(out["spk"].copy())
             self.finite[0] &= bool(np.isfinite(out["spk"]).all())
             push(tick, out)
         stream.ticker.set_io(pull=stream.ticker._io_pull, push=tapped)
+
+    def card_played_ok(self):
+        """(the card played every tick's ``spk`` block times the output
+        gain, bit for bit; the ticks compared)."""
+        played, spk = self.card.played, self.spk
+        gain = np.float32(self.clients.get_sound_card_output_gain())
+        ok = len(played) == len(spk) > 0 and all(
+            np.array_equal(p, s * gain) for p, s in zip(played, spk))
+        return ok, len(spk)
 
     def loopback(self):
         from mediastreamer2_tpu_torch.net.rtp import LoopbackPair
@@ -1570,13 +1680,15 @@ def batch_edge(sess, srtp=False, calls=None):
 
 
 def session_edge(kernels, dev, card, legs, ticks, phase="7a", codec="ulaw", rate=8000,
-                 srtp=False, calls=None):
-    """Phases 7a, 8a and 11a: the session pair at full width over localhost
-    UDP through the native batched edge (``batch_edge``: ``srtp`` keys from
-    a seeded generator, or ``calls``' negotiated ones). Returns the launches
-    of the counted run."""
+                 srtp=False, calls=None, sound_card=False):
+    """Phases 7a, 8a, 11a and 14d: the session pair at full width over
+    localhost UDP through the native batched edge (``batch_edge``: ``srtp``
+    keys from a seeded generator, or ``calls``' negotiated ones;
+    ``sound_card``: the quirk-configured clients on a FileSndCard, 14d).
+    Returns the launches of the counted run; its ms per tick pair goes
+    into ``PAIR_MS[phase]``."""
     from mediastreamer2_tpu_torch import native
-    sess = Session(dev, legs, ticks, codec=codec, rate=rate)
+    sess = Session(dev, legs, ticks, codec=codec, rate=rate, sound_card=sound_card)
     srv, cli = batch_edge(sess, srtp, calls)
     try:
         sess.clients.ticker.warm_up()
@@ -1614,6 +1726,19 @@ def session_edge(kernels, dev, card, legs, ticks, phase="7a", codec="ulaw", rate
             f"{k} {v}" for k, v in suites.items()) + ")"
     if srtp or calls is not None:
         what += f" (edge AES-NI {native.hw_crypto()})"
+    card_ok = True
+    if sound_card:
+        card_ok, played = sess.card_played_ok()
+        nodes = [k for k in ("mic_eq", "ec_delay", "ec", "spk_eq") if k in sess.clients.ticker.state]
+        card_ok &= nodes == ["mic_eq", "ec_delay", "ec", "spk_eq"]
+        what += (f", the quirk session ({QUIRK_DEVICE}: nodes {nodes}, EC delay "
+                 f"{sess.clients.features.ec_delay_ms} ms) on a FileSndCard, gains in / out "
+                 f"{sess.clients.get_sound_card_input_gain()} / "
+                 f"{sess.clients.get_sound_card_output_gain()}, the card's {played} played "
+                 f"blocks equal to spk x the output gain: {card_ok}")
+        if "7a" in PAIR_MS:
+            what += f"; 7a read {PAIR_MS['7a']:.3f} ms per tick pair"
+    PAIR_MS[phase] = ms
     print(f"session {phase}: {legs} + {legs} legs (AEC+AGC clients, conference server, "
           f"{legs // 4} four-party conferences, {what}) x {ticks} ticks over the batch edge, "
           f"UDP GSO {sess.server.gso}: {ms:.3f} ms per tick pair (host clock); host ms/tick by "
@@ -1622,7 +1747,11 @@ def session_edge(kernels, dev, card, legs, ticks, phase="7a", codec="ulaw", rate
           f"auth failures {auth}, replay drops {replay}; {line}; state finite "
           f"{state_finite}; conferences whose talker was never named {len(missing)}, "
           f"listeners named {len(stray)} [{card}]", flush=True)
-    _require_counts(f"session {phase}", launches, session_launches(codec, ticks))
+    if torch.device(dev).type == "cuda":      # the plain versions launch nothing
+        _require_counts(f"session {phase}", launches, session_launches(codec, ticks))
+    if not card_ok:
+        raise AssertionError(f"session {phase}: the sound card's playback or the quirk "
+                             f"nodes are wrong: {what}")
     if min(recv) < ticks // 2:
         raise AssertionError(f"session {phase}: a leg received only {min(recv)} packets")
     if auth or replay:
@@ -1707,18 +1836,23 @@ def session_paced(dev, card, legs, ticks):
     return sess
 
 
-def session_cross(dev, legs, ticks):
-    """Phase 7c: the same session on the CPU (plain versions) and on the
-    card (kernels), over LoopbackPair with alternating do_tick; returns
-    the clients' recordings of the listeners, CPU then card."""
+def session_cross(dev, legs, ticks, sound_card=False):
+    """Phases 7c and 14e: the same session on the CPU (plain versions) and
+    on the card (kernels), over LoopbackPair with alternating do_tick
+    (``sound_card``: 14d's quirk session on its card, whose playback must
+    equal spk times the output gain on both); returns the clients'
+    recordings of the listeners, CPU then card."""
     recs = []
+    phase = "14e" if sound_card else "7c"
     for d in (torch.device("cpu"), dev):
-        sess = Session(d, legs, ticks, seed=70)
+        sess = Session(d, legs, ticks, seed=70, sound_card=sound_card)
         sess.loopback()
         sess.alternate(ticks)
         ok, line = sess.check(conf_step=1)
+        if sound_card:
+            ok &= sess.card_played_ok()[0]
         if not ok:
-            raise AssertionError(f"session 7c on {d.type}: {line}")
+            raise AssertionError(f"session {phase} on {d.type}: {line}")
         rec = sess.clients.get_recording()[:, :S8 * ticks]
         recs.append(rec[[leg for leg in range(legs) if leg % 4]])
     return recs
@@ -3760,6 +3894,253 @@ def upnp_mapping(card):
         raise AssertionError(f"upnp 13d: ip {ip}, added {added}, left {igd.mappings}")
 
 
+# -- phase 14: the mixed fleet, the host-codec legs and the device layer ------
+def quirk_features():
+    """14d's client features: AEC + AGC through the quirk DB's entry for
+    ``QUIRK_DEVICE`` (mic EQ, a 120 ms EC delay), plus ``QUIRK_SPK_EQ``."""
+    from mediastreamer2_tpu_torch.core.quirks import apply_quirks, lookup_quirks
+    from mediastreamer2_tpu_torch.models.audio_stream import AudioStreamFeatures
+    ft = apply_quirks(AudioStreamFeatures(echo_canceller=True, agc=True),
+                      lookup_quirks(*QUIRK_DEVICE))
+    ft.spk_eq_gains = list(QUIRK_SPK_EQ)
+    return ft
+
+
+def fleet_sizes():
+    """14a's members (flagship, srtp, opus, video): MixedFleetBench's
+    defaults, Opus and VP8 only where phase 1 finds libopus and libvpx."""
+    return (FLEET_FLAGSHIP, FLEET_SRTP, FLEET_OPUS if ctypes.util.find_library("opus") else 0,
+            FLEET_VIDEO if ctypes.util.find_library("vpx") else 0)
+
+
+def fleet_launches(e2e_ticks, opus_ticks=None):
+    """The launches a fleet run must show: fused_volume, mdf_apply and
+    mdf_update once a tick of each e2e member (megakernel mode, as phase
+    5 counts them: the ticks each bench dispatched), mdf_update_fused
+    never; an Opus member adds its conference's receive volume once a tick
+    and once for its warm-up."""
+    n = sum(e2e_ticks.values())
+    want = {"fused_volume": n, "mdf_apply": n, "mdf_update": n}
+    if opus_ticks is not None:
+        want["fused_volume"] += opus_ticks + 1
+    return want
+
+
+def fleet_bars(res):
+    """14a / 14b's correctness bars (the deadline is printed, not held):
+    the failures, empty when met."""
+    bad = [f"errors {res.errors}"] if res.errors else []
+    for name in ("flagship", "srtp"):
+        r = getattr(res, name)
+        if r is None:
+            bad.append(f"{name}: no result")
+        elif not (r.fidelity >= 0.9 and r.loss_rate < 0.02 and r.out_finite):
+            bad.append(f"{name}: fidelity {r.fidelity}, loss {r.loss_rate}, finite "
+                       f"{r.out_finite}")
+    if res.srtp is not None and res.srtp.auth_failures:
+        bad.append(f"srtp: {res.srtp.auth_failures} authentication failures")
+    if res.opus is not None and res.opus["delivery"] < 0.95:
+        bad.append(f"opus: delivery {res.opus['delivery']}")
+    return bad
+
+
+def fleet_run(kernels, dev, card, mode, seconds=FLEET_SECONDS, sizes=None, phase=None):
+    """Phases 14a (``mode="loop"``) and 14b (``"threads"``): the mixed
+    fleet at ``sizes`` (``fleet_sizes()``) for ``seconds`` in megakernel
+    mode, launches counted over the run. Returns (result, launches, the
+    flagship member's dispatched ticks)."""
+    from mediastreamer2_tpu_torch import Factory
+    from mediastreamer2_tpu_torch.models.mixed_fleet import MixedFleetBench
+    phase = phase or {"loop": "14a", "threads": "14b"}[mode]
+    nf, ns, no, nv = sizes or fleet_sizes()
+    with environ(PALLAS_MDF="1"):
+        fleet = MixedFleetBench(Factory, n_flagship=nf, n_srtp=ns, n_opus=no, n_video=nv,
+                                device=dev)
+        try:
+            e2e = {k: fleet.members[k] for k in ("flagship", "srtp") if k in fleet.members}
+            for b in e2e.values():
+                b.warm()                  # first launches outside the counted run
+            t0 = {k: b._t for k, b in e2e.items()}
+            opus = fleet.members.get("opus")
+            o0 = opus.ticker.stats.ticks if opus is not None else 0
+            kernels.reset_launch_counts()
+            t_run = time.perf_counter()
+            res = fleet.run(seconds=seconds, mode=mode)
+            wall = time.perf_counter() - t_run
+            launches = kernels.launch_counts()
+            ticks = {k: b._t - t0[k] for k, b in e2e.items()}
+            opus_ticks = opus.ticker.stats.ticks - o0 if opus is not None else None
+        finally:
+            fleet.close()
+    summary = res.summary()
+    trace = summary.pop("trace")
+    line = f"fleet {phase} ({mode}): {nf} flagship + {ns} SRTP e2e legs, {no} Opus legs, " \
+           f"{nv} VP8 streams, {seconds} s paced ({wall:.1f} s with the warm-up and the " \
+           f"drain), megakernel AEC: {json.dumps(summary)}; passes() {res.passes()}; " \
+           f"ticks dispatched {ticks}, Opus ticks {opus_ticks}; launches {launches}"
+    if trace is not None:
+        line += (f"; loop trace: ms a tick by member mean {trace['per_member_ms_mean']} max "
+                 f"{trace['per_member_ms_max']}, sleep share "
+                 f"{trace['sleep_s'] / max(trace['wall_s'], 1e-9):.3f} of {trace['wall_s']} s, "
+                 f"other host time {trace['busy_other_s']} s, workers "
+                 f"{json.dumps(trace['per_member_worker'])}, first stalls "
+                 f"{trace['stalls'][:8]}")
+    print(line + f" [{card}]", flush=True)
+    bad = fleet_bars(res)
+    if bad:
+        raise AssertionError(f"fleet {phase}: " + "; ".join(bad))
+    if torch.device(dev).type == "cuda":      # the plain versions launch nothing
+        _require_counts(f"fleet {phase}", launches, fleet_launches(ticks, opus_ticks))
+    return res, launches, ticks.get("flagship", 0)
+
+
+def host_codec_bar(codec, rate, sig):
+    """A codec's listener bar: ``HOST_CODEC_BARS``, or for opus and speex
+    the codec's own offline round trip of ``sig`` (its default frames)
+    less ``HOST_CODEC_MARGINS``."""
+    if codec in HOST_CODEC_BARS:
+        return HOST_CODEC_BARS[codec]
+    from mediastreamer2_tpu_torch.ops import host_codecs as hc
+    from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
+    if codec == "opus":
+        enc, dec, F = hc.OpusEncoder(rate=rate), hc.OpusDecoder(rate=rate), rate // 100
+        trip = lambda x: dec.decode(enc.encode(x), F)          # noqa: E731
+    else:
+        c = hc.SpeexCodec(rate=rate)
+        F, trip = c.frame_samples, lambda x: c.decode(c.encode(x))   # noqa: E731
+    ref = np.concatenate([trip(sig[k * F:(k + 1) * F]) for k in range(len(sig) // F)])
+    return audio_diff(sig[:len(ref)], ref)[0] - HOST_CODEC_MARGINS[codec]
+
+
+def host_codec_pair(dev, codec, rate, legs, ticks, seed=1400):
+    """``legs`` talkers -> ``legs`` listeners of ``codec`` over a
+    LoopbackPair a leg, ``ticks`` + 40 alternating do_ticks; returns (each
+    listener's audio_diff against its talker's speech, each one's bar,
+    payloads sent)."""
+    from mediastreamer2_tpu_torch import Factory
+    from mediastreamer2_tpu_torch.models.audio_stream import AudioStreamBatch
+    from mediastreamer2_tpu_torch.net.rtp import LoopbackPair
+    from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
+    from mediastreamer2_tpu_torch.utils.signals import make_speechlike
+    n = rate // 100 * ticks
+    sig = make_speechlike(n, rate, seed=[seed + i for i in range(legs)])
+    f = Factory()
+    tx = AudioStreamBatch(f, legs, codec=codec, rate=rate, mic_signal=sig, device=dev)
+    rx = AudioStreamBatch(f, legs, codec=codec, rate=rate, record_ticks=ticks + 40, device=dev)
+    for leg in range(legs):
+        pair = LoopbackPair()
+        tx.set_transport(leg, pair.endpoint(0))
+        rx.set_transport(leg, pair.endpoint(1))
+    for s in (tx, rx):
+        s.ticker.realtime = False
+        s.ticker.warm_up()
+    for _ in range(ticks + 40):
+        tx.ticker.do_tick()
+        rx.ticker.do_tick()
+    sims, _ = audio_diff(sig, rx.get_recording(), device=dev)
+    sent = sum(s.stats.sent_packets for s in tx.sessions)
+    return np.asarray(sims), np.array([host_codec_bar(codec, rate, row) for row in sig]), sent
+
+
+def host_codec_legs(dev, card, legs=HOST_CODEC_LEGS, ticks=HOST_CODEC_TICKS):
+    """Phase 14c: each host codec where phase 1's ``find_library`` finds
+    its library (AAC: and ``aac_available()``) as a ``legs`` + ``legs``
+    stream pair on ``dev``, its listeners above the JAX package's bar;
+    where it does not, ``AudioStreamBatch(codec=...)`` must raise
+    RuntimeError naming the library before any graph is built. Then
+    ``local_capabilities()`` offers mpeg4-generic iff ``aac_available()``.
+    Returns {codec: line}."""
+    from mediastreamer2_tpu_torch import Factory
+    from mediastreamer2_tpu_torch.models import audio_stream
+    from mediastreamer2_tpu_torch.models.offer_answer import local_capabilities
+    from mediastreamer2_tpu_torch.ops.aac import aac_available
+    lines, bad = {}, []
+    for codec, rate, so, lib in HOST_CODEC_LIBS:
+        found = ctypes.util.find_library(so)
+        if codec == "aac" and found and not aac_available():
+            found = None
+        if found:
+            sims, bar, sent = host_codec_pair(dev, codec, rate, legs, ticks)
+            worst = int(np.argmin(sims - bar))
+            lines[codec] = (f"{codec}: {so} {found}, {legs} + {legs} legs x {ticks} ticks, "
+                            f"{sent} packets sent, listeners audio_diff min {sims.min():.4f}, "
+                            f"closest to its bar: leg {worst} {sims[worst]:.4f} (bar "
+                            f"{bar[worst]:.4f})")
+            if not (sims > bar).all():
+                bad.append(lines[codec])
+            continue
+        builder, built = audio_stream.GraphBuilder, []
+        audio_stream.GraphBuilder = lambda *a, **k: built.append(a) or builder(*a, **k)
+        try:
+            err = refusal(lambda: audio_stream.AudioStreamBatch(Factory(), legs, codec=codec,
+                                                                rate=rate, device=dev))
+        finally:
+            audio_stream.GraphBuilder = builder
+        lines[codec] = (f"{codec}: {so} {found}, raised {err!r}, graphs built before the "
+                        f"raise {len(built)}")
+        if err is None or lib not in err or built:
+            bad.append(lines[codec])
+    for line in lines.values():
+        print(f"host codecs 14c: {line} [{card}]", flush=True)
+    offered = "mpeg4-generic" in {c.mime for c in local_capabilities()}
+    print(f"host codecs 14c: local_capabilities() offers mpeg4-generic {offered}, "
+          f"aac_available() {aac_available()}", flush=True)
+    if offered != aac_available():
+        bad.append(f"mpeg4-generic offered {offered}, aac_available() {aac_available()}")
+    if bad:
+        raise AssertionError(f"host codecs 14c: {bad}")
+    return lines
+
+
+def mire_frames(dev, legs=MIRE_LEGS, ticks=MIRE_TICKS):
+    """The default ``MireWebCam``'s frames through its graph source (the
+    port's ``mire`` filter) on ``dev``: u8 codes [ticks, legs, h*3/2, w]."""
+    from mediastreamer2_tpu_torch import Factory, GraphBuilder
+    from mediastreamer2_tpu_torch.core.devices import WebCamManager
+    name, params = WebCamManager().get_cam("mire").graph_source()
+    g = GraphBuilder(Factory(), batch=legs)
+    g.chain(g.add(name, "cam", **params), g.add("ext_sink", "out"))
+    cg = g.build()
+    st, pr = cg.init_state(dev), cg.init_params(dev)
+    frames = []
+    for _ in range(ticks):
+        st, out, _ = cg.step(st, pr, {})
+        frames.append(torch.round(out["out"].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy())
+    return np.stack(frames)
+
+
+def device_gating(dev, card):
+    """Phase 14f: what the device layer finds on this machine (ALSA, Pulse,
+    V4L2, screenshare, the QR reader) and what the card detectors
+    registered; an absent backend registers nothing and raises naming its
+    library. A MireWebCam's frames on ``dev`` within one u8 code of the
+    CPU's."""
+    from mediastreamer2_tpu_torch.core import alsa, devices, pulse, v4l2
+    from mediastreamer2_tpu_torch.ops import qrcode, screenshare
+    mgr = devices.SndCardManager()
+    drivers = [c.driver for c in mgr.cards]
+    bad = []
+    for ok, driver, make, lib in ((alsa.alsa_available(), "alsa", alsa.AlsaSndCard, "libasound"),
+                                  (pulse.pulse_available(), "pulse", pulse.PulseSndCard,
+                                   "libpulse-simple")):
+        if not ok:
+            err = refusal(make)
+            if driver in drivers or err is None or lib not in err:
+                bad.append(f"{driver}: registered {driver in drivers}, raised {err!r}")
+    got, want = mire_frames(dev), mire_frames(torch.device("cpu"))
+    apart = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+    print(f"devices 14f: ALSA {alsa.alsa_available()}, Pulse {pulse.pulse_available()}, V4L2 "
+          f"{v4l2.v4l2_available()} ({v4l2.list_devices()}), screenshare "
+          f"{screenshare.screenshare_available()}, QR reader {qrcode.qrcode_available()}; "
+          f"the card detectors registered {[repr(c) for c in mgr.cards]}; webcams "
+          f"{[c.name for c in devices.WebCamManager().cams]}; the mire's {got.shape} frames on "
+          f"the card at most {apart} u8 codes from the CPU's [{card}]", flush=True)
+    if apart > 1:
+        bad.append(f"mire frames {apart} codes apart")
+    if bad:
+        raise AssertionError(f"devices 14f: {bad}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -3808,6 +4189,11 @@ def main():
     from mediastreamer2_tpu_torch.net import openssl
     print(f"OpenSSL: {openssl.openssl_version()}; RLIMIT_NOFILE soft / hard: "
           + " / ".join(map(str, resource.getrlimit(resource.RLIMIT_NOFILE))), flush=True)
+    import glob
+    import importlib.util
+    print(f"cv2 importable {importlib.util.find_spec('cv2') is not None}; /dev/video* "
+          f"{sorted(glob.glob('/dev/video*'))}; DISPLAY {os.environ.get('DISPLAY')!r}",
+          flush=True)
 
     phase_done(1)
 
@@ -4039,11 +4425,41 @@ def main():
 
     phase_done(13)
 
+    # phase 14: the mixed fleet (14a one paced loop, 14b per-member
+    # threads), the host-codec legs (14c), the quirk session on sound cards
+    # at full width (14d) and CPU vs card (14e), the device layer (14f)
+    t14 = time.perf_counter()
+    _, fleet_loop_launches, fleet_loop_ticks = fleet_run(kernels, dev, card, "loop")
+    phase_done("14a")
+    _, fleet_thread_launches, fleet_thread_ticks = fleet_run(kernels, dev, card, "threads")
+    phase_done("14b")
+    host_codec_legs(dev, card)
+    phase_done("14c")
+    quirk_launches = session_edge(kernels, dev, card, QUIRK_LEGS, QUIRK_TICKS, phase="14d",
+                                  sound_card=True)
+    phase_done("14d")
+    rec_cpu, rec_gpu = session_cross(dev, CROSS_QUIRK_LEGS, CROSS_QUIRK_TICKS, sound_card=True)
+    bar = quality_bar(rec_cpu, rec_gpu, leg_step=1)
+    print(f"session 14e: {CROSS_QUIRK_LEGS} + {CROSS_QUIRK_LEGS} legs x {CROSS_QUIRK_TICKS} "
+          f"ticks of 14d's quirk session on a FileSndCard over LoopbackPair, the CPU against the "
+          f"card, the clients' recordings of every listener: audio_diff_min "
+          f"{bar['audio_diff_min']:.6f}, rms_err {bar['rms_err']:.3e}, max_abs_err "
+          f"{bar['max_abs_err']:.3e}, energy_gap_db_max {bar['energy_gap_db_max']:.4f}, pass "
+          f"{bar['pass']}", flush=True)
+    if not bar["pass"]:
+        raise AssertionError(f"session 14e cpu vs gpu quality bar failed: {bar}")
+    phase_done("14e")
+    device_gating(dev, card)
+    print(f"phase 14 took {time.perf_counter() - t14:.1f} s [{card}]", flush=True)
+
+    phase_done(14)
+
     # launches over the main-path runs that were counted: the flagship, the
     # three e2e runs, the session and the wideband call at full width, the
     # gateway and its codec chains, the captures' build and their replay, the
     # negotiated calls' media, the video pixel path (none: PyTorch ops), the
-    # audio SFU
+    # audio SFU, the mixed fleet in both modes (a tick: the flagship member's)
+    # and the quirk session
     runs = {"flagship": (launches, TICKS),
             "e2e": ({k: e2e_launches[k] + srtp_launches[k] + big_launches[k] for k in launches},
                     e2e_ticks + srtp_ticks + big_ticks),
@@ -4054,7 +4470,10 @@ def main():
             "captured": (cap_launches, CAPTURE_TICKS),
             "negotiated": (setup_launches, SETUP_TICKS),
             "video": (video_launches, VIDEO_TICKS),
-            "sfu": (sfu_launches, SFU_TICKS)}
+            "sfu": (sfu_launches, SFU_TICKS),
+            "fleet_loop": (fleet_loop_launches, fleet_loop_ticks),
+            "fleet_threads": (fleet_thread_launches, fleet_thread_ticks),
+            "quirk_session": (quirk_launches, QUIRK_TICKS)}
     runs.update({f"chain_{codec}": (c, CHAIN_TICKS) for codec, c in chain_launches.items()})
     total = {k: sum(c[k] for c, _ in runs.values()) for k in launches}
     entries = []

@@ -7,14 +7,12 @@ by TURN TCP, screen sharing, video toolbox backends.  Same surface here;
 the framework uses it for host-side I/O chores that must stay off the tick
 loop (the reference's latency-isolation role).
 
-Also ms_discover_mtu parity (src/base/mtu.c): kernel path-MTU query, and the
-worker pools whose threads run at nice 0.
+Also ms_discover_mtu parity (src/base/mtu.c): kernel path-MTU query, the
+worker pools whose threads run at nice 0, and ``priority_pool``, whose
+threads run at a fixed niceness (the mixed fleet's dispatch worker).
 
 Also ``StreamRegulator``, the media player's timestamp pacing of video
 frames.
-
-Not ported yet: ``priority_pool`` (the mixed fleet's dispatch worker), for
-``E2EStepper`` and the mixed fleet.
 """
 from __future__ import annotations
 
@@ -178,3 +176,22 @@ def normal_priority_pool(max_workers: int = 1, name: str = "ms2tpu-worker"):
     the creating thread's elevation (see reset_thread_priority)."""
     return ThreadPoolExecutor(max_workers=max_workers, thread_name_prefix=name,
                               initializer=reset_thread_priority)
+
+
+def priority_pool(max_workers: int = 1, name: str = "ms2tpu-worker", nice: int = 0):
+    """ThreadPoolExecutor whose workers run at a fixed niceness.
+
+    The mixed fleet's shared dispatch worker runs every member's paced
+    deadline work (do_ticks, tick uploads) while publish and codec pools
+    do latency-tolerant work behind a pipeline, so it runs between the
+    paced loop (-10) and those pools (0). A nice level the process may not
+    take (a negative one needs CAP_SYS_NICE) leaves the worker at its
+    inherited niceness, without a word, as in the JAX package."""
+    def _init():
+        try:
+            os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), nice)
+        except (AttributeError, OSError):
+            pass
+
+    return ThreadPoolExecutor(max_workers=max_workers, thread_name_prefix=name,
+                              initializer=_init)

@@ -21,18 +21,35 @@ sendmmsg for all legs).
 
 Covered: the device codecs ``ulaw``, ``alaw``, ``l16`` and ``g722`` (16 kHz
 audio on an 8 kHz RTP clock, one code byte per slot, its recurrence in one
-kernel launch a tick) on both paths; SRTP per leg (``enable_srtp``,
-``enable_double_srtp`` with EKT) and on the batch edge (``srtp_keys``),
-with encryption-mandatory legs; RTCP (SR/RR + SDES every interval, BYE on
-``stop``), ``iterate`` and the QoS controllers (bitrate controller,
-quality indicator, bandwidth controller, TMMBR/REMB caps); directions, mic
-and speaker gains, ``mute_rtp``, ptime, recording (``record_mixed`` too),
-``local_play`` / ``play_announcement``, RFC 4733 DTMF send and receive,
-``conference=True``, DTX with RFC 3389 CN, Baudot TTY
-(``features.baudot``: ``send_baudot_string``, ``get_baudot_text``,
-``set_baudot_mode``), and a duck-typed sound card
-(``pull(tick, B)`` / ``push(tick, block)``). ``device=None`` runs on
-``cuda`` (raising without a card); tests pass ``"cpu"``.
+kernel launch a tick) on both paths, and the host codecs ``opus``,
+``gsm``, ``g729``, ``speex``, ``bv16`` and ``aac`` on the per-leg path:
+their library encodes and decodes at the RTP boundary (``ops/host_codecs``,
+``ops/aac``) and the graph sees PCM (``rtp_rx`` is a PCM ext_source,
+``rtp_tx`` a PCM ext_sink). A host-codec leg frames ptime per leg
+(``set_ptime``: each codec's valid frame multiples; AAC's 1,024-sample
+access unit is fixed, and its FIFOs carry the remainder across ticks, the
+RTP timestamps advancing by the AU); Opus holds one packet back, so that a
+lost frame is recovered from the next packet's in-band FEC (one frame of
+latency), and takes its expected loss from RTCP reports (``iterate``); a
+TMMBR / REMB cap retargets a host encoder's bitrate. Stereo
+(``channels=2``) is for ``opus`` and ``aac`` only: blocks are then
+``[B, 2*S]``, interleaved, through the device filters. A host codec whose
+library is missing raises ``RuntimeError`` naming it before a graph is
+built: nothing falls back. SRTP per leg (``enable_srtp``,
+``enable_double_srtp`` with EKT) and on the batch edge (``srtp_keys``,
+device codecs), with encryption-mandatory legs; RTCP (SR/RR + SDES every
+interval, BYE on ``stop``), ``iterate`` and the QoS controllers (bitrate
+controller, quality indicator, bandwidth controller, TMMBR/REMB caps);
+directions, mic and speaker gains, ``mute_rtp``, ptime, recording
+(``record_mixed`` too), ``local_play`` / ``play_announcement``, RFC 4733
+DTMF send and receive, ``conference=True``, DTX with RFC 3389 CN, Baudot
+TTY (``features.baudot``: ``send_baudot_string``, ``get_baudot_text``,
+``set_baudot_mode``), the device quirks' mic and speaker EQ and EC delay
+(``AudioStreamFeatures`` from ``core/quirks.apply_quirks``), and a
+duck-typed sound card (``pull(tick, B)`` / ``push(tick, block)``, e.g.
+``core/devices.SndCard``) with its gains (``set_sound_card_input_gain`` /
+``_output_gain``). ``device=None`` runs on ``cuda`` (raising without a
+card); tests pass ``"cpu"``.
 
 Per-tick writes go into tensors the ticker already holds, on its
 stream: the PLC ``lost`` mask (``Ticker.write_param`` into the PLC's
@@ -51,14 +68,11 @@ GSO on unconditionally, which drops every packet under gVisor).
 (``models/media_player.write_av_mkv``), with a VP8 track of the frames a
 linked video stream decoded (``link_video``; libvpx).
 
-Waiting, each raising ``NotImplementedError`` that names its wait: the
-host-codec legs (opus, gsm, g729, speex, bv16, aac: the payload packing
-and the host decode / encode around the graph; ``ops/host_codecs`` has
-the codecs, not ``aac``). ``g726_32`` is
-refused too, as in the JAX package, whose stream has no payload packing
-for it (``_decode_payload`` / ``_encode_payload`` and
-``CODEC_BYTES_PER_SAMPLE`` know ulaw, alaw, g722 and l16 only): G.726 runs
-over RTP through ``models/transcode.TranscodeBatch``, as 16-bit codes.
+Refused, raising ``NotImplementedError``: ``g726_32``, as in the JAX
+package, whose stream has no payload packing for it (``_decode_payload`` /
+``_encode_payload`` and ``CODEC_BYTES_PER_SAMPLE`` know ulaw, alaw, g722
+and l16 only): G.726 runs over RTP through
+``models/transcode.TranscodeBatch``, as 16-bit codes.
 """
 from __future__ import annotations
 
@@ -84,15 +98,22 @@ CODEC_BYTES_PER_SAMPLE = {"ulaw": 1, "alaw": 1, "l16": 2, "g722": 1}
 # its payload and timestamps advance at half the sample rate (msg722.c:169)
 RTP_CLOCK = {"g722": 8000}
 DEVICE_CODECS = ("ulaw", "alaw", "l16", "g722")
-HOST_CODECS = ("opus", "gsm", "g729", "bv16", "speex", "aac")
+# host codecs run at the RTP boundary (library codecs are host filters, like
+# the reference's hw codec backends); value = frame ms
+HOST_CODECS = {"opus": 10, "gsm": 20, "g729": 20, "bv16": 10, "speex": 20,
+               # AAC-LC over RFC 3640 (cf. aac-eld.c); its 1024-sample AU is
+               # not a tick multiple, so it runs on sample-granular FIFOs
+               "aac": 10}
+# the frame multiples each library codec aggregates to (msopus.c / gsm.c /
+# g729.c frame-append loops); set_ptime clamps to the nearest below
+HOST_PTIMES = {"opus": (10, 20, 40, 60), "gsm": (20, 40, 60, 80),
+               "speex": (20, 40, 60, 80, 100), "g729": tuple(range(10, 101, 10)),
+               "bv16": tuple(range(10, 101, 10))}
 # codec byte that decodes to digital silence (RFC 3551 silence codes)
 SILENCE_CODE = {"ulaw": 0xFF, "alaw": 0xD5}
 
 
-def _codec_wait(codec: str) -> str:
-    if codec in HOST_CODECS:
-        return (f"codec {codec!r}: the stream's host-codec legs are not ported to "
-                f"mediastreamer2_tpu_torch yet")
+def _codec_refused(codec: str) -> str:
     if codec == "g726_32":
         return (f"codec {codec!r}: the audio stream has no payload packing for it (in the JAX "
                 f"package neither); it runs over RTP through models/transcode.TranscodeBatch")
@@ -135,9 +156,9 @@ class AudioStreamBatch:
         reference's mixed-call recording, audiostream.c:1068-1088) instead
         of the receive side only. conference=True builds the server shape
         (see the module docstring)."""
-        if codec not in DEVICE_CODECS:
-            raise NotImplementedError(_codec_wait(codec))
-        if channels != 1:
+        if codec not in DEVICE_CODECS and codec not in HOST_CODECS:
+            raise NotImplementedError(_codec_refused(codec))
+        if channels != 1 and codec not in ("opus", "aac"):
             raise ValueError("multichannel audio requires opus or aac")
         self.factory = factory
         self.batch = batch
@@ -151,13 +172,21 @@ class AudioStreamBatch:
         ft = self.features
         self.record_ticks = record_ticks
         self.snd_card = snd_card
+        self.host_codec = codec in HOST_CODECS
+        # the library codecs first: a missing library raises before a graph
+        # is built
+        self._host_enc, self._host_dec = self._make_host_codecs(batch)
         fmt = Format(kind="pcm", rate=rate, channels=channels)
 
         g = GraphBuilder(factory, batch=batch)
         # ---- recv chain (built first: its output feeds the EC far pin) ----
-        rx = g.add("ext_source", "rtp_rx", fmt=fmt.with_(kind=codec, rate=self.rtp_clock))
-        last = g.add(f"{codec}_dec", "dec")
-        g.link(rx, 0, last, 0)
+        if self.host_codec:
+            # the host codec decodes at the RTP boundary; the graph sees PCM
+            last = g.add("ext_source", "rtp_rx", fmt=fmt)
+        else:
+            rx = g.add("ext_source", "rtp_rx", fmt=fmt.with_(kind=codec, rate=self.rtp_clock))
+            last = g.add(f"{codec}_dec", "dec")
+            g.link(rx, 0, last, 0)
         if ft.baudot:
             # detector before the PLC (audiostream.c:1812-1832 places
             # baudot_det between local_mixer and plc)
@@ -189,9 +218,7 @@ class AudioStreamBatch:
         # ---- send chain ----------------------------------------------------
         if conference:
             # server: re-encode each member's mix-minus output; no mic / EC
-            enc = g.add(f"{codec}_enc", "enc")
-            g.link(spk_tee, 3, enc, 0)
-            g.link(enc, 0, g.add("ext_sink", "rtp_tx"), 0)
+            self._link_tx(g, spk_tee, 3)
             self._finish_init(batch, jb_params, g, device)
             return
         if mic_signal is not None:
@@ -233,10 +260,52 @@ class AudioStreamBatch:
             g.link(last, 0, send_tee, 0)
             g.link(send_tee, 1, rec_mix, 1)
             last = send_tee
-        enc = g.add(f"{codec}_enc", "enc")
-        g.link(last, 0, enc, 0)
-        g.link(enc, 0, g.add("ext_sink", "rtp_tx"), 0)
+        self._link_tx(g, last, 0)
         self._finish_init(batch, jb_params, g, device)
+
+    def _link_tx(self, g, last, pin):
+        """The send chain's end: PCM out for a host codec (encoded at the
+        RTP boundary), else the device encoder."""
+        if not self.host_codec:
+            enc = g.add(f"{self.codec}_enc", "enc")
+            g.link(last, pin, enc, 0)
+            last, pin = enc, 0
+        g.link(last, pin, g.add("ext_sink", "rtp_tx"), 0)
+
+    def _make_host_codecs(self, batch):
+        """Per-leg encoders and decoders of a host codec (one object for
+        both directions where the library keeps one state), or two lists of
+        None for a device codec; raises where the library is missing."""
+        codec, rate = self.codec, self.rate
+        if not self.host_codec:
+            return [None] * batch, [None] * batch
+        need = {"gsm": (8000,), "g729": (8000,), "bv16": (8000,), "speex": (8000, 16000, 32000)}
+        if codec in need and rate not in need[codec]:
+            raise ValueError(f"{codec} requires " + "/".join(f"{r // 1000}" for r in need[codec])
+                             + " kHz")
+        from mediastreamer2_tpu_torch.ops import host_codecs as hc
+        enc, dec = [], []
+        for _ in range(batch):
+            if codec == "opus":
+                enc.append(hc.OpusEncoder(rate=rate, channels=self.channels))
+                dec.append(hc.OpusDecoder(rate=rate, channels=self.channels))
+                continue
+            if codec == "gsm":
+                c = hc.GsmCodec()
+            elif codec == "g729":
+                # like a reference build without ENABLE_G729, the codec is
+                # absent when libbcg729 is not on the system
+                c = hc.G729Codec(enable_vad=self.features.vad_dtx)
+            elif codec == "aac":
+                from mediastreamer2_tpu_torch.ops.aac import AacStreamCodec
+                c = AacStreamCodec(rate=rate, channels=self.channels)
+            elif codec == "speex":
+                c = hc.SpeexCodec(rate=rate)
+            else:                                   # bv16: gated like ENABLE_BV16
+                c = hc.Bv16Codec()
+            enc.append(c)
+            dec.append(c)
+        return enc, dec
 
     @staticmethod
     def _append(g, last, filt, name, **kw):
@@ -282,6 +351,22 @@ class AudioStreamBatch:
         self._brc: Dict[int, object] = {}         # leg -> BitrateController
         self._qi: Dict[int, object] = {}          # leg -> QualityIndicator
         self._bwc: Dict[int, object] = {}         # leg -> BandwidthController
+        if self.host_codec:
+            self.frame_ticks = HOST_CODECS[self.codec] // 10
+            # per-leg packet framing (msopus.c / gsm.c ptime aggregation:
+            # frames are appended until ptime is reached)
+            self._host_frame_ticks = [self.frame_ticks] * batch
+            self._tx_accum: List[list] = [[] for _ in range(batch)]
+            self._rx_fifo: List[list] = [[] for _ in range(batch)]
+            # Opus FEC lookahead: one packet is held so that a loss can be
+            # recovered from the NEXT packet's in-band FEC (the reference's
+            # payload picker; one frame of latency)
+            self._opus_pending: List = [None] * batch
+            self._opus_primed = [False] * batch
+            # the last decoded duration (samples a channel): FEC and PLC
+            # must ask for exactly the lost frame's duration, which follows
+            # the peer's ptime, not ours
+            self._rx_dur = [0] * batch
 
     # ------------------------------------------------------------------
     def set_transport(self, leg: int, transport: Transport):
@@ -389,6 +474,24 @@ class AudioStreamBatch:
     def set_sound_card(self, card) -> None:
         """Hot-swap the capture/playback device (takes effect next tick)."""
         self.snd_card = card
+
+    def set_sound_card_input_gain(self, gain: float):
+        """audio_stream_set_sound_card_input_gain -> the card's
+        MS_AUDIO_CAPTURE_SET_VOLUME_GAIN (msinterfaces.h:255)."""
+        if self.snd_card is None:
+            raise RuntimeError("no sound card attached")
+        self.snd_card.set_input_gain(gain)
+
+    def set_sound_card_output_gain(self, gain: float):
+        if self.snd_card is None:
+            raise RuntimeError("no sound card attached")
+        self.snd_card.set_output_gain(gain)
+
+    def get_sound_card_input_gain(self) -> float:
+        return self.snd_card.input_gain if self.snd_card else -1.0
+
+    def get_sound_card_output_gain(self) -> float:
+        return self.snd_card.output_gain if self.snd_card else -1.0
 
     def link_video(self, video_stream, leg: int = 0, video_leg: int = 0):
         """audio_stream_link_video (audiostream.c:2616): route the video
@@ -535,6 +638,8 @@ class AudioStreamBatch:
         from mediastreamer2_tpu_torch.native import (BatchRtpRx, BatchRtpTx,
                                                      udp_gso_supported)
         from mediastreamer2_tpu_torch.net.jitter import BatchEdgeJitterController
+        if self.host_codec:
+            raise ValueError("batch edge supports byte codecs only")
         if srtp_keys is not None and len(srtp_keys) != self.batch:
             raise ValueError(f"srtp_keys: {len(srtp_keys)} legs, expected {self.batch}")
         psz = self.S_rtp * CODEC_BYTES_PER_SAMPLE[self.codec]
@@ -560,9 +665,21 @@ class AudioStreamBatch:
 
     def set_ptime(self, leg: int, ptime_ms: int):
         """MS_AUDIO_ENCODER_SET_PTIME: ptime_ms of audio per packet, clamped
-        to the negotiated max_ptime."""
+        to the negotiated max_ptime. A host codec aggregates whole frames
+        and clamps down to the nearest size it takes (``HOST_PTIMES``);
+        AAC's framing is fixed at one 1,024-sample AU a packet."""
         assert ptime_ms % 10 == 0 and ptime_ms >= 10
-        self._ptime_ticks[leg] = min(ptime_ms, self._max_ptime_ms[leg]) // 10
+        ptime_ms = min(ptime_ms, self._max_ptime_ms[leg])
+        if self.host_codec:
+            if self.codec == "aac":
+                raise ValueError("aac framing is fixed at 1024 samples")
+            ok = HOST_PTIMES[self.codec]
+            while ptime_ms not in ok and ptime_ms > 10:
+                ptime_ms -= 10
+            self._host_frame_ticks[leg] = ptime_ms // 10
+            self._tx_accum[leg] = []             # restart the packet framing
+            return
+        self._ptime_ticks[leg] = ptime_ms // 10
 
     def set_max_ptime(self, leg: int, max_ptime_ms: int):
         """fmtp maxptime=; out of range falls back to the reference's 100 ms."""
@@ -573,13 +690,19 @@ class AudioStreamBatch:
             self._ptime_ticks[leg] = max_ptime_ms // 10
 
     def get_ptime(self, leg: int) -> int:
+        if self.host_codec:
+            return self._host_frame_ticks[leg] * 10
         return self._ptime_ticks[leg] * 10
 
     # -- per-tick host I/O (run by the ticker on its stream) ----------------
-    def _finish_pull(self, tick: int, rx, lost) -> Dict[str, np.ndarray]:
+    def _finish_pull(self, tick: int, rx, lost, echo_limiter=True) -> Dict[str, np.ndarray]:
+        """The tick's inputs: the PLC's lost mask, the echo limiter's
+        coupling (the host-codec pulls of the JAX package leave it out, and
+        so do they here), the rx block and the mic."""
         if self.features.plc:
             self.ticker.write_param("plc", "lost", lost)
-        self._feed_echo_limiter()
+        if echo_limiter:
+            self._feed_echo_limiter()
         ext = {"rtp_rx": rx}
         if "mic" in self.graph.ext_inputs:
             ext["mic"] = self._mic_block(tick, self.batch, self.S)
@@ -613,6 +736,10 @@ class AudioStreamBatch:
     def _pull(self, tick: int) -> Dict[str, np.ndarray]:
         if self.batch_edge:
             return self._pull_batch_edge(tick)
+        if self.codec == "aac":
+            return self._pull_aac(tick)
+        if self.host_codec:
+            return self._pull_host_codec(tick)
         B = self.batch
         rx = np.zeros((B, self.S_rtp), np.int32)
         lost = np.zeros(B, bool)
@@ -640,6 +767,85 @@ class AudioStreamBatch:
             else:
                 lost[i] = True
         return self._finish_pull(tick, rx, lost)
+
+    def _pull_aac(self, tick: int) -> Dict[str, np.ndarray]:
+        """AAC receive: RFC 3640 payloads into each leg's decoder FIFO, one
+        tick of samples out (sample-granular: a 1,024-sample AU spans 6.4
+        ticks at 16 kHz). At most one AU is asked of the jitter buffer a
+        tick, when the FIFO runs dry (its playout is paced by sequence)."""
+        B, S = self.batch, self.S
+        n = tick_samples(self.rate)
+        rx = np.zeros((B, S), np.float32)
+        lost = np.zeros(B, bool)
+        for i, sess in enumerate(self.sessions):
+            if sess is None:
+                lost[i] = True
+                continue
+            sess.poll()
+            dec = self._host_dec[i]
+            got = dec.pull_rx(n)
+            if got is None:
+                payload = sess.jitter_buffer.get_tick()
+                if payload is not None:
+                    dec.push_rx_payload(payload)
+                got = dec.pull_rx(n)
+            if got is None:
+                lost[i] = True
+            else:
+                rx[i] = got.reshape(-1)
+        return self._finish_pull(tick, rx, lost, echo_limiter=False)
+
+    def _pull_host_codec(self, tick: int) -> Dict[str, np.ndarray]:
+        """Host-codec receive: decode each leg's next packet into a FIFO of
+        tick blocks (a packet holds the peer's ptime, which the decoded
+        length tells) and play one block a tick. Opus plays the packet
+        before the latest: a lost one is rebuilt from the latest's in-band
+        FEC at the lost frame's duration, else by the library's PLC."""
+        B, S = self.batch, self.S
+        rx = np.zeros((B, S), np.float32)
+        lost = np.zeros(B, bool)
+        for i, sess in enumerate(self.sessions):
+            fifo = self._rx_fifo[i]
+            # this leg's configured framing; the receive side adapts to
+            # the duration each packet decodes to
+            frame_samples = tick_samples(self.rate) * self._host_frame_ticks[i]
+            if sess is not None and not fifo:
+                sess.poll()
+                payload = sess.jitter_buffer.get_tick()
+                if self.codec == "opus":
+                    pcm = self._opus_decode(i, payload, frame_samples)
+                elif payload is not None and len(payload) > 0:
+                    pcm = self._host_dec[i].decode(payload)
+                else:
+                    pcm = np.zeros(frame_samples, np.float32)
+                    lost[i] = True
+                for k in range(len(pcm) // S):
+                    fifo.append(pcm[k * S:(k + 1) * S])
+            if fifo:
+                rx[i] = fifo.pop(0)
+            elif sess is not None:
+                lost[i] = True
+        return self._finish_pull(tick, rx, lost, echo_limiter=False)
+
+    def _opus_decode(self, i: int, payload, frame_samples: int) -> np.ndarray:
+        """One step of leg ``i``'s one-packet lookahead. Decodes with the
+        largest Opus frame's budget and trusts the returned length (the
+        packet's TOC carries its duration, so a peer may change ptime)."""
+        dec = self._host_dec[i]
+        lost_dur = self._rx_dur[i] or frame_samples
+        prev, self._opus_pending[i] = self._opus_pending[i], payload
+        if not self._opus_primed[i]:
+            self._opus_primed[i] = True
+            return np.zeros(0, np.float32)
+        if prev is not None:
+            pcm = dec.decode(prev, self.rate * 120 // 1000)
+            if len(pcm):
+                self._rx_dur[i] = len(pcm) // self.channels
+            return pcm
+        if payload is not None:
+            # the previous packet was lost: rebuild it from this one's FEC
+            return dec.decode(payload, lost_dur, fec=True)
+        return dec.decode(None, lost_dur)
 
     def _feed_echo_limiter(self):
         """Duplex gain coupling: vol_send ducks while vol_recv (speaker) is
@@ -670,6 +876,8 @@ class AudioStreamBatch:
         else:
             voice = np.ones(self.batch, bool)
         voice = voice & ~self._rtp_muted
+        if self.host_codec:
+            return self._push_host_codec(tx, voice)
         for i, sess in enumerate(self.sessions):
             if sess is None:
                 continue
@@ -699,6 +907,35 @@ class AudioStreamBatch:
             else:
                 sess.skip_payload(ts_increment=self.S_rtp)  # DTX
         self._was_voice = voice.copy()
+
+    def _push_host_codec(self, tx: np.ndarray, voice: np.ndarray):
+        """Host-codec send. AAC is sample-granular: the encoder FIFO emits
+        an RFC 3640 payload whenever 1,024 samples have gathered (one AU a
+        packet, aac-eld.c:30) and the RTP timestamp advances by the AU. The
+        other codecs gather each leg's ptime of ticks into one encode; a
+        silent (VAD) or muted leg's frame is skipped, its clock kept."""
+        if self.codec == "aac":
+            from mediastreamer2_tpu_torch.ops.aac import AAC_FRAME_SAMPLES
+            for i, sess in enumerate(self.sessions):
+                if sess is None:
+                    continue
+                pcm = tx[i].reshape(-1, self.channels) if self.channels > 1 else tx[i]
+                for payload in self._host_enc[i].push_tx(pcm):
+                    sess.send_payload(payload, ts_increment=AAC_FRAME_SAMPLES)
+            return
+        for i, sess in enumerate(self.sessions):
+            if sess is None:
+                continue
+            ft = self._host_frame_ticks[i]
+            self._tx_accum[i].append(tx[i])
+            if len(self._tx_accum[i]) < ft:
+                continue
+            pcm = np.concatenate(self._tx_accum[i])
+            self._tx_accum[i] = []
+            if voice[i]:
+                sess.send_payload(self._host_enc[i].encode(pcm), ts_increment=self.S * ft)
+            else:
+                sess.skip_payload(ts_increment=self.S * ft)
 
     # ------------------------------------------------------------------
     def start(self, n_ticks: int = 10 ** 9):
@@ -825,6 +1062,11 @@ class AudioStreamBatch:
                 for ctl in (self._brc.get(leg), self._qi.get(leg)):
                     if ctl is not None:
                         ctl.update(stats)
+                # Opus: the observed loss sets the encoder's FEC strength
+                # (MSOpusEnc adjusts its expected loss from RTCP)
+                enc = self._host_enc[leg]
+                if enc is not None and hasattr(enc, "set_packet_loss"):
+                    enc.set_packet_loss(min(30, int(stats.loss_rate * 100)))
                 sess.rtcp.remote_reports.clear()
             # an inbound TMMBR/REMB caps the sender's bitrate
             # (media_stream_process_rtcp, mediastream.c:983-1078)
@@ -835,9 +1077,13 @@ class AudioStreamBatch:
         return n
 
     def _apply_bitrate_cap(self, leg: int, bps: int):
-        """Record a TMMBR/REMB cap and tell ``on_tmmbr``. The device codecs
-        have fixed rates: only the host codecs (not ported) retarget."""
+        """Record a TMMBR/REMB cap, retarget a host encoder that takes a
+        bitrate (Opus; at least 8 kbit/s) and tell ``on_tmmbr``. The device
+        codecs have fixed rates."""
         self.bitrate_caps[leg] = bps
+        enc = self._host_enc[leg]
+        if enc is not None and hasattr(enc, "set_bitrate"):
+            enc.set_bitrate(max(int(bps), 8000))
         if self.on_tmmbr is not None:
             self.on_tmmbr(leg, bps)
 

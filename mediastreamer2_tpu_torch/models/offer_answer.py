@@ -10,15 +10,12 @@ Here: PayloadTypeDesc carries mime/rate/channels/fmtp; providers are
 per-mime matcher functions registered on the Factory; `negotiate` produces
 the answer list the session layer feeds to AudioStreamBatch/VideoStream.
 
-Departure from the JAX module: ``local_capabilities`` offers no AAC
-(mpeg4-generic), whatever libraries the host has, until ``ops/aac.py`` is
-ported: an SDP offer must not promise what the port cannot decode. The
-audio host codecs (GSM, Opus, Speex, G.729, BV16) and the video codecs
-(VP8, H.264, H.265, AV1, H.263, MPEG-4 video, Theora: the video stream's
-legs) are probed through the port's ``ops/host_codecs``, ``ops/vp8``,
-``ops/h264`` and ``ops/av1`` as the JAX module probes them. Every
-provider, the AAC one included, is ported, so an answer to a remote offer
-is negotiated as in the JAX module.
+``local_capabilities`` is the JAX module's list: the audio host codecs
+(GSM, Opus, Speex, G.729, BV16, and AAC as mpeg4-generic with the JAX
+fmtp) and the video codecs (VP8, H.264, H.265, AV1, H.263, MPEG-4 video,
+Theora) are probed through the port's ``ops/host_codecs``, ``ops/aac``,
+``ops/vp8``, ``ops/h264`` and ``ops/av1`` as the JAX module probes them,
+so each is offered where its library loads.
 """
 from __future__ import annotations
 
@@ -139,8 +136,7 @@ def negotiate(offered: List[PayloadTypeDesc], local: List[PayloadTypeDesc]
 
 
 # the framework's default local capability set, mirroring what the factory
-# registers (device codecs + host codecs when their libs are present; no
-# AAC in the port yet: see the module docstring)
+# registers (device codecs + host codecs when their libs are present)
 def local_capabilities() -> List[PayloadTypeDesc]:
     caps = [
         PayloadTypeDesc("PCMU", 8000, 1, 0),
@@ -182,6 +178,13 @@ def local_capabilities() -> List[PayloadTypeDesc]:
         caps.append(PayloadTypeDesc("MP4V-ES", 90000, 1, 111))
     if legacy_codec_available("theora"):
         caps.append(PayloadTypeDesc("theora", 90000, 1, 112))  # RFC 5215
+    from mediastreamer2_tpu_torch.ops.aac import aac_available, make_audio_specific_config
+    if aac_available():
+        cfg = make_audio_specific_config(16000, 1).hex()
+        caps.append(PayloadTypeDesc(
+            "mpeg4-generic", 16000, 1, 108,
+            f"mode=AAC-hbr;config={cfg};sizeLength=13;indexLength=3;"
+            "indexDeltaLength=3"))
     return caps
 
 

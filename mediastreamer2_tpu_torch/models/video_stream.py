@@ -424,7 +424,14 @@ class ReorderBuffer:
 
 class FrameAssembler:
     """Reassemble fragments by timestamp; marker bit closes the frame
-    (the generic half of vp8rtpfmt/h26x unpacker behavior)."""
+    (the generic half of vp8rtpfmt/h26x unpacker behavior).
+
+    A frame's packets are ordered by their distance back from the marker
+    packet's sequence number, modulo 2^16, so a frame whose packets span
+    the 16-bit wrap stays whole. The JAX package sorts the raw numbers and
+    drops such a frame as incomplete: with a random initial sequence
+    number, an 84-packet frame crosses the wrap in about one run of
+    1,260 packets in 50 per leg."""
 
     def __init__(self):
         self.parts: Dict[int, list] = {}
@@ -455,10 +462,9 @@ class FrameAssembler:
         self.parts.setdefault(pkt.timestamp, []).append((pkt.seq, pkt.payload))
         if pkt.marker:
             parts = self.parts.pop(pkt.timestamp)
-            parts.sort(key=lambda t: t[0])
-            seqs = [s for s, _ in parts]
-            if seqs == list(range(seqs[0], seqs[0] + len(seqs))):
-                self.completed.append(b"".join(p for _, p in parts))
+            back = {(pkt.seq - seq) & 0xFFFF: payload for seq, payload in parts}
+            if sorted(back) == list(range(len(parts))):
+                self.completed.append(b"".join(back[k] for k in reversed(range(len(parts)))))
             else:
                 self.dropped_incomplete += 1
         if len(self.parts) > 8:          # stale partial frames

@@ -461,11 +461,10 @@ def test_session_entry_points_run_on_the_card_unless_told_cpu(monkeypatch):
 
 
 def test_waiting_features_raise():
-    """What still waits raises, naming its wait (G.722, SRTP, RTCP and
-    iterate are ported now: tests/test_torch_g722.py, test_torch_srtp.py,
-    test_torch_rtcp_qos.py; Baudot too: tests/test_torch_baudot.py; the
-    host codecs themselves: tests/test_torch_host_codecs.py, not the
-    stream's legs that would carry them).
+    """What the stream refuses raises, naming why (nothing waits any more:
+    the host-codec legs are ported, tests/test_torch_host_codec_stream.py
+    and test_torch_aac.py; an Opus stream is built here where libopus is,
+    and refused naming it where it is not).
     ``g726_32`` is refused as in the JAX package, whose stream cannot
     carry it, and the message names the path that does. ``link_video`` is
     ported: it subscribes to the video stream's decoded frames of one leg
@@ -474,9 +473,14 @@ def test_waiting_features_raise():
     from mediastreamer2_tpu_torch import Format
     from mediastreamer2_tpu_torch.models.video_stream import VideoStreamBatch
     f = Factory()
-    for kw, why in (({"codec": "opus"}, "not ported"), ({"codec": "g726_32"}, "TranscodeBatch")):
-        with pytest.raises(NotImplementedError, match=why):
-            t_as.AudioStreamBatch(f, 1, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="TranscodeBatch"):
+        t_as.AudioStreamBatch(f, 1, device="cpu", codec="g726_32")
+    from mediastreamer2_tpu_torch.ops.host_codecs import opus_available
+    if opus_available():
+        assert t_as.AudioStreamBatch(f, 1, device="cpu", codec="opus", rate=48000).host_codec
+    else:
+        with pytest.raises(RuntimeError, match="libopus"):
+            t_as.AudioStreamBatch(f, 1, device="cpu", codec="opus", rate=48000)
     s = t_as.AudioStreamBatch(f, 1, device="cpu")
     s.set_transport(0, t_rtp.LoopbackPair().endpoint(0))
     vs = VideoStreamBatch(f, 2, fmt=Format(kind="yuv420", width=32, height=24, fps=25.0),

@@ -936,3 +936,161 @@ def test_phase_13_catches_nothing(smoke):
                 assert name == "Sfu", name
                 assert (isinstance(n.body[-1], ast.Raise)
                         or ast.unparse(n.type) == "BlockingIOError"), ast.unparse(n)
+
+
+PHASE_14 = ("quirk_features", "fleet_sizes", "fleet_launches", "fleet_bars", "fleet_run",
+            "host_codec_bar", "host_codec_pair", "host_codec_legs", "mire_frames",
+            "device_gating")
+
+
+def test_phase_14_counts_and_sizes(smoke, monkeypatch):
+    """14a's members follow phase 1's libraries; the launches a fleet run
+    must show: once a tick of each e2e member for the three kernels of the
+    megakernel leg, the Opus member's receive volume a tick and at its
+    warm-up; 14d's features come from the quirk DB."""
+    monkeypatch.setattr(smoke.ctypes.util, "find_library", lambda name: None)
+    assert smoke.fleet_sizes() == (1024, 256, 0, 0)
+    monkeypatch.setattr(smoke.ctypes.util, "find_library", lambda name: f"lib{name}.so")
+    assert smoke.fleet_sizes() == (1024, 256, 32, 2)
+    assert smoke.fleet_launches({"flagship": 800, "srtp": 800}) == {
+        "fused_volume": 1600, "mdf_apply": 1600, "mdf_update": 1600}
+    assert smoke.fleet_launches({"flagship": 10}, opus_ticks=7)["fused_volume"] == 18
+    ft = smoke.quirk_features()
+    assert (ft.echo_canceller, ft.agc, ft.ec_delay_ms) == (True, True, 120)
+    assert ft.mic_eq_gains and ft.spk_eq_gains == smoke.QUIRK_SPK_EQ
+    assert smoke.HOST_CODEC_BARS["g729"] == pytest.approx(
+        (10 ** 0.6 / (1 + 10 ** 0.6)) ** 0.5, abs=5e-4)
+
+
+def test_phase_14ab_fleet_on_the_cpu(smoke, capsys, monkeypatch):
+    """14a and 14b at 8 + 4 e2e legs for 1 s on the CPU (Opus and VP8 left
+    out): each prints the summary, passes() and the loop's trace and meets
+    the correctness bars. Then a fleet whose flagship member drops half its
+    legs' packets fails 14a."""
+    import torch
+    from mediastreamer2_tpu_torch import native
+    from mediastreamer2_tpu_torch.ops import kernels
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for mode in ("loop", "threads"):
+            res, launches, ticks = smoke.fleet_run(kernels, "cpu", "cpu", mode, seconds=1.0,
+                                                   sizes=(8, 4, 0, 0))
+            assert ticks >= 100 and not any(launches.values())
+            assert res.srtp.auth_failures == 0 and not res.errors
+        out = capsys.readouterr().out
+        assert "fleet 14a (loop)" in out and "loop trace" in out and "passes()" in out
+        assert "fleet 14b (threads)" in out
+        read_tick = native.BatchRtpRx.read_tick
+
+        def lossy(self):
+            pay, fl = read_tick(self)
+            if self.n_legs == 8:                        # the flagship member's edge
+                fl = fl.copy()
+                fl[::2] = 0
+            return pay, fl
+        monkeypatch.setattr(native.BatchRtpRx, "read_tick", lossy)
+        with pytest.raises(AssertionError, match="fleet 14a: flagship: .*loss 0.5"):
+            smoke.fleet_run(kernels, "cpu", "cpu", "loop", seconds=0.5, sizes=(8, 4, 0, 0))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_phase_14c_host_codecs_on_the_cpu(smoke, capsys, monkeypatch):
+    """14c at 2 + 2 legs on the CPU: each codec whose library this machine
+    has runs above its bar, the others raise naming theirs before a graph;
+    mpeg4-generic is offered iff AAC is available. With every library
+    hidden from find_library, all six must raise, and a stream that builds
+    its graph before raising fails the phase."""
+    import torch
+    from mediastreamer2_tpu_torch.models import audio_stream
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        lines = smoke.host_codec_legs("cpu", "cpu", legs=2, ticks=100)
+        assert set(lines) == {c for c, *_ in smoke.HOST_CODEC_LIBS}
+        out = capsys.readouterr().out
+        assert "offers mpeg4-generic" in out
+        from mediastreamer2_tpu_torch.ops import aac, host_codecs
+        for mod, attr in ((host_codecs, "_opus"), (host_codecs, "_gsm"),
+                          (host_codecs, "_speex"), (aac, "_av")):
+            monkeypatch.setattr(mod, attr, None)
+        monkeypatch.setattr(aac, "_aac_ok", False)
+        monkeypatch.setattr(smoke.ctypes.util, "find_library", lambda name: None)
+        lines = smoke.host_codec_legs("cpu", "cpu", legs=2, ticks=10)
+        assert all("raised" in line and "before the raise 0" in line for line in lines.values())
+        make = audio_stream.AudioStreamBatch._make_host_codecs
+
+        def late(self, batch):                  # a stream that builds first, raises after
+            audio_stream.GraphBuilder(None, batch=batch)
+            return make(self, batch)
+        monkeypatch.setattr(audio_stream.AudioStreamBatch, "_make_host_codecs", late)
+        monkeypatch.setattr(audio_stream, "GraphBuilder", lambda *a, **k: None)
+        with pytest.raises(AssertionError, match="host codecs 14c"):
+            smoke.host_codec_legs("cpu", "cpu", legs=2, ticks=10)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_phase_14de_quirk_session_on_the_cpu(smoke, capsys, monkeypatch):
+    """14d at 8 + 8 legs x 100 ticks on the CPU over the batch edge: the
+    quirk nodes are in the graph, the card plays spk times the output gain
+    and the listener bars hold; 14e's CPU-vs-CPU run agrees. Then a card
+    that ignores its output gain fails 14d."""
+    import torch
+    from mediastreamer2_tpu_torch.core import devices
+    from mediastreamer2_tpu_torch.ops import kernels
+    from mediastreamer2_tpu_torch.utils.audiodiff import quality_bar
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        smoke.session_edge(kernels, "cpu", "cpu", 8, 100, phase="14d", sound_card=True)
+        out = capsys.readouterr().out
+        assert "nodes ['mic_eq', 'ec_delay', 'ec', 'spk_eq']" in out
+        assert "played blocks equal to spk x the output gain: True" in out
+        cpu, other = smoke.session_cross("cpu", 4, 60, sound_card=True)
+        assert quality_bar(cpu, other, leg_step=1)["pass"]
+        monkeypatch.setattr(devices.SndCard, "push",
+                            lambda self, tick, block: self._push_raw(tick, block))
+        with pytest.raises(AssertionError, match="session 14d: the sound card"):
+            smoke.session_edge(kernels, "cpu", "cpu", 8, 60, phase="14d", sound_card=True)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_phase_14f_device_gating_on_the_cpu(smoke, capsys, monkeypatch):
+    """14f on the CPU against itself: the gates print and the mire agrees;
+    a detector that registers a card without its library fails it, and so
+    do mire frames two codes apart."""
+    smoke.device_gating("cpu", "cpu")
+    assert "the mire's (5, 4, 360, 320) frames" in capsys.readouterr().out
+    from mediastreamer2_tpu_torch.core import alsa, devices
+    if not alsa.alsa_available():
+        monkeypatch.setattr(alsa, "detect_alsa_cards",
+                            lambda mgr: mgr.add_card(devices.SndCard("alsa:default", "alsa", 3)))
+        with pytest.raises(AssertionError, match="alsa: registered True"):
+            smoke.device_gating("cpu", "cpu")
+        monkeypatch.undo()
+    frames = smoke.mire_frames
+
+    def shifted(dev, *a):
+        f = frames(dev, *a)
+        return f if str(dev) == "cpu" and not isinstance(dev, str) else f // 2
+    monkeypatch.setattr(smoke, "mire_frames", shifted)
+    with pytest.raises(AssertionError, match="mire frames"):
+        smoke.device_gating("cpu", "cpu")
+
+
+def test_phase_14_catches_nothing(smoke):
+    """No phase-14 function handles an exception (``refusal`` is the one
+    handler, as in phase 12), and main runs 14a to 14f in order."""
+    import ast
+    import inspect
+    for name in PHASE_14:
+        tree = ast.parse(inspect.getsource(getattr(smoke, name)))
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)], name
+    main = inspect.getsource(smoke.main)
+    block = main[main.index("# phase 14"):main.index("phase_done(14)")]
+    assert "except" not in block
+    order = [block.index(f'phase_done("14{x}")') for x in "abcde"]
+    assert order == sorted(order) and "device_gating(" in block

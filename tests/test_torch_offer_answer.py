@@ -2,9 +2,8 @@
 package's: ``negotiate`` gives equal answers over a table of offers that
 reaches every provider (opus, H.264, H.265, VP8, AV1, speex,
 mpeg4-generic) and the default matcher; ``local_capabilities`` is the JAX
-list without the codec the port cannot run yet (the departure its
-docstring names: no AAC), whatever this host's libraries; the video
-codecs, which the port's video stream runs, are offered as in JAX."""
+list, AAC included where libavcodec is present, and the video codecs,
+which the port's video stream runs, are offered as in JAX."""
 import dataclasses
 
 import pytest
@@ -12,8 +11,6 @@ import pytest
 from mediastreamer2_tpu.models import offer_answer as joa
 from mediastreamer2_tpu_torch.models import offer_answer as toa
 
-#: what the port cannot encode or decode until AAC lands
-NOT_IN_PORT = {"mpeg4-generic"}
 #: the video codecs the JAX list offers where their libraries are
 VIDEO = {"VP8", "H264", "H265", "AV1", "H263", "H263-1998", "MP4V-ES", "theora"}
 
@@ -85,15 +82,16 @@ def test_a_registered_provider_overrides_the_default(monkeypatch):
 
 
 def test_local_capabilities_is_the_jax_list_without_video_or_aac():
-    """The departure: the port offers what it runs. The JAX list filtered
-    to those codecs equals the port's, in the same order: since the video
-    stream is ported, this host's libvpx, libavcodec or libaom put the same
-    video codecs in both lists; AAC stays out of the port's."""
+    """The port offers what the JAX package offers, in the same order: the
+    video codecs since the video stream was ported, AAC (mpeg4-generic,
+    with the JAX fmtp) since the stream's AAC legs were, each where this
+    host has its library (the name is older than both)."""
+    from mediastreamer2_tpu_torch.ops.aac import aac_available
     from mediastreamer2_tpu_torch.ops.vp8 import vp8_available
     j = [dataclasses.astuple(p) for p in joa.local_capabilities()]
     t = [dataclasses.astuple(p) for p in toa.local_capabilities()]
-    assert t == [p for p in j if p[0] not in NOT_IN_PORT]
-    assert not {p[0] for p in t} & NOT_IN_PORT
+    assert t == j
+    assert ("mpeg4-generic" in {p[0] for p in t}) == aac_available()
     assert ("VP8" in {p[0] for p in t}) == vp8_available()
     assert {p[0] for p in t} & VIDEO == {p[0] for p in j} & VIDEO
     assert [p[0] for p in t[:4]] == ["PCMU", "PCMA", "L16", "G722"]

@@ -70,6 +70,32 @@ def test_reassembler_drops_incomplete():
     assert asm.dropped_incomplete == 1
 
 
+@pytest.mark.parametrize("first", [65534, 65500, 0])
+def test_reassembler_keeps_a_frame_across_the_seq_wrap(first):
+    """The departure: a frame whose packets span the 16-bit sequence wrap
+    (a random initial sequence number puts the wrap inside some frame) is
+    whole in the port; the JAX package's assembler sorts the raw numbers
+    and drops it as incomplete. Reordered fragments still assemble, and a
+    lost one still drops the frame."""
+    from mediastreamer2_tpu.models.video_stream import FrameAssembler as JaxAssembler
+    data = bytes(range(256)) * 20
+    chunks = fragment_frame(data, mtu=600)
+    pkts = [RtpPacket(97, (first + k) & 0xFFFF, 900, 1, c, marker=(k == len(chunks) - 1))
+            for k, c in enumerate(chunks)]
+    wraps = first + len(chunks) > 0x10000
+    for order in (pkts, pkts[1:2] + pkts[:1] + pkts[2:]):
+        asm, jasm = FrameAssembler(), JaxAssembler()
+        for p in order:
+            asm.push(p)
+            jasm.push(p)
+        assert asm.pop() == data and asm.dropped_incomplete == 0
+        assert (jasm.pop() is None) == wraps and jasm.dropped_incomplete == int(wraps)
+    asm = FrameAssembler()
+    for p in pkts[:2] + pkts[3:]:
+        asm.push(p)
+    assert asm.pop() is None and asm.dropped_incomplete == 1
+
+
 def test_reassembler_interframe_seq_gap():
     asm = FrameAssembler()
     for k, (seq, ts) in enumerate([(10, 100), (11, 200)]):
