@@ -292,7 +292,30 @@ Phases, in order (any failure raises and the script exits non-zero):
    detectors registered (an absent backend registers nothing and raises
    naming its library), and a ``MireWebCam``'s frames through its graph
    source on the card within one u8 code of the CPU's. Phase 14's seconds
-   are printed.
+   are printed;
+15. leg sharding (``parallel/sharding``: one process a shard, gloo on CUDA
+   tensors, since NCCL puts no two ranks on one device; ``nvidia-smi``'s
+   compute mode printed; every shard process runs with no cuBLAS
+   workspace, as ``spawn_shards`` sets it). 15a: phase 3's flagship
+   (4,096 legs x 100 ticks of the echo-coupled fixture) over four ranks,
+   1,024 legs each, the groups of four aligned to the shards (no
+   collective); 15b: the same with the segment-sum mixer and ``group_id =
+   leg % 1024`` (a conference has a member on every rank: one exchange a
+   tick), and the mixer alone on identical inputs, bit for bit its
+   unsharded self on every rank. Both against the unsharded 4,096-leg run
+   on rank 0 of the same world, bit for bit on every leg (phase 4's bar,
+   the max abs error and the legs bit-equal printed); each rank's
+   ms a tick (four ranks time-slice one card: not a scaling figure), the
+   collective's host ms a tick and launches (fused_volume, mdf_apply,
+   mdf_update_fused once a tick, nothing else). 15c:
+   ``dryrun_multichip(4)`` on the card (8 legs, its four stages; every
+   rank reports no JAX module loaded). 15d: 15b's graph at 1,024 legs on
+   one NCCL rank, bit-equal to the unsharded run of the same batch. 15e:
+   mdf_update_fused at 4,096 x 8 x 481 on rows [1024, 2048) with
+   lin0 = 1024 * 8 * 481, bit-equal to those rows of the full call and to
+   its plain twin (with lin0 = 0 it differs); and the bf16 taps of every
+   shard after 15a's and 15b's 100 ticks against the unsharded run's rows
+   (legs bit-equal and the most bf16 steps apart printed).
 
 Each phase prints the seconds elapsed when it ends. The last two lines of
 standard output are the kernels' JSON and the result's JSON; the card's
@@ -467,6 +490,14 @@ MIRE_LEGS = 4                 # phase 14f: MireWebCam frames, card against CPU
 MIRE_TICKS = 5
 PAIR_MS = {}                  # ms per tick pair of session_edge's phases
 WF, S16 = 161, 160            # the wideband call's AEC at 16 kHz
+SHARD_WORLD = 4               # phase 15: four gloo ranks time-slicing one card
+SHARD_LEGS = 4096             # 15a / 15b: the flagship at full width, 1,024 legs a rank
+SHARD_TICKS = 100
+SHARD_CONFERENCES = 1024      # 15b: group_id = leg % 1024, one member on each rank
+SHARD_TIMEOUT_S = 300.0       # a collective's timeout in phase 15's worlds
+NCCL_LEGS = 1024              # 15d: 15b's graph on one NCCL rank
+OFFSET_ROWS = (1024, 2048)    # 15e: the slice of the 4,096-leg update held to the full call
+FIXTURES = {}                 # (legs, ticks) -> phase 3's echo-coupled (mic, far), made once
 
 
 def ptxas_usage(log: str, fragment: str) -> dict:
@@ -488,11 +519,14 @@ def ptxas_usage(log: str, fragment: str) -> dict:
     return usage
 
 
-def card_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
+def nvidia_smi(query: str) -> str:
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
 
 
 def device_ms(fn, n: int = 50) -> float:
@@ -1235,14 +1269,15 @@ def _device_ticks(a: np.ndarray, ticks: int, dev) -> torch.Tensor:
     return torch.from_numpy(a).to(dev).view(legs, ticks, S).permute(1, 0, 2).contiguous()
 
 
-def run_flagship(legs, ticks, dev, mic, far):
-    """Drive the flagship graph for ``ticks`` ticks. Returns (state,
-    output [legs, ticks*samples] on ``dev``, all-finite flag, host seconds
-    per tick over ticks 1.. (the first tick, which pays one-time set-up,
-    is left out))."""
+def run_flagship(legs, ticks, dev, mic, far, group_id=None):
+    """Drive the flagship graph for ``ticks`` ticks (``group_id``: the
+    segment-sum mixer over those conferences, as ``build_flagship``'s).
+    Returns (state, output [legs, ticks*samples] on ``dev``, all-finite
+    flag, host seconds per tick over ticks 1.. (the first tick, which pays
+    one-time set-up, is left out))."""
     from mediastreamer2_tpu_torch import Factory
     from mediastreamer2_tpu_torch.models.flagship import build_flagship
-    cg, params = build_flagship(Factory(), legs, dev)
+    cg, params = build_flagship(Factory(), legs, dev, group_id=group_id)
     state = cg.init_state(dev)
     mic_t, far_t = _device_ticks(mic, ticks, dev), _device_ticks(far, ticks, dev)
     finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -4141,6 +4176,278 @@ def device_gating(dev, card):
         raise AssertionError(f"devices 14f: {bad}")
 
 
+# -- phase 15: leg sharding --------------------------------------------------------
+def bf16_steps(a, b) -> np.ndarray:
+    """How many bf16 steps apart two arrays of bf16 bits (int16) are,
+    elementwise: the bits mapped onto one monotonic integer line."""
+    def line(x):
+        x = x.astype(np.int32)
+        return np.where(x < 0, -(x & 0x7FFF), x)
+    return np.abs(line(a) - line(b))
+
+
+def tap_report(ref_taps, reports, legs) -> tuple:
+    """(legs whose four bf16 tap tensors equal the unsharded run's rows
+    bit for bit, the most bf16 steps any tap is apart); ``ref_taps``: the
+    unsharded run's taps as bits (``parallel.checks.bits``)."""
+    from mediastreamer2_tpu_torch.parallel.checks import TAP_KEYS
+    equal, steps = np.ones(legs, bool), 0
+    for k in TAP_KEYS:
+        full = ref_taps[k]
+        shard = np.concatenate([r["taps"][k] for r in reports])
+        equal &= (full == shard).reshape(legs, -1).all(axis=1)
+        steps = max(steps, int(bf16_steps(full, shard).max()))
+    return int(equal.sum()), steps
+
+
+def shard_bars(phase, ref_out, reports, ticks, collectives_a_tick, card, dev="cpu"):
+    """Phase 15a / 15b's bars on a sharded flagship run against the
+    unsharded one: each rank's line (ms a tick, the collective's, the
+    launches: fused_volume, mdf_apply and mdf_update_fused once a tick and
+    nothing else, on the card; ``collectives_a_tick`` exchanges a tick;
+    finite output), then the cross-backend bar of phase 4 on the gathered
+    output, the max abs error and the legs bit-equal, which must be every
+    leg. Returns (bar, bit-equal legs)."""
+    from mediastreamer2_tpu_torch.utils.audiodiff import quality_bar
+    out = np.concatenate([r["out"] for r in reports])
+    ref = ref_out.cpu().numpy() if isinstance(ref_out, torch.Tensor) else ref_out
+    legs = ref.shape[0]
+    for r in reports:
+        print(f"{phase} rank {r['rank']}: {r['out'].shape[0]} legs x {ticks} ticks, "
+              f"{r['ms_tick']:.3f} ms/tick (host clock, ticks 1..{ticks - 1}; ranks share the "
+              f"card), collectives {r['collectives']} ({r['collective_ms_tick']:.3f} ms a tick "
+              f"over the same ticks), launches {r['launches']}, finite {r['finite']}, the job "
+              f"{r['seconds']:.1f} s with its set-up [{card}]", flush=True)
+        n = ticks if torch.device(dev).type == "cuda" else 0    # the plain versions launch nothing
+        _require_counts(f"{phase} rank {r['rank']}", r["launches"],
+                        {"fused_volume": n, "mdf_apply": n, "mdf_update_fused": n})
+        if r["collectives"] != collectives_a_tick * ticks:
+            raise AssertionError(f"{phase} rank {r['rank']}: {r['collectives']} collectives in "
+                                 f"{ticks} ticks, expected {collectives_a_tick} a tick")
+        if not r["finite"]:
+            raise AssertionError(f"{phase} rank {r['rank']}: non-finite output")
+    bar = quality_bar(ref, out, device=dev)
+    bit_legs = int((out.view(np.int32) == ref.view(np.int32)).all(axis=1).sum())
+    print(f"{phase}: {len(reports)} shards against the unsharded {legs}-leg run: audio_diff_min "
+          f"{bar['audio_diff_min']:.6f} (legs 0, 37, ...; all legs "
+          f"{bar['audio_diff_min_all_legs']:.6f}), rms_err {bar['rms_err']:.3e}, max_abs_err "
+          f"{bar['max_abs_err']:.3e}, energy_gap_db_max {bar['energy_gap_db_max']:.4f}, pass "
+          f"{bar['pass']}; legs bit-equal {bit_legs} of {legs}", flush=True)
+    if not bar["pass"]:
+        raise AssertionError(f"{phase}: sharded vs unsharded quality bar failed: {bar}")
+    if bit_legs != legs:
+        raise AssertionError(f"{phase}: {legs - bit_legs} legs differ from the unsharded run")
+    return bar, bit_legs
+
+
+def mixer_bars(phase, reports, card):
+    """The mixer alone, sharded, bit for bit its unsharded self on each
+    rank (the same inputs); prints the collective's ms a call."""
+    for r in reports:
+        equal = np.array_equal(r["out"], r["ref"])
+        print(f"{phase} mixer rank {r['rank']}: bit-equal {equal}, "
+              f"collectives a call {r['collectives']:.0f}, {r['collective_ms']:.3f} ms a "
+              f"collective (host clock) [{card}]", flush=True)
+        if not equal:
+            raise AssertionError(f"{phase}: the sharded mixer differs from the unsharded one")
+
+
+def flagship_fixture(legs, ticks):
+    """Phase 3's echo-coupled fixture (seed 11) of ``legs`` x ``ticks``,
+    made once: phase 15 drives the same legs sharded."""
+    from mediastreamer2_tpu_torch.models.flagship import echo_coupled_inputs
+    if (legs, ticks) not in FIXTURES:
+        FIXTURES[legs, ticks] = echo_coupled_inputs(legs, ticks, seed=11)
+    return FIXTURES[legs, ticks]
+
+
+def leg_sharding(dev, card, legs=SHARD_LEGS, ticks=SHARD_TICKS, world=SHARD_WORLD,
+                 conferences=SHARD_CONFERENCES):
+    """Phases 15a and 15b (and 15e's taps) in one world of ``world`` gloo
+    ranks, one process a shard (on the card: all on it, since NCCL does
+    not put two ranks on one device): rank 0 first runs the unsharded
+    graphs (the references, in the shards' process settings: no cuBLAS
+    workspace, ``sharding.spawn_shards``), then every rank runs the mixer
+    alone on identical inputs and the flagship sharded, 15a with aligned
+    groups of four (no collective), 15b with ``group_id = leg %
+    conferences`` through the segment-sum mixer (one exchange a tick).
+    The shards must equal the references bit for bit. Returns (launches
+    summed over the ranks of both runs, ticks x ranks)."""
+    from mediastreamer2_tpu_torch.parallel import checks, sharding
+    shard_dev = None if dev.type == "cuda" else "cpu"
+    gid = (np.arange(legs) % conferences).astype(np.int32)
+    x = (0.1 * np.random.default_rng(150).standard_normal((legs, 160))).astype(np.float32)
+    with tempfile.TemporaryDirectory(prefix="ms2_shard_") as tmp:
+        paths = [os.path.join(tmp, f"{n}.npy") for n in ("mic", "far")]
+        for path, a in zip(paths, flagship_fixture(legs, ticks)):
+            np.save(path, a)
+        fixture = dict(mic=paths[0], far=paths[1], ticks=ticks, taps=True)
+        jobs = [("flagship", dict(fixture, unsharded=True)),
+                ("flagship", dict(fixture, unsharded=True, group_id=gid)),
+                ("barrier", {}), ("mixer", dict(x=x, group_id=gid)), ("flagship", fixture),
+                ("flagship", dict(fixture, group_id=gid))]
+        t0 = time.perf_counter()
+        reports = sharding.spawn_shards(checks.run_jobs, world, device=shard_dev,
+                                        timeout_s=SHARD_TIMEOUT_S, args=(jobs,))
+        print(f"phase 15a/15b world: {world} gloo ranks, {time.perf_counter() - t0:.1f} s "
+              f"with start-up", flush=True)
+    refs = reports[0][:2]
+    for name, r in zip(("15a", "15b"), refs):
+        print(f"{name} unsharded: {legs} legs x {ticks} ticks on rank 0 (the other ranks "
+              f"waiting), {r['ms_tick']:.3f} ms/tick, finite {r['finite']}, the job "
+              f"{r['seconds']:.1f} s with its set-up [{card}]", flush=True)
+    mixer_bars("15b", [dict(r[3], rank=i) for i, r in enumerate(reports)], card)
+    launches = {}
+    for name, i in (("15a", 4), ("15b", 5)):
+        runs = [r[i] for r in reports]
+        ref = refs[i - 4]
+        shard_bars(name, ref["out"], runs, ticks, 0 if name == "15a" else 1, card, dev)
+        equal, steps = tap_report(ref["taps"], runs, legs)
+        print(f"15e taps after {name}: Ws_r, Ws_i, Wm_r, Wm_i of {equal} of {legs} legs "
+              f"bit-equal to the unsharded run's rows; at most {steps} bf16 steps apart",
+              flush=True)
+        if equal != legs:
+            raise AssertionError(f"15e: the taps of {legs - equal} legs differ after {name}")
+        for r in runs:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    return launches, 2 * ticks * world
+
+
+def nccl_one_rank(dev, card, fixture, legs=NCCL_LEGS, ticks=SHARD_TICKS,
+                  conferences=NCCL_LEGS // 4):
+    """Phase 15d: 15b's graph on one NCCL rank (its init and the mixer's
+    all_reduce on the card), bit for bit the unsharded run of the same
+    batch in the same process, on the first ``legs`` legs of ``fixture``
+    (mic, far). Returns (launches, ticks)."""
+    from mediastreamer2_tpu_torch.parallel import checks, sharding
+    with tempfile.TemporaryDirectory(prefix="ms2_nccl_") as tmp:
+        paths = [os.path.join(tmp, f"{n}.npy") for n in ("mic", "far")]
+        for path, a in zip(paths, fixture):
+            np.save(path, a[:legs])
+        run = dict(mic=paths[0], far=paths[1], ticks=ticks,
+                   group_id=(np.arange(legs) % conferences).astype(np.int32))
+        t0 = time.perf_counter()
+        [[ref, r]] = sharding.spawn_shards(
+            checks.run_jobs, 1, backend="nccl", timeout_s=SHARD_TIMEOUT_S,
+            args=([("flagship", dict(run, unsharded=True)), ("flagship", run)],))
+    print(f"15d: one NCCL rank, {time.perf_counter() - t0:.1f} s with start-up; unsharded "
+          f"{ref['ms_tick']:.3f} ms/tick [{card}]", flush=True)
+    shard_bars("15d", ref["out"], [r], ticks, 1, card, dev)
+    return r["launches"], ticks
+
+
+def offset_kernel(kernels, dev, card, legs=SHARD_LEGS, rows=OFFSET_ROWS, P=P, F=F):
+    """Phase 15e: mdf_update_fused (bf16 shadow) on rows [lo, hi) with
+    lin0 = lo * P * F equals rows [lo, hi) of the full call bit for bit,
+    and its plain twin on the same slice; with lin0 = 0 it must not (the
+    fault a shard would have)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    rnd = lambda *shape, s=1.0: s * torch.randn(shape, generator=g, device=dev)
+    flag = lambda: torch.rand((legs,), generator=g, device=dev) < 0.3
+    taps = [rnd(legs, P, F, s=0.1).to(torch.bfloat16) for _ in range(4)]
+    rest = ([rnd(legs, P, F).to(torch.bfloat16) for _ in range(2)]
+            + [rnd(legs, F, s=0.3), rnd(legs, F, s=0.3), rnd(legs, F).abs(),
+               rnd(legs, F, s=0.05), rnd(legs, F, s=0.05), rnd(legs).abs() * 0.6,
+               flag(), flag(), flag()])
+    cpos = torch.tensor(3, dtype=torch.int32, device=dev)
+    srk = torch.tensor(987654321, dtype=torch.int64, device=dev)
+    lo, hi = rows
+    full = [t.clone() for t in taps]
+    kernels.mdf_update_fused(cpos, *full, *rest, srk)
+    cut = lambda ts: [t[lo:hi].clone() for t in ts]
+    lin0 = lo * P * F
+    part, plain, zero = cut(taps), cut(taps), cut(taps)
+    kernels.mdf_update_fused(cpos, *part, *cut(rest), srk, lin0)
+    kernels.mdf_update_fused_reference(cpos, *plain, *cut(rest), srk, lin0)
+    kernels.mdf_update_fused(cpos, *zero, *cut(rest), srk)
+    to_full = all(torch.equal(a.view(torch.int16), b[lo:hi].view(torch.int16))
+                  for a, b in zip(part, full))
+    to_plain = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                   for a, b in zip(part, plain))
+    moved = int(sum((a.view(torch.int16) != b[lo:hi].view(torch.int16)).sum()
+                    for a, b in zip(zero[:2], full[:2])))
+    print(f"15e kernel: mdf_update_fused on rows [{lo}, {hi}) of {legs} x {P} x {F} with lin0 = "
+          f"{lin0}: bit-equal to the full call's rows {to_full}, to its plain twin {to_plain}; "
+          f"with lin0 = 0, {moved} shadow taps differ from the full call's rows [{card}]",
+          flush=True)
+    if not (to_full and to_plain):
+        raise AssertionError(f"15e: the offset update differs (from the full call's rows: "
+                             f"{not to_full}, from its plain twin: {not to_plain})")
+    if moved == 0:
+        raise AssertionError("15e: lin0 = 0 rounds the slice as the full call does: "
+                             "the fixture shows no fault")
+
+
+def phase15(kernels, dev, card, phase_done=lambda n: None, legs=SHARD_LEGS, ticks=SHARD_TICKS,
+            world=SHARD_WORLD, conferences=SHARD_CONFERENCES, nccl_legs=NCCL_LEGS,
+            offset_rows=OFFSET_ROWS):
+    """Phase 15 (15a-15e). Returns (launches summed over every rank of
+    15a, 15b and 15d, their ticks x ranks). On the CPU (a rehearsal) 15c
+    runs its shards on the CPU and 15d, which needs a card, is left out."""
+    from mediastreamer2_tpu_torch.parallel.dryrun import dryrun_multichip
+    t15 = time.perf_counter()
+    if dev.type == "cuda":
+        print(f"compute mode: {nvidia_smi('compute_mode')} [{card}]", flush=True)
+    launches, n = leg_sharding(dev, card, legs, ticks, world, conferences)
+    phase_done("15b")
+    for r in dryrun_multichip(world, device=None if dev.type == "cuda" else "cpu"):
+        print(f"15c rank {r['rank']} on {r['device']}: out {r['out_shape']}, max abs err "
+              f"{r['max_abs_err']:.3e}, G.711 err {r['g711_err']:.4f}, edge packets "
+              f"{r['edge_packets']}, foreign modules {r['foreign_modules']} [{card}]", flush=True)
+        if r["foreign_modules"]:
+            raise AssertionError(f"15c: a shard loaded {r['foreign_modules']}")
+    phase_done("15c")
+    if dev.type == "cuda":
+        nccl, nccl_ticks = nccl_one_rank(dev, card, flagship_fixture(legs, ticks), nccl_legs,
+                                         ticks, nccl_legs // 4)
+        launches = {k: v + nccl[k] for k, v in launches.items()}
+        n += nccl_ticks
+    else:
+        print("15d: left out on the CPU (NCCL needs a card)", flush=True)
+    phase_done("15d")
+    offset_kernel(kernels, dev, card, legs, offset_rows)
+    FIXTURES.clear()
+    print(f"phase 15 took {time.perf_counter() - t15:.1f} s [{card}]", flush=True)
+    return launches, n
+
+
+def kernel_entries(results, adpcm_results, session_results, wide_results, runs) -> list:
+    """The ``kernels`` JSON line's entries: each kernel of ``REPLACES`` with
+    phase 2's measurements (``results``, ``adpcm_results``; the session's
+    and the wideband call's shapes beside them), its launches summed over
+    the counted ``runs`` ({path: (launches, ticks)}) and its launches a
+    tick of each path."""
+    total = {name: sum(c[name] for c, _ in runs.values()) for name in REPLACES}
+    entries = []
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    results = dict(results)
+    results.update({k: v for k, v in adpcm_results.items() if "@" not in k})
+    for name in ("g726_encode", "g726_decode"):      # the gateway's rate leads the entry
+        results[name] = adpcm_results[f"{name}@32"]
+    for name in REPLACES:
+        r = results[name]
+        entry = {"name": name, "route": "cuda",
+                 "source": SOURCES.get(name.split("_")[0], KERNEL_SOURCE),
+                 "replaces": REPLACES[name], "launches": total[name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+                 "launches_per_tick": {path: c[name] / n for path, (c, n) in runs.items()}}
+        if "bound_chain_ms" in r:
+            entry.update(bound_bytes_ms=r["bound_bytes_ms"], bound_chain_ms=r["bound_chain_ms"])
+        if "bound_depth" in r:
+            entry["bound_depth"] = r["bound_depth"]
+        if name.startswith("g726"):
+            entry["rates_kbps"] = {kbps: {k: adpcm_results[f"{name}@{kbps}"][k] for k in keys}
+                                   for kbps in G726_RATES.values()}
+        for label, res_at in (("session_shapes", session_results),
+                              ("wideband_shapes", wide_results)):
+            if name in res_at:
+                entry[label] = {k: res_at[name][k] for k in keys}
+        entries.append(entry)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -4208,7 +4515,7 @@ def main():
     phase_done(2)
 
     # phase 3: the flagship at 4,096 legs, counted launches
-    mic, far = echo_coupled_inputs(LEGS, TICKS, seed=11)
+    mic, far = flagship_fixture(LEGS, TICKS)
     kernels.reset_launch_counts()
     state, out, finite, per_tick = run_flagship(LEGS, TICKS, dev, mic, far)
     launches = kernels.launch_counts()
@@ -4454,12 +4761,19 @@ def main():
 
     phase_done(14)
 
+    # phase 15: leg sharding: 15a / 15b the flagship at full width over four
+    # gloo ranks on the card (aligned groups; conferences across every
+    # shard), 15c the dry run, 15d one NCCL rank, 15e the offset kernel
+    shard_launches, shard_ticks = phase15(kernels, dev, card, phase_done)
+
+    phase_done(15)
+
     # launches over the main-path runs that were counted: the flagship, the
     # three e2e runs, the session and the wideband call at full width, the
     # gateway and its codec chains, the captures' build and their replay, the
     # negotiated calls' media, the video pixel path (none: PyTorch ops), the
-    # audio SFU, the mixed fleet in both modes (a tick: the flagship member's)
-    # and the quirk session
+    # audio SFU, the mixed fleet in both modes (a tick: the flagship member's),
+    # the quirk session and the sharded flagship (counted in each rank)
     runs = {"flagship": (launches, TICKS),
             "e2e": ({k: e2e_launches[k] + srtp_launches[k] + big_launches[k] for k in launches},
                     e2e_ticks + srtp_ticks + big_ticks),
@@ -4473,34 +4787,11 @@ def main():
             "sfu": (sfu_launches, SFU_TICKS),
             "fleet_loop": (fleet_loop_launches, fleet_loop_ticks),
             "fleet_threads": (fleet_thread_launches, fleet_thread_ticks),
-            "quirk_session": (quirk_launches, QUIRK_TICKS)}
+            "quirk_session": (quirk_launches, QUIRK_TICKS),
+            # a tick of a rank: 15a and 15b's four ranks and 15d's one
+            "sharded": (shard_launches, shard_ticks)}
     runs.update({f"chain_{codec}": (c, CHAIN_TICKS) for codec, c in chain_launches.items()})
-    total = {k: sum(c[k] for c, _ in runs.values()) for k in launches}
-    entries = []
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    results.update({k: v for k, v in adpcm_results.items() if "@" not in k})
-    for name in ("g726_encode", "g726_decode"):      # the gateway's rate leads the entry
-        results[name] = adpcm_results[f"{name}@32"]
-    for name in REPLACES:
-        r = results[name]
-        entry = {"name": name, "route": "cuda",
-                 "source": SOURCES.get(name.split("_")[0], KERNEL_SOURCE),
-                 "replaces": REPLACES[name], "launches": total[name],
-                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-                 "launches_per_tick": {path: c[name] / n for path, (c, n) in runs.items()}}
-        if "bound_chain_ms" in r:
-            entry.update(bound_bytes_ms=r["bound_bytes_ms"], bound_chain_ms=r["bound_chain_ms"])
-        if "bound_depth" in r:
-            entry["bound_depth"] = r["bound_depth"]
-        if name.startswith("g726"):
-            entry["rates_kbps"] = {kbps: {k: adpcm_results[f"{name}@{kbps}"][k] for k in keys}
-                                   for kbps in G726_RATES.values()}
-        for label, res_at in (("session_shapes", session_results),
-                              ("wideband_shapes", wide_results)):
-            if name in res_at:
-                entry[label] = {k: res_at[name][k] for k in keys}
-        entries.append(entry)
+    entries = kernel_entries(results, adpcm_results, session_results, wide_results, runs)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,13 +26,38 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 from mediastreamer2_tpu_torch.core.block import Format
 
 
+@dataclasses.dataclass(frozen=True)
+class LegShard:
+    """Where a graph built for one shard of the legs sits in the whole
+    batch (``parallel/sharding.py``): its legs are the global rows
+    ``[offset, offset + global_batch // world)``. ``group`` is the
+    ``torch.distributed`` process group its cross-leg filters exchange rows
+    over (None: the default group)."""
+    offset: int
+    global_batch: int
+    world: int
+    group: object = None
+
+    @property
+    def batch(self) -> int:
+        return self.global_batch // self.world
+
+
 @dataclasses.dataclass
 class FilterCtx:
-    """Build-time context handed to init/out_formats."""
+    """Build-time context handed to init/out_formats. ``batch`` is the legs
+    this graph holds; with a ``shard`` it is one shard's, and a filter whose
+    code path depends on the batch reads ``global_batch`` instead, so that
+    every shard takes the branch the unsharded graph takes."""
     batch: int
     in_formats: Tuple[Format, ...]
     params: Dict[str, object]          # static (python-level) construction params
     name: str = ""                     # node instance name
+    shard: Optional[LegShard] = None   # set by a sharded build
+
+    @property
+    def global_batch(self) -> int:
+        return self.shard.global_batch if self.shard is not None else self.batch
 
 
 @dataclasses.dataclass(frozen=True)

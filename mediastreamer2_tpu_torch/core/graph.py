@@ -31,7 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from mediastreamer2_tpu_torch.core.block import Format, block_shape, block_dtype
-from mediastreamer2_tpu_torch.core.filter import FilterCtx, FilterDef
+from mediastreamer2_tpu_torch.core.filter import FilterCtx, FilterDef, LegShard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +55,13 @@ class Link:
 class GraphBuilder:
     """Declarative graph description (cf. MSConnectionHelper, msfilter.h:532-577)."""
 
-    def __init__(self, factory, batch: int):
+    def __init__(self, factory, batch: int, shard: Optional[LegShard] = None):
+        if shard is not None and shard.batch != batch:
+            raise ValueError(f"a shard of {shard.global_batch} legs over {shard.world} "
+                             f"holds {shard.batch} legs, not {batch}")
         self.factory = factory
         self.batch = batch
+        self.shard = shard
         self.nodes: List[Node] = []
         self.links: List[Link] = []
         self.static_params: List[Dict[str, Any]] = []
@@ -129,6 +133,7 @@ class CompiledGraph:
     """Resolved formats + initial state + step function."""
 
     def __init__(self, gb: GraphBuilder):
+        self.factory = gb.factory
         self.batch = gb.batch
         self.nodes = list(gb.nodes)
         self.links = list(gb.links)
@@ -160,7 +165,7 @@ class CompiledGraph:
                     f"(graphs are fixed-shape; there is no bufferizer to "
                     f"absorb unsynchronized inputs at run time)")
             ctx = FilterCtx(batch=gb.batch, in_formats=tuple(in_fmts),
-                            params=gb.static_params[i], name=node.name)
+                            params=gb.static_params[i], name=node.name, shard=gb.shard)
             self.ctxs[i] = ctx
             fmts = tuple(node.fdef.out_formats(ctx))
             if len(fmts) != node.fdef.noutputs:
@@ -178,6 +183,17 @@ class CompiledGraph:
                                               block_dtype(fmt))
             elif node.fdef.name == "ext_sink":
                 self.ext_outputs.append(node.name)
+
+    def for_shard(self, shard: LegShard) -> "CompiledGraph":
+        """This graph built again for one shard of its legs: the same nodes,
+        links and static params at ``shard.batch`` legs, every node's
+        context carrying ``shard`` (``parallel/sharding.sharded_step``)."""
+        if shard.global_batch != self.batch:
+            raise ValueError(f"shard of {shard.global_batch} legs for a graph of {self.batch}")
+        gb = GraphBuilder(self.factory, shard.batch, shard=shard)
+        gb.nodes, gb.links = list(self.nodes), list(self.links)
+        gb.static_params = [dict(ctx.params) for ctx in self.ctxs]
+        return gb.build()
 
     def init_state(self, device) -> Dict[str, Any]:
         device = torch.device(device)

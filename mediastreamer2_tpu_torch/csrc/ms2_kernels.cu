@@ -177,7 +177,9 @@ mdf_apply_kernel(const bf16* __restrict__ wm_r, const bf16* __restrict__ wm_i,
 //   bf16 shadow (the JAX default branch, ops/aec.py:487-496, 520-528, 541-542):
 //     Ws' = sround(hard_reset ? 0 : (reseed ? Wm : up), salt)
 //       with salt 2*srk for re and 2*srk+1 for im and the hash of
-//       ops/aec.py:142-152 over the linear (b, p, f) index
+//       ops/aec.py:142-152 over the linear (b, p, f) index plus lin0, the
+//       index of element 0 in the whole batch (a shard's offset * P * F;
+//       0 unsharded), mod 2^32: JAX hashes a sharded array's global iota
 //     Wm' = promote ? Ws' : Wm       (the ROUNDED shadow value)
 // Ws and Wm are updated in place; Wm is written only where promoted.
 //
@@ -210,7 +212,7 @@ mdf_update_fused_kernel(const int* __restrict__ cpos_p,
                         const uint8_t* __restrict__ promote,
                         const uint8_t* __restrict__ reseed,
                         const uint8_t* __restrict__ hard_reset,
-                        const long long* __restrict__ srk_p,
+                        const long long* __restrict__ srk_p, uint32_t lin0,
                         int B, int P, int F)
 {
     const size_t n = (size_t)B * P * F;
@@ -252,7 +254,7 @@ mdf_update_fused_kernel(const int* __restrict__ cpos_p,
     }
     if constexpr (SROUND) {
         const uint32_t salt = (uint32_t)(unsigned long long)(*srk_p) * 2u;
-        const uint32_t lin = (uint32_t)idx;
+        const uint32_t lin = lin0 + (uint32_t)idx;     // wraps as JAX's uint32 iota
         const bf16 qr = sround_bf16(nr, lin, salt);
         const bf16 qi = sround_bf16(ni, lin, salt + 1u);
         ws_r[idx] = qr;
@@ -417,7 +419,7 @@ int ms2_mdf_update_fused(int device, int shadow_bf16, const void* cpos,
                          const void* gc_r, const void* gc_i, const void* mu,
                          const void* promote, const void* reseed,
                          const void* hard_reset, const void* srk,
-                         int B, int P, int F, void* stream)
+                         unsigned int lin0, int B, int P, int F, void* stream)
 {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
@@ -432,7 +434,7 @@ int ms2_mdf_update_fused(int device, int shadow_bf16, const void* cpos,
             (const float*)e_r, (const float*)e_i, (const float*)inv_norm,
             (const float*)gc_r, (const float*)gc_i, (const float*)mu,
             (const uint8_t*)promote, (const uint8_t*)reseed,
-            (const uint8_t*)hard_reset, (const long long*)srk, B, P, F);
+            (const uint8_t*)hard_reset, (const long long*)srk, lin0, B, P, F);
     else
         mdf_update_fused_kernel<float, false><<<blocks, 256, 0, s>>>(
             (const int*)cpos, (float*)ws_r, (float*)ws_i, (bf16*)wm_r,
@@ -440,7 +442,7 @@ int ms2_mdf_update_fused(int device, int shadow_bf16, const void* cpos,
             (const float*)e_r, (const float*)e_i, (const float*)inv_norm,
             (const float*)gc_r, (const float*)gc_i, (const float*)mu,
             (const uint8_t*)promote, (const uint8_t*)reseed,
-            (const uint8_t*)hard_reset, (const long long*)srk, B, P, F);
+            (const uint8_t*)hard_reset, (const long long*)srk, lin0, B, P, F);
     return (int)cudaGetLastError();
 }
 

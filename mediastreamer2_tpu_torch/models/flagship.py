@@ -15,17 +15,20 @@ from mediastreamer2_tpu_torch.core.graph import GraphBuilder
 
 def build_flagship(factory, batch: int, device, rate: int = 48000,
                    mix_rate: int = 16000, conf_size: int = 4,
-                   tail_ms: int = 80):
+                   tail_ms: int = 80, group_id=None):
     """Returns (CompiledGraph, params on ``device``) with conference groups
-    of ``conf_size`` contiguous legs."""
+    of ``conf_size`` contiguous legs; or, given ``group_id`` (``[batch]``
+    ints: leg i's conference), the mixer's segment sum over those groups,
+    which may place a conference's members anywhere (``conf_size`` is then
+    not used)."""
     g = GraphBuilder(factory, batch=batch)
     mic = g.add("ext_source", "mic", fmt=Format(rate=rate))
     spk = g.add("ext_source", "spk_ref", fmt=Format(rate=rate))
     ec = g.add("echo_canceller", "ec", tail_ms=tail_ms)
     agc = g.add("volume", "agc")
     rs = g.add("resample", "rs", out_rate=mix_rate)
-    mix = g.add("conf_mixer", "conf", sorted_groups=True,
-                uniform_group_size=conf_size)
+    uniform = {} if group_id is not None else {"uniform_group_size": conf_size}
+    mix = g.add("conf_mixer", "conf", sorted_groups=True, **uniform)
     out = g.add("ext_sink", "out")
     g.link(mic, 0, ec, 0)
     g.link(spk, 0, ec, 1)
@@ -33,8 +36,9 @@ def build_flagship(factory, batch: int, device, rate: int = 48000,
     cg = g.build()
     params = cg.init_params(device)
     params["agc"]["agc_enabled"] = torch.ones((batch,), dtype=torch.bool, device=device)
-    params["conf"]["group_id"] = torch.arange(batch, dtype=torch.int32,
-                                              device=device) // conf_size
+    params["conf"]["group_id"] = (
+        torch.arange(batch, dtype=torch.int32, device=device) // conf_size
+        if group_id is None else torch.as_tensor(group_id, dtype=torch.int32).to(device))
     return cg, params
 
 

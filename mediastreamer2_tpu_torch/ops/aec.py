@@ -39,6 +39,11 @@ tensors):
 
 ``cpos`` (and ``srk``) stay on the device: the host never waits for them.
 
+Built for one shard of the legs (``FilterCtx.shard``), the filter reads
+the megakernel rule from the whole batch and hands ``mdf_update_fused``
+the shard's first index (``offset * P * F``), so the stochastic rounding
+hashes each element's index in the whole batch, as JAX's global iota does.
+
 Left out of this port (JAX options that were measured and rejected, or
 TPU-only plumbing): ``AEC_CIRC_HIST`` (circular history, aec.py:110) and
 ``AEC_HALF_UPDATE`` (aec.py:167) -- state init raises when either is set,
@@ -155,7 +160,10 @@ def _aec_process(state, ins, params, ctx):
     two_s = 2 * S
     P = state["Wm_r"].shape[1]
     bf16_shadow = state["Ws_r"].dtype == STORE_DTYPE
-    megakernel = not bf16_shadow and _megakernel_path(B)
+    # a shard takes the unsharded graph's branch (the rule reads the whole
+    # batch) and rounds its rows by their index in the whole batch
+    megakernel = not bf16_shadow and _megakernel_path(ctx.global_batch)
+    lin0 = ctx.shard.offset * P * state["Wm_r"].shape[2] if ctx.shard is not None else 0
 
     far_blk = torch.cat([state["far_prev"], far], dim=1)            # [B, 2S]
     Xr, Xi = rfft(far_blk, two_s)                                   # [B, F]
@@ -233,7 +241,7 @@ def _aec_process(state, ins, params, ctx):
         Ws_r, Ws_i, Wm_r, Wm_i = kernels.mdf_update_fused(
             cpos, state["Ws_r"], state["Ws_i"], state["Wm_r"], state["Wm_i"],
             Xh_r, Xh_i, Er, Ei, inv_norm, gc_r, gc_i, mu, promote, reseed,
-            hard_reset, state.get("srk"))
+            hard_reset, state.get("srk"), lin0)
     Em = torch.where(promote, Es, Em)
     Es = torch.where(reseed, Em, Es)
     Es = torch.where(hard_reset, Dn, Es)

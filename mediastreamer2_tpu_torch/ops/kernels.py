@@ -109,7 +109,7 @@ def _load():
         main.ms2_fused_volume.argtypes = [I] + [P] * 8 + [I, I, P]
         main.ms2_mdf_apply.argtypes = [I, I] + [P] * 12 + [I, I, I, P]
         main.ms2_mdf_update.argtypes = [I] + [P] * 15 + [I, I, I, P]
-        main.ms2_mdf_update_fused.argtypes = [I, I] + [P] * 17 + [I, I, I, P]
+        main.ms2_mdf_update_fused.argtypes = [I, I] + [P] * 17 + [ctypes.c_uint32, I, I, I, P]
         g722.ms2_g722_encode.argtypes = [I, P, P, P, I, I, P]
         g722.ms2_g722_decode.argtypes = [I, P, P, P, I, I, P]
         adpcm.ms2_dvi4_encode.argtypes = [I, P, P, P, P, I, I, P]
@@ -340,17 +340,23 @@ def _mul32(a, c: int):
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
 
 
-def sround_bf16(x, salt):
+def sround_bf16(x, salt, lin0: int = 0):
     """Stochastically round f32 -> bf16, bit for bit as ``_sround_bf16`` in
     ``mediastreamer2_tpu/ops/aec.py:137-154``: add 16 bits of a hash of the
     row-major linear index and ``salt`` to the f32 bit pattern, truncate.
+
+    ``lin0`` is the linear index of ``x``'s first element in the whole
+    tensor that ``x`` is rows of (a shard's ``offset * P * F``), so a
+    shard rounds its rows as the unsharded tensor does; the index wraps
+    mod 2**32 as JAX's uint32 iota does.
 
     The uint32 arithmetic runs in int64 masked to 32 bits, since PyTorch on
     the CPU has no uint32 add or shift. ``salt`` is an int or an int64
     tensor scalar."""
     x = x.contiguous()
     dev = x.device
-    lin = torch.arange(x.numel(), dtype=torch.int64, device=dev).reshape(x.shape) & _M32
+    lin = (torch.arange(x.numel(), dtype=torch.int64, device=dev).reshape(x.shape)
+           + (lin0 & _M32)) & _M32
     bits = x.view(torch.int32).to(torch.int64) & _M32
     salt = torch.as_tensor(salt, dtype=torch.int64, device=dev) & _M32
     h = (_mul32(lin, 2654435761) + _mul32(salt, 0x9E3779B9)) & _M32
@@ -364,8 +370,9 @@ def sround_bf16(x, salt):
 
 def mdf_update_fused_reference(cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i,
                                Er, Ei, inv_norm, gc_r, gc_i, mu, promote,
-                               reseed, hard_reset, srk=None):
-    """Plain version; updates Ws and Wm in place, as the kernel does."""
+                               reseed, hard_reset, srk=None, lin0: int = 0):
+    """Plain version; updates Ws and Wm in place, as the kernel does.
+    ``lin0``: the stochastic rounding's index offset (``sround_bf16``)."""
     B, P, F = Ws_r.shape
     dev = Ws_r.device
     pmask = torch.arange(P, device=dev)[None, :, None] == cpos
@@ -382,8 +389,8 @@ def mdf_update_fused_reference(cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i,
     n_i = torch.where(h3, 0.0, torch.where(r3, Wm_i.float(), up_i))
     if Ws_r.dtype == torch.bfloat16:
         salt = torch.as_tensor(srk, dtype=torch.int64, device=dev) * 2
-        n_r = sround_bf16(n_r, salt)
-        n_i = sround_bf16(n_i, salt + 1)
+        n_r = sround_bf16(n_r, salt, lin0)
+        n_i = sround_bf16(n_i, salt + 1, lin0)
         m_r, m_i = n_r, n_i
     else:
         m_r, m_i = up_r.to(torch.bfloat16), up_i.to(torch.bfloat16)
@@ -396,19 +403,21 @@ def mdf_update_fused_reference(cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i,
 
 def mdf_update_fused(cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i, Er, Ei,
                      inv_norm, gc_r, gc_i, mu, promote, reseed, hard_reset,
-                     srk=None):
+                     srk=None, lin0: int = 0):
     """NLMS update + round-robin constraint + two-path transfers, in place.
 
     cpos: int32 scalar tensor (partition constrained this tick);
     Ws: f32 or bf16 [B,P,F] (its dtype picks the mode, see the kernel's
     note); Wm, Xh: bf16 [B,P,F]; Er, Ei, inv_norm, gc_r, gc_i: f32 [B,F];
     mu: f32 [B]; promote, reseed, hard_reset: bool [B]; srk: int64 scalar
-    tensor, the stochastic-rounding counter (bf16 mode only).
+    tensor, the stochastic-rounding counter (bf16 mode only); lin0: the
+    rounding hash's index of element 0 (a shard's ``offset * P * F``,
+    mod 2**32; ``sround_bf16``).
     Returns (Ws_r, Ws_i, Wm_r, Wm_i), the updated inputs."""
     if Ws_r.device.type == "cpu":
         return mdf_update_fused_reference(cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r,
                                           Xh_i, Er, Ei, inv_norm, gc_r, gc_i,
-                                          mu, promote, reseed, hard_reset, srk)
+                                          mu, promote, reseed, hard_reset, srk, lin0)
     dev = _cuda_device(Ws_r)
     B, P, F = Ws_r.shape
     bf16_shadow = Ws_r.dtype == torch.bfloat16
@@ -431,7 +440,7 @@ def mdf_update_fused(cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i, Er, Ei,
     _launch(_load().ms2_mdf_update_fused, dev, int(bf16_shadow),
             *map(_ptr, (cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i, Er, Ei,
                         inv_norm, gc_r, gc_i, mu, promote, reseed, hard_reset)),
-            _ptr(srk) if bf16_shadow else None, B, P, F)
+            _ptr(srk) if bf16_shadow else None, lin0 & _M32, B, P, F)
     mdf_update_fused.launches += 1
     return Ws_r, Ws_i, Wm_r, Wm_i
 

@@ -17,6 +17,25 @@ Two branches, as in JAX:
   O(B * S) work and memory. An id outside [0, B) joins no group, as in
   ``jax.ops.segment_sum``.
 
+Built for one shard of the legs (``FilterCtx.shard``,
+``parallel/sharding.py``), the mixer is bit for bit the unsharded one. JAX
+leaves the cross-shard sums to XLA, which picks its own collective; the
+port names its own: ranks exchange *contributions*, never partial sums,
+through one ``all_reduce`` over a zero-padded buffer of their bits
+(``core/collective.sum_exact``: each slot has one non-zero writer, so the sum is
+the value), then each rank runs the unsharded code's own sum on the rows
+it needs, in the unsharded order:
+
+* uniform groups: the branch is picked from the whole batch; when every
+  group lies inside one shard (decided from ``global_batch``, ``k`` and
+  ``world``, which all ranks share) nothing is exchanged; otherwise only
+  the groups a shard boundary cuts;
+* segment sum: ``group_id`` may put any leg anywhere and change at run
+  time, so every tick every rank gets the whole ``[global_batch, S]``
+  contribution buffer with each leg's (global) group id as one more
+  column, sorts those ids and reduces; the ``_segments`` cache, which
+  counts B + 1 offsets from its own rows, is not used.
+
 ``mix2``/``mix3``/``mix4`` sum their inputs with per-input gains and clip;
 ``audio_levels`` passes audio through and meters each leg's smoothed block
 energy (the conference's active-talker and RFC 6464/6465 level source).
@@ -25,6 +44,7 @@ from __future__ import annotations
 
 import torch
 
+from mediastreamer2_tpu_torch.core.collective import exchange_rows, sum_exact
 from mediastreamer2_tpu_torch.core.filter import FilterDef, register_filter
 
 
@@ -46,12 +66,61 @@ def _segments(ctx, gid):
     counter), so that a tick reuses them without a sort or a host sync."""
     cached = getattr(ctx, "_segments", None)
     if cached is None or cached[0] is not gid or cached[1] != gid._version:
-        ids, order = torch.sort(gid, stable=True)
-        offsets = torch.searchsorted(ids, torch.arange(gid.shape[0] + 1, dtype=ids.dtype,
-                                                       device=gid.device))
-        cached = (gid, gid._version, order, offsets)
+        cached = (gid, gid._version) + _sort_segments(gid)
         ctx._segments = cached
     return cached[2], cached[3]
+
+
+def _sort_segments(gid):
+    """(order, offsets) of ``_segments``, uncached."""
+    ids, order = torch.sort(gid, stable=True)
+    return order, torch.searchsorted(ids, torch.arange(gid.shape[0] + 1, dtype=ids.dtype,
+                                                       device=gid.device))
+
+
+def _uniform_mix(contrib, k):
+    """Each row's group sum, for contiguous groups of ``k`` rows."""
+    B, S = contrib.shape
+    return torch.repeat_interleave(contrib.reshape(B // k, k, S).sum(dim=1), k, dim=0)
+
+
+def _segment_sums(contrib, order, offsets):
+    """[B groups, S]: each group's rows summed in ``order``."""
+    return torch.segment_reduce(contrib[order], "sum", offsets=offsets, axis=0, unsafe=True)
+
+
+def spanning_groups(global_batch, k, world):
+    """The uniform groups of ``k`` legs that a boundary between two of
+    ``world`` shards cuts, from numbers every rank shares (so that every
+    rank takes part in the same exchange, or none does)."""
+    b = global_batch // world
+    return sorted({(j * b) // k for j in range(1, world) if (j * b) % k})
+
+
+def _sharded_uniform_mix(contrib, k, shard):
+    """``_uniform_mix`` of a shard's rows: groups inside the shard sum
+    there; the rows of groups that a shard boundary cuts are exchanged
+    (only those), then every rank sums the whole groups its rows belong
+    to with the unsharded code."""
+    B, S = contrib.shape
+    spanning = spanning_groups(shard.global_batch, k, shard.world)
+    if not spanning:
+        return _uniform_mix(contrib, k)
+    off = shard.offset
+    slot = {g: i * k for i, g in enumerate(spanning)}      # group -> first buffer row
+    buf = torch.zeros((len(spanning) * k, S), dtype=contrib.dtype, device=contrib.device)
+    for g in spanning:
+        lo, hi = max(g * k, off), min(g * k + k, off + B)
+        if lo < hi:
+            buf[slot[g] + lo - g * k:slot[g] + hi - g * k] = contrib[lo - off:hi - off]
+    buf = sum_exact(buf, shard.group)
+    g0, g1 = off // k, (off + B - 1) // k                 # the groups this shard touches
+    left, right = off - g0 * k, (g1 + 1) * k - (off + B)
+    rows = [buf[slot[g0]:slot[g0] + left]] if left else []
+    rows.append(contrib)
+    if right:
+        rows.append(buf[slot[g1] + k - right:slot[g1] + k])
+    return _uniform_mix(torch.cat(rows), k)[left:left + B]
 
 
 def _conf_process(state, ins, params, ctx):
@@ -59,15 +128,23 @@ def _conf_process(state, ins, params, ctx):
     B, S = x.shape
     contrib = torch.where(params["active"][:, None], x * params["gain"][:, None], 0.0)
     k = int(ctx.params.get("uniform_group_size", 0))
-    if k > 0 and B % k == 0:
-        sums_g = contrib.reshape(B // k, k, S).sum(dim=1)
-        mix = torch.repeat_interleave(sums_g, k, dim=0)
-    else:
+    shard = ctx.shard
+    if k > 0 and ctx.global_batch % k == 0:
+        mix = _uniform_mix(contrib, k) if shard is None else \
+            _sharded_uniform_mix(contrib, k, shard)
+    elif shard is None:
         gid = params["group_id"]
         order, offsets = _segments(ctx, gid)
-        sums = torch.segment_reduce(contrib[order], "sum", offsets=offsets, axis=0,
-                                    unsafe=True)      # [B groups, S]
-        mix = sums[gid.long()]
+        mix = _segment_sums(contrib, order, offsets)[gid.long()]
+    else:
+        # every leg's contribution and group id, exactly, on every rank
+        # (one collective: the ids ride as a last column of the bits)
+        bits = torch.cat([contrib.view(torch.int32),
+                          params["group_id"].to(torch.int32)[:, None]], dim=1)
+        full = exchange_rows(bits, shard.offset, shard.global_batch, shard.group)
+        contrib_g, gid_g = full[:, :S].contiguous().view(torch.float32), full[:, S]
+        sums = _segment_sums(contrib_g, *_sort_segments(gid_g))
+        mix = sums[gid_g[shard.offset:shard.offset + B].long()]
     out = torch.where(params["mix_minus"][:, None], mix - contrib, mix)
     out = torch.clamp(out * params["out_gain"][:, None], -1.0, 1.0)
     return state, (out,), {}

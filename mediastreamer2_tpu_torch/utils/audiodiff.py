@@ -50,7 +50,7 @@ def audio_diff(ref, rec, max_shift: int | None = None, device="cpu") -> Tuple:
     return sims, shifts
 
 
-def quality_bar(ref: np.ndarray, got: np.ndarray, leg_step: int = 37) -> dict:
+def quality_bar(ref: np.ndarray, got: np.ndarray, leg_step: int = 37, device="cpu") -> dict:
     """The cross-backend bar of ``tools/tpu_correctness.py`` for two
     [legs, samples] output streams. ``pass`` needs the similarity of every
     ``leg_step``-th leg >= 0.999 (that tool samples legs 0, 37, 74, ...),
@@ -61,10 +61,11 @@ def quality_bar(ref: np.ndarray, got: np.ndarray, leg_step: int = 37) -> dict:
     promote decision can land a few ticks apart between backends on a leg
     whose evidence sits on the threshold, and for those ticks one backend
     outputs the promoted filter's residual and the other the main filter's
-    (the mix-minus spreads that to the leg's conference)."""
+    (the mix-minus spreads that to the leg's conference). ``device``:
+    where ``audio_diff`` runs (a card takes thousands of legs at once)."""
     ref = np.asarray(ref, np.float64)
     got = np.asarray(got, np.float64)
-    sims = audio_diff(ref, got)[0]
+    sims = audio_diff(ref, got, device=device)[0]
     err = np.abs(ref - got)
     rms = float(np.sqrt(np.mean(err ** 2)))
     half = ref.shape[1] // 2

@@ -6,7 +6,9 @@ against the figures worked out by hand from the kernels' operands; the
 DVI4 clamp fixtures; the launches phases 8a and 9b expect a tick pair or
 round; the loops that ``REPLACES`` names; and the harness of the later
 phases on the CPU at tiny sizes (10, 11 and the video call's phase 12,
-which catches no failure)."""
+which catches no failure, through phase 15's leg sharding over two gloo
+ranks, whose bars must fail a perturbed shard); and the kernels JSON
+line's entries, ``sharded`` included."""
 import importlib.util
 import os
 
@@ -1094,3 +1096,122 @@ def test_phase_14_catches_nothing(smoke):
     assert "except" not in block
     order = [block.index(f'phase_done("14{x}")') for x in "abcde"]
     assert order == sorted(order) and "device_gating(" in block
+
+
+def test_phase_15_on_the_cpu(smoke, capsys):
+    """Phase 15 at 8 legs over two gloo ranks on the CPU (15d, which needs
+    a card, left out): the mixer bit-equal on each rank, 15a and 15b and
+    their taps bit-equal to the unsharded run, the dry run, the offset
+    update; the launches each rank counted come back (0 here: the plain
+    versions launch nothing) with the ticks x ranks they cover."""
+    import torch
+    from mediastreamer2_tpu_torch.ops import kernels
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)            # as the shards: the CPU's products follow it
+    try:
+        launches, n = smoke.phase15(kernels, torch.device("cpu"), "cpu", legs=8, ticks=3,
+                                    world=2, conferences=2, nccl_legs=8, offset_rows=(2, 4))
+    finally:
+        torch.set_num_threads(threads)
+    assert n == 2 * 3 * 2
+    assert set(launches) == set(smoke.REPLACES) and not any(launches.values())
+    out = capsys.readouterr().out
+    for line in ("15a rank 1: 4 legs x 3 ticks", "15b rank 1: 4 legs x 3 ticks",
+                 "collectives 3 (", "15b mixer rank 1: bit-equal True",
+                 "15a: 2 shards against the unsharded 8-leg run",
+                 "legs bit-equal 8 of 8", "15e taps after 15b: Ws_r, Ws_i, Wm_r, Wm_i of 8 of 8",
+                 "dryrun_multichip(2): ok", "15c rank 1 on cpu", "15d: left out",
+                 "with lin0 = 7696: bit-equal to the full call's rows True, to its plain "
+                 "twin True"):
+        assert line in out, line
+
+
+def _shard_reports(ref, ticks, launches=0, collectives=1):
+    from mediastreamer2_tpu_torch.ops import kernels
+    counts = {k: 0 for k in kernels.launch_counts()}
+    counts.update(fused_volume=launches, mdf_apply=launches, mdf_update_fused=launches)
+    half = ref.shape[0] // 2
+    return [{"rank": i, "out": ref[i * half:(i + 1) * half].copy(), "ms_tick": 1.0,
+             "collectives": collectives * ticks, "collective_ms_tick": 0.1,
+             "launches": dict(counts), "finite": True, "seconds": 1.0} for i in range(2)]
+
+
+def test_phase_15_bars_fail_on_a_perturbed_shard(smoke):
+    """15a / 15b's bars take a shard that equals the unsharded run and fail
+    one that is a float32 step off on one sample, one that lost half
+    its level (phase 4's bar), one with a launch too many and one that
+    skipped its exchange; the mixer's bar fails an unequal rank; the taps'
+    report counts a leg one bf16 step off."""
+    import numpy as np
+    ticks = 10
+    ref = (0.1 * np.random.default_rng(1).standard_normal((4, 160 * ticks))).astype(np.float32)
+    smoke.shard_bars("15b", ref, _shard_reports(ref, ticks), ticks, 1, "cpu")
+    reports = _shard_reports(ref, ticks)
+    reports[1]["out"][0, 5] = np.nextafter(reports[1]["out"][0, 5], np.float32(1))
+    with pytest.raises(AssertionError, match="15b: 1 legs differ"):
+        smoke.shard_bars("15b", ref, reports, ticks, 1, "cpu")
+    reports = _shard_reports(ref, ticks)
+    reports[1]["out"][1] *= 0.5
+    with pytest.raises(AssertionError, match="quality bar failed"):
+        smoke.shard_bars("15b", ref, reports, ticks, 1, "cpu")
+    with pytest.raises(AssertionError, match="15a rank 0: kernel launches"):
+        smoke.shard_bars("15a", ref, _shard_reports(ref, ticks, launches=ticks), ticks, 0, "cpu")
+    with pytest.raises(AssertionError, match="0 collectives in 10 ticks, expected 1"):
+        smoke.shard_bars("15b", ref, _shard_reports(ref, ticks, collectives=0), ticks, 1, "cpu")
+    same = np.arange(6, dtype=np.int32)
+    smoke.mixer_bars("15b", [{"rank": 0, "out": same, "ref": same.copy(), "collectives": 1.0,
+                              "collective_ms": 0.1}], "cpu")
+    with pytest.raises(AssertionError, match="the sharded mixer differs"):
+        smoke.mixer_bars("15b", [{"rank": 0, "out": same, "ref": same + 1, "collectives": 1.0,
+                                  "collective_ms": 0.1}], "cpu")
+    taps = {k: np.random.default_rng(2).integers(-2 ** 15, 2 ** 15, (4, 2, 3), dtype=np.int16)
+            for k in ("Ws_r", "Ws_i", "Wm_r", "Wm_i")}
+    shards = [{"taps": {k: v[:2].copy() for k, v in taps.items()}},
+              {"taps": {k: v[2:].copy() for k, v in taps.items()}}]
+    assert smoke.tap_report(taps, shards, 4) == (4, 0)
+    shards[1]["taps"]["Ws_i"][0, 1, 2] ^= 1                 # one bf16 step off
+    assert smoke.tap_report(taps, shards, 4) == (3, 1)
+
+
+def test_bf16_steps_count_across_zero(smoke):
+    import numpy as np
+    import torch
+    bits = lambda *v: torch.tensor(v, dtype=torch.bfloat16).view(torch.int16).numpy()
+    one_up = np.nextafter(np.float32(1.0), np.float32(2.0))          # rounds to 1.0 in bf16
+    assert smoke.bf16_steps(bits(1.0, -1.0, 0.0), bits(1.0, -1.0, -0.0)).tolist() == [0, 0, 0]
+    assert smoke.bf16_steps(bits(1.0), bits(1.0078125)).tolist() == [1]   # one bf16 ulp at 1
+    assert smoke.bf16_steps(bits(-1.0), bits(-1.0078125)).tolist() == [1]
+    assert smoke.bf16_steps(bits(float(one_up)), bits(1.0)).tolist() == [0]
+    tiny = 9.183549615799121e-41                                        # the least bf16 subnormal
+    assert smoke.bf16_steps(bits(tiny), bits(-tiny)).tolist() == [2]
+
+
+def test_kernels_line_carries_the_sharded_run(smoke):
+    """Every kernel's entry in the kernels JSON line has all the keys the
+    contract names and a ``sharded`` launches a tick (a tick of a rank):
+    1 for the flagship's three kernels, 0 for the rest."""
+    meas = dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5, bound_by="bytes")
+    results = {name: dict(meas) for name in smoke.REPLACES if not name.startswith(("dvi4", "g726"))}
+    adpcm = {f"{n}@{kbps}": dict(meas) for n in ("g726_encode", "g726_decode")
+             for kbps in smoke.G726_RATES.values()}
+    adpcm.update({n: dict(meas) for n in ("dvi4_encode", "dvi4_decode")})
+    ticks = 2 * smoke.SHARD_TICKS * smoke.SHARD_WORLD + smoke.SHARD_TICKS
+    flagship = ("fused_volume", "mdf_apply", "mdf_update_fused")
+
+    def counts(n):
+        c = dict.fromkeys(smoke.REPLACES, 0)
+        c.update(dict.fromkeys(flagship, n))
+        return c
+    runs = {"flagship": (counts(100), 100), "sharded": (counts(ticks), ticks)}
+    entries = smoke.kernel_entries(results, adpcm, {}, {}, runs)
+    assert [e["name"] for e in entries] == list(smoke.REPLACES)
+    contract = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for e in entries:
+        assert contract <= set(e)
+        per_tick = e["launches_per_tick"]
+        if e["name"] in flagship:
+            assert per_tick == {"flagship": 1.0, "sharded": 1.0}
+            assert e["launches"] == 100 + ticks
+        else:
+            assert per_tick == {"flagship": 0.0, "sharded": 0.0} and e["launches"] == 0
