@@ -15,8 +15,9 @@ participants through the native receive pump, ranked by levels computed
 on the card, with the video router, FlexFEC, RFC 4103 text and UPnP beside
 it) and the mixed fleet (1,024 + 256 e2e legs co-resident in one paced
 loop and in per-member threads), the host-codec legs and the
-quirk-configured session on sound cards, and compares the port on the card
-with the port on the CPU.
+quirk-configured session on sound cards, leg sharding, and the programs
+around the package (the ``mediastream`` CLI and the four examples), and
+compares the port on the card with the port on the CPU.
 
     python3 chip_smoke.py
 
@@ -315,18 +316,53 @@ Phases, in order (any failure raises and the script exits non-zero):
    lin0 = 1024 * 8 * 481, bit-equal to those rows of the full call and to
    its plain twin (with lin0 = 0 it differs); and the bf16 taps of every
    shard after 15a's and 15b's 100 ticks against the unsharded run's rows
-   (legs bit-equal and the most bf16 steps apart printed).
+   (legs bit-equal and the most bf16 steps apart printed);
+16. the programs around the package, each run in this process through its
+   entry (the CLI's ``main(argv)``, an example's ``run`` or ``main``), so
+   that its launches are counted (``phase16``). 16a: ``examples/
+   conference_server`` at 1,024 legs in groups of 4 for 4 s paced on a
+   thread, against phase 7a's 1,024 AEC + AGC clients on one batch edge at
+   its ``--client`` address, following its ticks for 340 ticks:
+   the server's ms a tick, late ticks and edge stats printed; bars from
+   tick 40: listeners above 0.85 against the speech sent, mix-minus (a
+   talker's own leg under 5% of its listeners' energy), the launches of
+   each side, counted apart; then the same server once more as ``python
+   -m`` from a fresh interpreter against the same clients, which follow
+   its replies: it exits 0 and the same bars hold. 16b: ``mediastream
+   bench --legs 1024 --seconds 2`` (its line and tx load). 16c: two
+   ``mediastream call`` processes a pair (``python -m`` in fresh
+   interpreters) over localhost UDP for 5 s, one pair with ``--ec --agc``
+   and one with ``--srtp-key``, one pair after the other, both sides of a
+   pair released together from their ``call leg up`` line: each side's
+   recording of the other's speech above 0.8; then one ``call --ec --agc`` leg in this
+   process, counted: which AEC update kernel B = 1 launches. 16d:
+   ``examples/transcode_gateway`` at 1,024 legs for 2 s paced (2,048
+   sockets; RLIMIT_NOFILE raised as in phase 11): mu-law speech sent to
+   ``in_port + 2n`` a tick ahead of the gateway, G.722 received on
+   ``out + 2n`` through a pump, decoded and held from tick 40 above 0.85
+   against the speech sent; g722_encode once a tick. 16e:
+   ``examples/ivr_server`` at 16 legs and ``examples/secure_call`` with
+   DTLS-SRTP and ZRTP, each exit 0 by its own check. 16f: ``mediastream``
+   tones, audiocmp, mtu, ring, echo, play, record (.wav, .smff), pcap-play
+   (a seeded capture with a reordered and a missing packet), mkvstream
+   (VP8 and H.264 of fixed bytes, parsed back) and ``record x.mkv``, which
+   raises naming libopus where the machine has none. 16g: the IVR at 8
+   legs and ``tones`` on the CPU against the card (same digits, callers'
+   recordings >= 0.999, tones' rms <= 1e-6).
 
 Each phase prints the seconds elapsed when it ends. The last two lines of
 standard output are the kernels' JSON and the result's JSON; the card's
 name and power limit come before them.
 """
+import ast
 import contextlib
 import ctypes.util
+import io
 import json
 import math
 import os
 import re
+import signal
 import socket
 import struct
 import subprocess
@@ -1402,8 +1438,10 @@ class Session:
     last one may have fewer), leg 4k talks. The clients' push is tapped for
     the talkers' sent codes and for finite speakers."""
 
-    def __init__(self, dev, legs, ticks, seed=3, codec="ulaw", rate=8000, sound_card=False):
-        """G.722 is stateful: its decoders start on the jitter buffers'
+    def __init__(self, dev, legs, ticks, seed=3, codec="ulaw", rate=8000, sound_card=False,
+                 with_server=True):
+        """``with_server=False`` builds the clients alone (phase 16a's
+        server is the conference example). G.722 is stateful: its decoders start on the jitter buffers'
         empty ticks (code 0, as in the JAX package) and play a loud
         transient until the first packets have re-synchronised their
         predictors (~10 ticks), which the clients' echo cancellers and
@@ -1454,13 +1492,16 @@ class Session:
             self.clients = AudioStreamBatch(
                 f, legs, codec=codec, rate=rate, mic_signal=self.mic, record_ticks=ticks + 60,
                 device=dev, features=AudioStreamFeatures(echo_canceller=True, agc=True))
-        self.server = AudioStreamBatch(f, legs, codec=codec, rate=rate, conference=True,
-                                       device=dev)
-        self.ctl = AudioConferenceControl(self.server.ticker)
-        for leg in range(legs):
-            self.ctl.add_member(leg, leg // 4)
         self.sent, self.finite, self.spk = [], [True], []
-        for s, keep in ((self.clients, True), (self.server, False)):
+        sides = [(self.clients, True)]
+        if with_server:
+            self.server = AudioStreamBatch(f, legs, codec=codec, rate=rate, conference=True,
+                                           device=dev)
+            self.ctl = AudioConferenceControl(self.server.ticker)
+            for leg in range(legs):
+                self.ctl.add_member(leg, leg // 4)
+            sides.append((self.server, False))
+        for s, keep in sides:
             s.ticker.realtime = False
             self._tap(s, keep)
 
@@ -4412,6 +4453,889 @@ def phase15(kernels, dev, card, phase_done=lambda n: None, legs=SHARD_LEGS, tick
     return launches, n
 
 
+# -- phase 16: the programs around the package --------------------------------
+CONF_EXAMPLE_LEGS = 1024      # 16a: examples/conference_server, groups of 4
+CONF_EXAMPLE_SIZE = 4
+CONF_EXAMPLE_SECONDS = 4      # the server's paced run (400 ticks)
+CONF_EXAMPLE_CLIENT_TICKS = 340   # the clients' paced run, inside the server's
+CONF_EXAMPLE_SETTLE = 40      # 16a's listener bar starts here (the clients' AGC)
+CONF_EXAMPLE_SSRC = 0xA000    # leg i sends and is answered with SSRC 0xA000 + i
+CONF_EXAMPLE_LEAD = 6         # ticks the clients may run ahead of the server
+CONF_EXAMPLE_PREFILL = 16     # the clients' jitter ring: packets primed before playout
+CLI_BENCH_LEGS = 1024         # 16b: mediastream bench
+CLI_BENCH_SECONDS = 2
+CLI_CALL_SECONDS = 5          # 16c: two mediastream call processes, twice
+CLI_CALL_TIMEOUT_S = 150.0
+CLI_CALL_BAR = 0.8            # tests/test_cli_tools.py:119's bar
+CLI_CALL_COUNTED_SECONDS = 1  # 16c's leg in this process, counted
+GW_EXAMPLE_LEGS = 1024        # 16d: examples/transcode_gateway (2,048 sockets)
+GW_EXAMPLE_SECONDS = 2           # per-leg Python over 2,048 sockets: ~137 ms a tick
+GW_EXAMPLE_SETTLE = 40        # 16d's listener bar starts here (G.722's start transient)
+GW_EXAMPLE_LEAD = 2           # ticks the sender's packets run ahead of the gateway's
+GW_EXAMPLE_SSRC = 0xB000
+EXAMPLE_BAR = 0.85            # 16a and 16d: listeners against the speech sent
+IVR_LEGS = 16                 # 16e: examples/ivr_server, not paced
+IVR_SECONDS = 3               # the callers press their digits at tick 150
+CROSS_IVR_LEGS = 8            # 16g: the IVR on the CPU against the card
+CROSS_IVR_BAR = 0.999
+TONES_DIGITS = "123A#"        # 16f / 16g: mediastream tones
+CROSS_TONES_RMS = 1e-6
+PCAP_PACKETS = 150            # 16f: a mu-law capture, one packet a tick
+PCAP_SWAPPED = 40             # packets 40 and 41 captured in the other order
+PCAP_MISSING = 90             # packet 90 is not in the capture
+MKV_FRAMES = 10               # 16f: fixed VP8 and H.264 bytes, 33 ms apart
+
+
+def device_args(dev) -> list:
+    """The programs' ``--device`` for ``dev`` (none: their default, the card)."""
+    return ["--device", "cpu"] if torch.device(dev).type == "cpu" else []
+
+
+def free_ports(count, host="0.0.0.0", start=2000, stop=16000) -> int:
+    """The first port p from ``start`` such that UDP ports p .. p + count - 1
+    all bind on ``host`` (each is released again). The range lies under
+    the kernel's ephemeral ports (Linux's from 32,768, gVisor's from
+    16,000), so that no socket bound to port 0 meanwhile takes one of them."""
+    p = start
+    while p + count <= stop:
+        held = []
+        q = p
+        try:
+            for q in range(p, p + count):
+                sk = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                held.append(sk)
+                sk.bind((host, q))
+            return p
+        except OSError:
+            p = q + 1
+        finally:
+            for sk in held:
+                sk.close()
+    raise AssertionError(f"no {count} free UDP ports in {start}..{stop}")
+
+
+def cli(argv):
+    """``mediastream.main(argv)`` in this process: (its exit code, what it
+    printed). What it prints is printed here too."""
+    from mediastreamer2_tpu_torch.tools import mediastream
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = mediastream.main(argv)
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    return rc, buf.getvalue()
+
+
+def udp_socket(port=0, host="127.0.0.1"):
+    """A non-blocking UDP socket bound to (host, port), 16 MB buffers where
+    the kernel takes them."""
+    sk = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    for opt in (socket.SO_RCVBUF, socket.SO_SNDBUF):
+        with contextlib.suppress(OSError):
+            sk.setsockopt(socket.SOL_SOCKET, opt, 1 << 24)
+    sk.bind((host, port))
+    sk.setblocking(False)
+    return sk
+
+
+class _Thread(threading.Thread):
+    """A thread that keeps its target's result or exception."""
+
+    def __init__(self, fn, name):
+        super().__init__(name=name, daemon=True)
+        self.fn, self.result, self.error = fn, None, None
+
+    def run(self):
+        try:
+            self.result = self.fn()
+        except BaseException as e:     # handed to the caller by join_result
+            self.error = e
+
+    def join_result(self, timeout):
+        self.join(timeout)
+        if self.is_alive():
+            raise AssertionError(f"{self.name} did not end within {timeout:.0f} s")
+        if self.error is not None:
+            raise self.error
+        return self.result
+
+
+def conference_clients(dev, legs, client_ticks, server_port, client_port):
+    """16a's clients: phase 7a's (mu-law, AEC + AGC, leg 4k talking in
+    conference k), ``client_ticks`` long, on one batch edge bound to
+    ``client_port`` and sending to ``server_port``, answered with SSRCs
+    from ``CONF_EXAMPLE_SSRC``, their ring primed with
+    ``CONF_EXAMPLE_PREFILL`` replies; warmed up. Returns (the Session, its
+    socket, which the caller closes)."""
+    sess = Session(dev, legs, client_ticks, seed=160, with_server=False)
+    sess.settle = CONF_EXAMPLE_SETTLE
+    sock = udp_socket(client_port)
+    try:
+        sess.clients.enable_batch_edge(rx_sock=sock, tx_sock=sock,
+                                       remote=("127.0.0.1", server_port),
+                                       ssrc_base=CONF_EXAMPLE_SSRC,
+                                       prefill=CONF_EXAMPLE_PREFILL)
+        sess.clients.ticker.warm_up()
+    except BaseException:
+        sock.close()
+        raise
+    return sess, sock
+
+
+def conference_argv(dev, legs, conf_size, seconds, server_port, client_port) -> list:
+    """The conference example's arguments for 16a."""
+    return ["--legs", str(legs), "--port", str(server_port), "--client",
+            f"127.0.0.1:{client_port}", "--conf-size", str(conf_size), "--ssrc-base",
+            hex(CONF_EXAMPLE_SSRC), "--seconds", str(seconds)] + device_args(dev)
+
+
+def count_sections(kernels, ticker, owner, marks):
+    """Wrap ``ticker``'s pull and its warm-up so that each appends
+    (``owner``, the launch counts) to ``marks`` first. A tick's pull and
+    launches run inside ``core/ticker.DISPATCH``, which tickers on several
+    threads take in turn, and the wrapped warm-up takes it too, so each
+    section's launches are those between its mark and the next one
+    (``split_counts``)."""
+    from mediastreamer2_tpu_torch.core.ticker import DISPATCH
+    pull, push, warm_up = ticker._io_pull, ticker._io_push, ticker.warm_up
+
+    def marked(tick):
+        marks.append((owner, kernels.launch_counts()))
+        return pull(tick)
+
+    def marked_warm_up():
+        with DISPATCH:
+            marks.append((owner, kernels.launch_counts()))
+            warm_up()
+    ticker.set_io(pull=marked, push=push)
+    ticker.warm_up = marked_warm_up
+
+
+def split_counts(marks, final, first_owner) -> dict:
+    """{owner: launches} from ``count_sections``' marks: each section's
+    launches (its mark to the next, the last to ``final``) go to its owner,
+    those before the first mark to ``first_owner``."""
+    names = list(final)
+    out = {o: dict.fromkeys(names, 0) for o in {first_owner, *(o for o, _ in marks)}}
+    bounds = [(first_owner, dict.fromkeys(names, 0))] + marks + [(None, final)]
+    for (owner, a), (_, b) in zip(bounds, bounds[1:]):
+        for k in names:
+            out[owner][k] += b[k] - a[k]
+    return out
+
+
+def conference_bars(sess, recv, srv_recv, client_ticks, label):
+    """16a's bars on the clients' recordings (``Session.check``: listeners
+    above 0.85 against the speech sent, 0.7 against the mic, mix-minus,
+    finite outputs), finite state, and every leg at least half its packets
+    both ways (``recv``: the clients' edge, ``srv_recv``: the server's
+    least). Returns the line that states them."""
+    ok, line = sess.check(conf_step=1)
+    state_finite = all(_tree_finite(e) for e in sess.clients.ticker.state.values() if e)
+    if min(min(recv), srv_recv) < client_ticks // 2:
+        raise AssertionError(f"{label}: a leg received only {min(min(recv), srv_recv)} packets")
+    if not (ok and state_finite):
+        raise AssertionError(f"{label}: bars not met: {line}; state finite {state_finite}")
+    return f"{line}; state finite {state_finite}"
+
+
+def conference_example(kernels, dev, card, legs=CONF_EXAMPLE_LEGS, seconds=CONF_EXAMPLE_SECONDS,
+                       client_ticks=CONF_EXAMPLE_CLIENT_TICKS, conf_size=CONF_EXAMPLE_SIZE):
+    """Phase 16a: ``examples/conference_server`` (``--legs legs --conf-size
+    4``) on a thread, paced for ``seconds``, against ``conference_clients``.
+    Once its socket is bound (``run``'s ``on_ready``, where it waits) the
+    clients send ``CONF_EXAMPLE_LEAD`` ticks; then it warms up and runs,
+    and they follow its paced ticks, at most that many ahead and never
+    held back, for ``client_ticks`` ticks inside its run,
+    where a paced ticker that slips a tick never makes it up: the server's
+    sequence-keyed ring (4 packets primed) then holds the clients' packets
+    before it plays them, and the clients' (``CONF_EXAMPLE_PREFILL``
+    primed) the server's replies. Both take turns for their host side
+    (``core/ticker.DISPATCH``), so each side's launches are counted apart
+    (``count_sections``). Bars from tick 40: ``conference_bars``; on the
+    card each side's launches (the clients' fused_volume 2, mdf_apply 1,
+    mdf_update_fused 1 a tick; the server's fused_volume once a tick and
+    once for each of its two warm-ups). Returns {"conference_server":
+    (its launches, its ticks), "conference_clients": (theirs, theirs)}."""
+    from mediastreamer2_tpu_torch.examples import conference_server
+    base = free_ports(2)
+    server_port, client_port = base, base + 1
+    sess, sock = conference_clients(dev, legs, client_ticks, server_port, client_port)
+    marks = []
+    try:
+        count_sections(kernels, sess.clients.ticker, "clients", marks)
+        argv = conference_argv(dev, legs, conf_size, seconds, server_port, client_port)
+
+        def ready(server):                  # the server waits here, its socket bound
+            count_sections(kernels, server.ticker, "server", marks)
+            started.append(server)
+            go.wait(60)
+        started, go = [], threading.Event()
+        kernels.reset_launch_counts()
+        server = _Thread(lambda: conference_server.run(
+            conference_server.build_parser().parse_args(argv), on_ready=ready),
+            "16a conference server")
+        server.start()
+        while not started and server.is_alive():
+            time.sleep(0.001)
+        if not started:
+            server.join_result(0)
+        stk = started[0].ticker
+        t1 = time.perf_counter()
+        try:
+            for k in range(client_ticks):
+                if k == CONF_EXAMPLE_LEAD:      # their first packets wait on its socket
+                    go.set()
+                while stk.stats.ticks < k - CONF_EXAMPLE_LEAD and server.is_alive():
+                    time.sleep(0.0005)
+                sess.clients.ticker.do_tick()
+        finally:
+            go.set()
+        client_s = time.perf_counter() - t1
+        res = server.join_result(timeout=60 + 20 * seconds)
+        side = split_counts(marks, kernels.launch_counts(), "server")
+        cst = [sess.clients.edge_rx.stats(i) for i in range(legs)]
+        recv = [c["recv"] for c in cst]
+    finally:
+        sock.close()
+    srv = res["edge_stats"]
+    srv_recv = min(s["recv"] for s in srv)
+    ck = sess.clients.ticker.stats
+    line = conference_bars(sess, recv, srv_recv, client_ticks, "16a")
+    print(f"16a conference example: {legs} legs in groups of {conf_size} on the batch edge, "
+          f"the server {res['ticks']} ticks paced ({seconds} s), {res['mean_step_ms']:.3f} ms a "
+          f"tick (host), late {res['late_ticks']}, load {res['load']:.3f}; the clients {ck.ticks} "
+          f"ticks following it in {client_s:.2f} s, {ck.mean_step_ms:.3f} ms a tick; the server's "
+          f"edge: leg 0 {srv[0]}, recv min {srv_recv}, lost {sum(s['lost'] for s in srv)}, late "
+          f"{sum(s['late'] for s in srv)}; the clients' edge: recv min {min(recv)}, lost "
+          f"{sum(c['lost'] for c in cst)}, late {sum(c['late'] for c in cst)}; launches: the "
+          f"server {side['server']}, the clients {side['clients']}; {line} [{card}]", flush=True)
+    if torch.device(dev).type == "cuda":
+        _require_counts("16a server", side["server"], {"fused_volume": res["ticks"] + 2})
+        _require_counts("16a clients", side["clients"], {
+            "fused_volume": 2 * ck.ticks, "mdf_apply": ck.ticks, "mdf_update_fused": ck.ticks})
+    return {"conference_server": (side["server"], res["ticks"]),
+            "conference_clients": (side["clients"], ck.ticks)}
+
+
+def conference_example_process(dev, card, legs=CONF_EXAMPLE_LEGS, seconds=CONF_EXAMPLE_SECONDS,
+                               client_ticks=CONF_EXAMPLE_CLIENT_TICKS,
+                               conf_size=CONF_EXAMPLE_SIZE):
+    """Phase 16a from a fresh interpreter: ``python -m
+    mediastreamer2_tpu_torch.examples.conference_server`` with 16a's
+    arguments. Its clients are the native edge in this process
+    (``BatchRtpTx`` / ``BatchRtpRx`` on one socket, SSRCs from
+    ``CONF_EXAMPLE_SSRC``): leg 4k sends mu-law speech, the others
+    silence, and every leg's replies are decoded on the CPU. 16a's AEC +
+    AGC clients tick at 25-45 ms at 1,024 legs and fall behind a server
+    that has its process to itself (listeners 0.5963 against them on an
+    H100); the edge sends a tick in a few ms. The clients start at
+    the server's first line (printed once it has warmed up) and follow
+    its replies: tick k waits until leg 0 has received k -
+    ``CONF_EXAMPLE_LEAD`` of them. The server must exit 0 and print its
+    ticker's and leg 0's statistics; from tick 40 every listener above
+    0.85 against its talker's speech as sent, each talker's own stream
+    under 5% of its listeners' energy (mix-minus), every leg at least half
+    its replies. Returns the line's numbers as a dict."""
+    from mediastreamer2_tpu_torch.native import BatchRtpRx, BatchRtpTx
+    from mediastreamer2_tpu_torch.ops.g711 import (float_to_pcm16, pcm16_to_float, ulaw_decode,
+                                                   ulaw_encode)
+    from mediastreamer2_tpu_torch.utils.signals import make_speechlike
+    S = 80
+    base = free_ports(2)
+    server_port, client_port = base, base + 1
+    speech = np.zeros((legs, S * client_ticks), np.float32)
+    for k in range(-(-legs // 4)):
+        speech[4 * k] = make_speechlike(S * client_ticks, 8000, seed=160 + k)
+    codes = ulaw_encode(float_to_pcm16(torch.from_numpy(speech))).numpy().astype(np.uint8)
+    said = pcm16_to_float(ulaw_decode(torch.from_numpy(codes.astype(np.int32)))).numpy()
+    got = np.full((client_ticks, legs, S), 0xFF, np.uint8)      # mu-law's zero
+    sock = udp_socket(client_port)
+    tx, rx = BatchRtpTx(sock, legs, S), BatchRtpRx(legs, S, ring_depth=64)
+    rx.add_socket(sock)
+    for i in range(legs):
+        tx.config(i, "127.0.0.1", server_port, ssrc=CONF_EXAMPLE_SSRC + i)
+        rx.map_ssrc(CONF_EXAMPLE_SSRC + i, i)
+        rx.set_prefill(i, CONF_EXAMPLE_PREFILL)
+    lines = []
+    cmd = [sys.executable, "-m", "mediastreamer2_tpu_torch.examples.conference_server",
+           *conference_argv(dev, legs, conf_size, seconds, server_port, client_port)]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    try:
+        t0 = time.perf_counter()
+        while not any(ln.startswith("conference server:") for ln in lines):
+            if proc.poll() is not None or time.perf_counter() - t0 > 120:
+                raise AssertionError(f"16a process: no server line: {''.join(lines)[-1500:]}")
+            time.sleep(0.005)
+        t1 = time.perf_counter()
+        for k in range(client_ticks):
+            while rx.stats(0)["recv"] < k - CONF_EXAMPLE_LEAD and proc.poll() is None:
+                rx.poll()
+                time.sleep(0.0005)
+            tx.send(codes[:, k * S:(k + 1) * S], S)
+            rx.poll()
+            out, flags = rx.read_tick()
+            got[k][flags.astype(bool)] = out[flags.astype(bool)]
+        client_s = time.perf_counter() - t1
+        rc = proc.wait(timeout=60 + 20 * seconds)
+        reader.join(10)
+        recv = [rx.stats(i)["recv"] for i in range(legs)]
+    finally:
+        sock.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines)
+    leg0 = re.search(r"stats leg0: (\{.*\})", out)
+    tk = re.search(r"ticker: TickerStats\(ticks=(\d+), late_ticks=(\d+).*total_step_ms=([0-9.e+-]+)\)",
+                   out)
+    if rc != 0 or leg0 is None or tk is None:
+        raise AssertionError(f"16a process: the server exited {rc}: {out[-1500:]}")
+    srv0 = ast.literal_eval(leg0.group(1))
+    ticks, late = int(tk.group(1)), int(tk.group(2))
+    rec = pcm16_to_float(ulaw_decode(torch.from_numpy(
+        got.transpose(1, 0, 2).reshape(legs, -1).astype(np.int32)))).numpy()
+    talkers = [leg - leg % 4 for leg in range(legs) if leg % 4]
+    listeners = [leg for leg in range(legs) if leg % 4]
+    start = S * CONF_EXAMPLE_SETTLE
+    sims, _ = settled_sims(said[talkers], rec[listeners], start)
+    own = (rec[talkers, start:].astype(np.float64) ** 2).mean(axis=1)
+    heard = (rec[listeners, start:].astype(np.float64) ** 2).mean(axis=1) + 1e-20
+    ratio = float((own / heard).max())
+    res = {"ticks": ticks, "late_ticks": late, "ms_per_tick": float(tk.group(3)) / max(ticks, 1),
+           "leg0": srv0, "recv_min": min(recv), "client_s": client_s,
+           "listeners_min": float(sims.min()), "energy_ratio_max": ratio}
+    print(f"16a conference example from a fresh interpreter (python -m): {legs} legs, the "
+          f"server {ticks} ticks paced ({seconds} s), {res['ms_per_tick']:.3f} ms a tick "
+          f"(host), late {late}, its leg 0 {srv0}; the clients (the native edge) "
+          f"{client_ticks} ticks following its replies in {client_s:.2f} s, recv min "
+          f"{min(recv)}; listeners vs talkers from tick {CONF_EXAMPLE_SETTLE}: audio_diff min "
+          f"{sims.min():.4f} against the speech sent; talker/listener energy max {ratio:.2e} "
+          f"[{card}]", flush=True)
+    if min(min(recv), srv0["recv"]) < client_ticks // 2:
+        raise AssertionError(f"16a process: a leg received only {min(min(recv), srv0['recv'])} "
+                             f"packets")
+    if not (sims.min() > EXAMPLE_BAR and ratio < 0.05 and np.isfinite(rec).all()):
+        raise AssertionError(f"16a process: bars not met: listeners {sims.min():.4f}, "
+                             f"energy ratio {ratio:.2e}")
+    return res
+
+
+def cli_bench(kernels, dev, card, legs=CLI_BENCH_LEGS, seconds=CLI_BENCH_SECONDS):
+    """Phase 16b: ``mediastream bench --legs legs --seconds seconds``, its
+    line and the tx load printed; it must exit 0 and, on the card, launch
+    fused_volume (the two streams' volumes). Returns (launches, ticks)."""
+    kernels.reset_launch_counts()
+    rc, out = cli(device_args(dev) + ["bench", "--legs", str(legs), "--seconds", str(seconds)])
+    launches = kernels.launch_counts()
+    m = re.search(r"in ([0-9.]+)s \(tx load ([0-9.]+), late (\d+)\)", out)
+    print(f"16b mediastream bench: {legs} legs x {seconds * 100} ticks, exit {rc}, "
+          f"{m.group(1) if m else None} s, tx load {m.group(2) if m else None}, late "
+          f"{m.group(3) if m else None}, launches {launches} [{card}]", flush=True)
+    if rc != 0 or m is None or f"{legs} duplex legs x {seconds * 100} ticks" not in out:
+        raise AssertionError(f"16b: bench exited {rc}: {out!r}")
+    if torch.device(dev).type == "cuda" and not launches["fused_volume"]:
+        raise AssertionError(f"16b: no fused_volume launch: {launches}")
+    return launches, seconds * 100
+
+
+CALL_PAIRS = ("ec_agc", "srtp")
+
+
+def call_pair_args(name):
+    """``mediastream call``'s options for 16c's pair ``name``: ``--ec --agc``,
+    or ``--srtp-key`` (a seeded 30-byte master key and salt, the default
+    suite AES_CM_128_HMAC_SHA1_80)."""
+    if name == "ec_agc":
+        return ["--ec", "--agc"]
+    return ["--srtp-key", np.random.default_rng(163).bytes(30).hex()]
+
+
+def start_together(cmds, ready_prefix, timeout):
+    """Start ``cmds`` (unbuffered, in the repo), stop each with SIGSTOP as
+    soon as it prints a line starting with ``ready_prefix`` and resume them
+    all at once with SIGCONT. Returns (the processes, a list of each one's
+    output lines, the reader threads that fill them until each exits)."""
+    env = {**os.environ, "PYTHONUNBUFFERED": "1"}
+    procs = [subprocess.Popen(c, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env) for c in cmds]
+    lines = [[] for _ in procs]
+    held = [threading.Event() for _ in procs]
+
+    def read(i):
+        for ln in procs[i].stdout:
+            if ln.startswith(ready_prefix) and not held[i].is_set():
+                procs[i].send_signal(signal.SIGSTOP)
+                held[i].set()
+            lines[i].append(ln)
+        held[i].set()                               # exited before its line
+    readers = [threading.Thread(target=read, args=(i,), daemon=True) for i in range(len(procs))]
+    for r in readers:
+        r.start()
+    t0 = time.perf_counter()
+    try:
+        for h in held:
+            if not h.wait(max(timeout - (time.perf_counter() - t0), 1.0)):
+                raise AssertionError(f"no {ready_prefix!r} line within {timeout:.0f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGCONT)
+    return procs, lines, readers
+
+
+def cli_calls(dev, card, directory, seconds=CLI_CALL_SECONDS, pairs=CALL_PAIRS):
+    """Phase 16c: two ``mediastream call`` processes (fresh interpreters,
+    ``python -m``) a pair over localhost UDP for ``seconds``, each sending
+    a WAV of speech and recording what it receives; the pairs of
+    ``call_pair_args`` one after the other (four paced processes at once
+    ran late on a loaded host). Each side binds its socket, prints ``call
+    leg up`` and then warms up and ticks: both are held at that line and
+    released together (``start_together``), since a side that starts
+    ticking after its socket has queued the other's packets plays them
+    late, in the JAX package as in the port (0.2624 with one side 21 ticks
+    late, ``tests/test_torch_cli_tools.py``). Each side's recording of the
+    other's speech must be above 0.8 audio_diff. Returns {(pair, side):
+    similarity}."""
+    from mediastreamer2_tpu_torch.io.wav import read_wav, write_wav
+    from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
+    from mediastreamer2_tpu_torch.utils.signals import make_speechlike
+    base = free_ports(2, host="127.0.0.1")
+    sims = {}
+    for k, name in enumerate(pairs):
+        cmds, files = [], {}
+        for side in (0, 1):
+            sig = make_speechlike(8000 * (seconds - 1), 8000, seed=71 + 2 * k + side)
+            fin = os.path.join(directory, f"{name}_{side}_in.wav")
+            fout = os.path.join(directory, f"{name}_{side}_out.wav")
+            write_wav(fin, sig, 8000)
+            files[side] = (sig, fout)
+            cmds.append([sys.executable, "-m", "mediastreamer2_tpu_torch.tools.mediastream",
+                         *device_args(dev), "call", "--seconds", str(seconds), "--local-port",
+                         str(base + side), "--remote", f"127.0.0.1:{base + 1 - side}",
+                         "--infile", fin, "--outfile", fout, *call_pair_args(name)])
+        t0 = time.perf_counter()
+        procs, lines, readers = start_together(cmds, "call leg up", CLI_CALL_TIMEOUT_S)
+        outs = {}
+        try:
+            for side, p in enumerate(procs):
+                left = CLI_CALL_TIMEOUT_S - (time.perf_counter() - t0)
+                rc = p.wait(timeout=max(left, 1.0))
+                readers[side].join(10)
+                outs[side] = ("".join(lines[side]), rc)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for side in (0, 1):
+            out, rc = outs[side]
+            if rc != 0:
+                raise AssertionError(f"16c {name} side {side} exited {rc}: {out[-1500:]}")
+            rec, _ = read_wav(files[side][1])
+            sims[(name, side)] = audio_diff(files[1 - side][0], rec)[0]
+        sent = [next((ln.strip() for ln in outs[side][0].splitlines() if ln.startswith("sent=")),
+                     "") for side in (0, 1)]
+        opts = " ".join(a for a in call_pair_args(name) if a.startswith("--"))
+        print(f"16c mediastream call pair {name}: {seconds} s over localhost UDP, two processes "
+              f"released together ({opts}); each side's recording of the other's speech: "
+              f"audio_diff {sims[(name, 0)]:.4f} / {sims[(name, 1)]:.4f} (bar {CLI_CALL_BAR}); "
+              f"their lines {sent[0]!r} / {sent[1]!r}; the pair took "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    low = {k: v for k, v in sims.items() if not v > CLI_CALL_BAR}
+    if low:
+        raise AssertionError(f"16c: recordings at or under {CLI_CALL_BAR}: {low}")
+    return sims
+
+
+def cli_call(kernels, dev, card, seconds=CLI_CALL_COUNTED_SECONDS):
+    """16c's leg in this process: ``mediastream call --ec --agc`` for
+    ``seconds``, its speech sent to a port nobody reads, the counts set to 0
+    just before it: which AEC update kernel a leg at B = 1 launches (the
+    bf16 shadow's ``mdf_update_fused`` unless the environment picks the f32
+    shadow's ``mdf_update``). On the card: mdf_apply and one of the two
+    updates once a tick, fused_volume twice (the mic's and the speaker's
+    volumes), each once more in the stream's warm-up. Returns (launches,
+    ticks)."""
+    port = free_ports(2, host="127.0.0.1")
+    kernels.reset_launch_counts()
+    rc, out = cli(device_args(dev) + ["call", "--seconds", str(seconds), "--local-port",
+                                      str(port), "--remote", f"127.0.0.1:{port + 1}",
+                                      "--ec", "--agc"])
+    launches = kernels.launch_counts()
+    ticks = 100 * seconds
+    update = max(("mdf_update", "mdf_update_fused"), key=launches.get)
+    print(f"16c mediastream call in this process (--ec --agc, B = 1): {ticks} ticks, exit "
+          f"{rc}, the update kernel {update if launches[update] else None}, launches "
+          f"{launches} [{card}]", flush=True)
+    if rc != 0 or "sent=" not in out:
+        raise AssertionError(f"16c call: exited {rc}: {out[-1500:]}")
+    if torch.device(dev).type == "cuda":      # each a tick and once in the warm-up
+        _require_counts("16c call", launches, {"mdf_apply": ticks + 1, update: ticks + 1,
+                                               "fused_volume": 2 * (ticks + 1)})
+    return launches, ticks
+
+
+def gateway_example(kernels, dev, card, legs=GW_EXAMPLE_LEGS, seconds=GW_EXAMPLE_SECONDS):
+    """Phase 16d: ``examples/transcode_gateway`` (mu-law at 8 kHz in, G.722
+    at 16 kHz out, a receive and a send socket a leg) on a thread, paced
+    for ``seconds``. This process sends each leg's mu-law speech to
+    ``--in-port + 2n`` through a batch edge's sender, a tick's packets
+    once the gateway has run up to ``GW_EXAMPLE_LEAD`` ticks behind them,
+    and receives the G.722 on ``out + 2n`` through a ``NativeIoPump``; the
+    streams received are decoded from their first packet by
+    ``kernels.g722_decode`` (after the counted run) and, halved to 8 kHz
+    (the mean of each pair of samples), held from tick 40 to above 0.85
+    audio_diff against the speech as sent. On the card the gateway
+    launches g722_encode once a tick and once for its warm-up, and nothing
+    else. Returns (launches, the gateway's ticks)."""
+    from mediastreamer2_tpu_torch.examples import transcode_gateway
+    from mediastreamer2_tpu_torch.native import BatchRtpTx, NativeIoPump
+    from mediastreamer2_tpu_torch.net.rtp import RtpPacket, UdpTransport
+    from mediastreamer2_tpu_torch.ops.g711 import (float_to_pcm16, pcm16_to_float, ulaw_decode,
+                                                   ulaw_encode)
+    ticks = seconds * 100
+    raise_nofile(3 * legs + 512, phase="16d")
+    base = free_ports(2 * legs, host="127.0.0.1")
+    in_port, out_port = base, base + 1
+    speech = speech_legs(legs, S8 * ticks, seed=161)
+    codes = ulaw_encode(float_to_pcm16(torch.from_numpy(speech))).numpy().astype(np.uint8)
+    said = pcm16_to_float(ulaw_decode(torch.from_numpy(codes.astype(np.int32)))).numpy()
+    pump = NativeIoPump()
+    receivers, tx_sock, tx = [], None, None
+    try:
+        for n in range(legs):
+            r = UdpTransport(local_port=out_port + 2 * n)
+            r.attach_pump(pump)
+            receivers.append(r)
+        tx_sock = udp_socket()
+        tx = BatchRtpTx(tx_sock, legs, S8)
+        for n in range(legs):
+            tx.config(n, "127.0.0.1", in_port + 2 * n, ssrc=GW_EXAMPLE_SSRC + n, pt=0)
+        argv = ["--legs", str(legs), "--in-port", str(in_port), "--out",
+                f"127.0.0.1:{out_port}", "--seconds", str(seconds)] + device_args(dev)
+        ready = []
+        kernels.reset_launch_counts()
+        gw = _Thread(lambda: transcode_gateway.run(
+            transcode_gateway.build_parser().parse_args(argv), on_ready=ready.append),
+            "16d gateway")
+        t0 = time.perf_counter()
+        gw.start()
+        while not ready and gw.is_alive():
+            time.sleep(0.001)
+        tk = ready[0].ticker if ready else None
+        for k in range(ticks):
+            while tk is not None and tk.stats.ticks < k - GW_EXAMPLE_LEAD and gw.is_alive():
+                time.sleep(0.0005)
+            tx.send(np.ascontiguousarray(codes[:, k * S8:(k + 1) * S8]), ts_inc=S8)
+        res = gw.join_result(timeout=60 + 20 * seconds)
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        got = [[RtpPacket.unpack(d) for _, d in pump.read(r.sock)] for r in receivers]
+        dropped = sum(pump.dropped(r.sock) for r in receivers)
+    finally:
+        for r in receivers:
+            r.close()
+        pump.close()
+        if tx is not None:
+            tx.close()
+        if tx_sock is not None:
+            tx_sock.close()
+    # each leg's G.722 stream in sequence order from its first packet
+    rx = np.zeros((legs, ticks * S8), np.uint8)
+    n_recv, missing = ticks, 0
+    for n, pkts in enumerate(got):
+        seq0 = pkts[0].seq if pkts else 0
+        at = {(p.seq - seq0) & 0xFFFF: p.payload for p in pkts}
+        for k, payload in at.items():
+            if k < ticks:
+                rx[n, k * S8:(k + 1) * S8] = np.frombuffer(payload, np.uint8)
+        n_recv = min(n_recv, len(pkts))
+        missing += ticks - len([k for k in at if k < ticks])
+    out16 = decode_captures(dev, rx, ticks)
+    out8 = out16.reshape(legs, -1, 2).mean(axis=2)
+    sims, lags = settled_sims(said, out8, S8 * GW_EXAMPLE_SETTLE, dev=dev)
+    print(f"16d gateway example: {legs} legs, mu-law at 8 kHz in on :{in_port}+2n, G.722 at "
+          f"16 kHz out to :{out_port}+2n ({2 * legs} gateway sockets, {legs} receivers on a "
+          f"pump), {res['ticks']} ticks paced ({seconds} s) in {wall:.1f} s, "
+          f"{res['mean_step_ms']:.3f} ms a tick (host), late {res['late_ticks']}, load "
+          f"{res['load']:.3f}; packets received a leg min {n_recv} of {res['ticks']}, missing "
+          f"{missing}, pump drops {dropped}; listeners from tick {GW_EXAMPLE_SETTLE} against the "
+          f"speech sent: audio_diff min {sims.min():.4f} (median {np.median(sims):.4f}, lags "
+          f"{lags.min()}-{lags.max()} samples at 8 kHz); launches {launches} [{card}]", flush=True)
+    if torch.device(dev).type == "cuda":
+        _require_counts("16d", launches, {"g722_encode": res["ticks"] + 1})
+    if n_recv < ticks // 2 or dropped:
+        raise AssertionError(f"16d: a leg received {n_recv} packets, pump drops {dropped}")
+    if not sims.min() > EXAMPLE_BAR:
+        raise AssertionError(f"16d: listeners at or under {EXAMPLE_BAR}: legs "
+                             f"{np.flatnonzero(sims <= EXAMPLE_BAR)[:8]}, min {sims.min():.4f}")
+    return launches, res["ticks"]
+
+
+def ivr_and_secure_calls(dev, card, legs=IVR_LEGS, seconds=IVR_SECONDS):
+    """Phase 16e: ``examples/ivr_server`` at ``legs`` legs for ``seconds``
+    (not paced) and ``examples/secure_call`` with DTLS-SRTP and with
+    ``--zrtp``, each through its ``main``, which must return 0 by the
+    example's own check (every digit received right and the callers heard
+    audio; the call secured and its audio above 0.9)."""
+    from mediastreamer2_tpu_torch.examples import ivr_server, secure_call
+    t0 = time.perf_counter()
+    rc = {"ivr": ivr_server.main(["--legs", str(legs), "--seconds", str(seconds)]
+                                 + device_args(dev))}
+    for name, extra in (("dtls", []), ("zrtp", ["--zrtp"])):
+        rc[name] = secure_call.main(extra + device_args(dev))
+    print(f"16e examples: ivr_server at {legs} legs x {seconds * 100} ticks, secure_call with "
+          f"DTLS-SRTP and with ZRTP: exit codes {rc} in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    if any(rc.values()):
+        raise AssertionError(f"16e: an example failed its own check: {rc}")
+    return rc
+
+
+def pcap_fixture(path, seed=164, packets=PCAP_PACKETS):
+    """A mu-law RTP capture written by ``io/pcap.write_pcap``: seeded
+    speech, one 80-sample packet a 10 ms tick (sequence numbers across the
+    16-bit wrap), packets ``PCAP_SWAPPED`` and ``PCAP_SWAPPED + 1``
+    captured in the other order (both before the playout reaches them) and
+    packet ``PCAP_MISSING`` left out. Returns the codes [packets, 80] in
+    sequence order."""
+    from mediastreamer2_tpu_torch.io.pcap import CapturedPacket, write_pcap
+    from mediastreamer2_tpu_torch.net.rtp import RtpPacket
+    from mediastreamer2_tpu_torch.ops.g711 import float_to_pcm16, ulaw_encode
+    sig = speech_legs(1, S8 * packets, seed=seed)[0]
+    codes = ulaw_encode(float_to_pcm16(torch.from_numpy(sig))).numpy().astype(np.uint8)
+    codes = codes.reshape(packets, S8)
+    caps = [CapturedPacket(ts=1000.0 + 0.01 * k, udp_payload=RtpPacket(
+        payload_type=0, seq=(65500 + k) & 0xFFFF, timestamp=S8 * k, ssrc=0x1234,
+        payload=codes[k].tobytes()).pack()) for k in range(packets)]
+    a = PCAP_SWAPPED
+    caps[a], caps[a + 1] = caps[a + 1], caps[a]
+    caps[a].ts, caps[a + 1].ts = caps[a + 1].ts, caps[a].ts
+    del caps[PCAP_MISSING]
+    write_pcap(path, caps)
+    return codes
+
+
+def mkv_fixture(path, codec, frames=MKV_FRAMES, seed=165):
+    """An MKV of one video track of fixed bytes (no encoder): ``codec``
+    "vp8" (frames of 300-3,000 random bytes) or "h264" (an avcC with one
+    SPS and one PPS, 4-byte NAL lengths; each frame an IDR or a non-IDR
+    slice, often longer than an MTU, and an SEI). Frames are 33 ms apart,
+    every 5th a keyframe. Returns ([(keyframe, frame bytes or [NAL,
+    ...])], the H.264 parameter sets)."""
+    from mediastreamer2_tpu_torch.io.mkv import TRACK_TYPE_VIDEO, MkvTrack, MkvWriter
+    rng = np.random.default_rng(seed)
+    rnd = lambda n: rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    want, params = [], []
+    if codec == "vp8":
+        track = MkvTrack(1, TRACK_TYPE_VIDEO, "V_VP8", width=64, height=64)
+    else:
+        params = [b"\x67" + rnd(11), b"\x68" + rnd(4)]
+        avcc = (bytes([1, 0x42, 0xC0, 0x1E, 0xFF, 0xE1]) + len(params[0]).to_bytes(2, "big")
+                + params[0] + b"\x01" + len(params[1]).to_bytes(2, "big") + params[1])
+        track = MkvTrack(1, TRACK_TYPE_VIDEO, "V_MPEG4/ISO/AVC", width=64, height=64,
+                         codec_private=avcc)
+    w = MkvWriter(path, [track])
+    for k in range(frames):
+        key = k % 5 == 0
+        if codec == "vp8":
+            data = rnd(int(rng.integers(300, 3000)))
+            want.append((key, data))
+        else:
+            nals = [bytes([0x65 if key else 0x41]) + rnd(int(rng.integers(200, 2500))),
+                    b"\x06" + rnd(20)]
+            data = b"".join(len(n).to_bytes(4, "big") + n for n in nals)
+            want.append((key, nals))
+        w.write_frame(1, 33 * k, data, keyframe=key)
+    w.close()
+    return want, params
+
+
+def mkv_received(datagrams, codec):
+    """The frames that ``mkvstream``'s RTP packets carry, in sequence order:
+    VP8 payloads joined up to each marker; H.264's NAL units through
+    ``net/h26x.H264Unpacker``, a list a marker."""
+    from mediastreamer2_tpu_torch.net.h26x import H264Unpacker
+    from mediastreamer2_tpu_torch.net.rtp import RtpPacket
+    from mediastreamer2_tpu_torch.ops.vp8 import vp8_payload_unpack
+    pkts = sorted((RtpPacket.unpack(d) for d in datagrams), key=lambda p: p.seq)
+    frames, cur, unpacker = [], [], H264Unpacker()
+    for p in pkts:
+        if codec == "vp8":
+            cur.append(vp8_payload_unpack(p.payload)[0])
+        else:
+            cur.extend(unpacker.push(p.payload))
+        if p.marker:
+            frames.append(b"".join(cur) if codec == "vp8" else cur)
+            cur = []
+    return frames
+
+
+def mkvstream_check(directory, codec, dev):
+    """``mediastream mkvstream`` of ``mkv_fixture`` to a local socket: the
+    frames must parse back from its packets (H.264 with the parameter sets
+    before the first frame and every keyframe). Returns (packets, frames)
+    received."""
+    path = os.path.join(directory, f"stream_{codec}.mkv")
+    want, params = mkv_fixture(path, codec)
+    rcv = udp_socket()
+    try:
+        rc, out = cli(device_args(dev) + ["mkvstream", path,
+                                          f"127.0.0.1:{rcv.getsockname()[1]}",
+                                          "--local-port", "0"])
+        datagrams = []
+        deadline = time.perf_counter() + 2.0
+        while time.perf_counter() < deadline:
+            try:
+                datagrams.append(rcv.recv(65536))
+            except BlockingIOError:
+                if datagrams and len(mkv_received(datagrams, codec)) == len(want):
+                    break
+                time.sleep(0.01)
+    finally:
+        rcv.close()
+    got = mkv_received(datagrams, codec)
+    expect = [data for _, data in want] if codec == "vp8" else [
+        (list(params) if (k == 0 or key) else []) + nals for k, (key, nals) in enumerate(want)]
+    if rc != 0 or got != expect or f"streamed {len(want)} frames" not in out:
+        raise AssertionError(f"16f mkvstream {codec}: exit {rc}, {len(got)} of {len(want)} "
+                             f"frames back, equal {got == expect}: {out!r}")
+    return len(datagrams), len(got)
+
+
+def other_subcommands(dev, card, directory):
+    """Phase 16f: the rest of ``mediastream`` on ``dev``: ``tones 123A#``
+    (the digits detected equal the input), ``audiocmp`` of that WAV against
+    itself delayed and halved (shift found, above 0.9), ``mtu 127.0.0.1``,
+    ``ring`` and ``echo`` for a second (100 ticks), ``play`` of the tones
+    WAV to its end, ``record`` to .wav and .smff (the tone, equal in both),
+    ``pcap-play`` of ``pcap_fixture`` (the sequence order's decode, one
+    packet lost, none late), ``mkvstream`` of VP8 and H.264
+    (``mkvstream_check``), and ``record x.mkv``: where the machine has no
+    libopus it must raise naming libopus and write nothing, else write the
+    file. Returns {check: passed}."""
+    from mediastreamer2_tpu_torch.io.wav import read_wav, write_wav
+    from mediastreamer2_tpu_torch.models.media_player import _read_smff_audio
+    from mediastreamer2_tpu_torch.ops.g711 import pcm16_to_float, ulaw_decode
+    from mediastreamer2_tpu_torch.ops.host_codecs import opus_available
+    t0 = time.perf_counter()
+    d = device_args(dev)
+    j = lambda name: os.path.join(directory, name)
+    checks = {}
+    rc, out = cli(d + ["tones", TONES_DIGITS, "--outfile", j("tones.wav")])
+    checks["tones"] = rc == 0 and f"detected '{TONES_DIGITS}'" in out
+    sig, rate = read_wav(j("tones.wav"))
+    write_wav(j("tones_late.wav"), 0.5 * np.roll(sig, 123), rate)
+    rc, out = cli(d + ["audiocmp", j("tones.wav"), j("tones_late.wav"), "--threshold", "0.9"])
+    checks["audiocmp"] = rc == 0 and "(shift 123 samples)" in out
+    rc, out = cli(d + ["mtu", "127.0.0.1"])
+    # -1 where the kernel refuses the path-MTU options (gVisor)
+    checks["mtu"] = rc == 0 and re.search(r"mtu to 127\.0\.0\.1: (-1|\d+)\n", out) is not None
+    rc, out = cli(d + ["ring", "--seconds", "1"])
+    checks["ring"] = rc == 0 and "rang for 1s (" in out
+    rc, out = cli(d + ["echo", "--seconds", "1"])
+    checks["echo"] = rc == 0 and "echo loop ran 100 ticks" in out
+    rc, out = cli(d + ["play", j("tones.wav")])
+    checks["play"] = rc == 0 and out.rstrip().endswith("done")
+    for ext in ("wav", "smff"):
+        rc, out = cli(d + ["record", j(f"rec.{ext}"), "--seconds", "1"])
+        checks[f"record .{ext}"] = rc == 0 and os.path.exists(j(f"rec.{ext}"))
+    wav, _ = read_wav(j("rec.wav"))
+    smff, _ = _read_smff_audio(j("rec.smff"))
+    n = min(len(wav), len(smff))
+    checks["record equal"] = (n >= 7000 and float(np.abs(wav).max()) > 0.1
+                              and float(np.abs(wav[:n] - smff[:n]).max()) <= 1 / 32768)
+    codes = pcap_fixture(j("call.pcap"))
+    rc, out = cli(d + ["pcap-play", j("call.pcap"), "--outfile", j("pcap.wav")])
+    played, _ = read_wav(j("pcap.wav"))
+    keep = [k for k in range(len(codes)) if k != PCAP_MISSING]
+    want = pcm16_to_float(ulaw_decode(torch.from_numpy(codes[keep].reshape(-1).astype(np.int32))))
+    checks["pcap-play"] = (rc == 0 and "(lost 1, late 0)" in out
+                           and f"{PCAP_PACKETS - 1} RTP packets" in out
+                           and played.shape == tuple(want.shape)
+                           and float(np.abs(played - want.numpy()).max()) <= 1 / 32768)
+    for codec in ("vp8", "h264"):
+        mkvstream_check(directory, codec, dev)
+        checks[f"mkvstream {codec}"] = True
+    try:
+        cli(d + ["record", j("rec.mkv"), "--seconds", "1"])
+        refusal = None
+    except RuntimeError as e:
+        refusal = str(e)
+    if opus_available():
+        checks["record .mkv"] = refusal is None and os.path.exists(j("rec.mkv"))
+    else:
+        checks["record .mkv raises"] = (refusal is not None and "libopus" in refusal
+                                        and not os.path.exists(j("rec.mkv")))
+    print(f"16f mediastream subcommands: {checks}; record x.mkv: "
+          f"{refusal or 'written (libopus found)'}; {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"16f: failed {bad}")
+    return checks
+
+
+def programs_cross(dev, card, legs=CROSS_IVR_LEGS, seconds=IVR_SECONDS):
+    """Phase 16g: ``examples/ivr_server`` at ``legs`` legs and ``mediastream
+    tones`` on the CPU and on ``dev``: the same digits received (and
+    detected), every caller's recording at or above 0.999 audio_diff
+    between the two, the tones' audio within 1e-6 rms. Returns (the
+    recordings' audio_diff [legs], the tones' rms)."""
+    from mediastreamer2_tpu_torch.examples import ivr_server
+    from mediastreamer2_tpu_torch.tools.mediastream import tones
+    from mediastreamer2_tpu_torch.utils.audiodiff import audio_diff
+    runs = [ivr_server.run(ivr_server.build_parser().parse_args(
+        ["--legs", str(legs), "--seconds", str(seconds)] + device_args(d)))
+        for d in ("cpu", dev)]
+    sims = audio_diff(runs[0]["recording"], runs[1]["recording"])[0]
+    digits = [sorted(r["received"]) for r in runs]
+    tone = [tones(TONES_DIGITS, device=d) for d in ("cpu", dev)]
+    rms = float(np.sqrt(np.mean((tone[0][1].astype(np.float64) - tone[1][1]) ** 2)))
+    ok = (digits[0] == digits[1] and runs[0]["correct"] == legs and sims.min() >= CROSS_IVR_BAR
+          and tone[0][0] == tone[1][0] == TONES_DIGITS and rms <= CROSS_TONES_RMS)
+    print(f"16g programs, the CPU against the card: ivr_server at {legs} legs, digits received "
+          f"equal {digits[0] == digits[1]} ({runs[0]['correct']} / {runs[1]['correct']} right), "
+          f"the callers' recordings audio_diff min {sims.min():.6f} (bar {CROSS_IVR_BAR}); tones "
+          f"detected {tone[0][0]!r} / {tone[1][0]!r}, audio rms {rms:.3e} (bar "
+          f"{CROSS_TONES_RMS}); bars met {ok} [{card}]", flush=True)
+    if not ok:
+        raise AssertionError("16g: the programs differ between the CPU and the card")
+    return sims, rms
+
+
+def phase16(kernels, dev, card, phase_done=lambda n: None, conf_legs=CONF_EXAMPLE_LEGS,
+            bench_legs=CLI_BENCH_LEGS, gw_legs=GW_EXAMPLE_LEGS, ivr_legs=IVR_LEGS,
+            cross_legs=CROSS_IVR_LEGS, call_seconds=CLI_CALL_SECONDS):
+    """Phase 16 (16a-16g). Returns {run: (launches, ticks)} of its counted
+    runs: the conference example's server and its clients, the bench, the
+    call in this process, the gateway example."""
+    t16 = time.perf_counter()
+    runs = conference_example(kernels, dev, card, conf_legs)
+    conference_example_process(dev, card, conf_legs)
+    phase_done("16a")
+    runs["cli_bench"] = cli_bench(kernels, dev, card, bench_legs)
+    phase_done("16b")
+    with tempfile.TemporaryDirectory(prefix="ms2_programs_") as tmp:
+        cli_calls(dev, card, tmp, call_seconds)
+        runs["cli_call"] = cli_call(kernels, dev, card)
+        phase_done("16c")
+        runs["gateway_example"] = gateway_example(kernels, dev, card, gw_legs)
+        phase_done("16d")
+        ivr_and_secure_calls(dev, card, ivr_legs)
+        phase_done("16e")
+        other_subcommands(dev, card, tmp)
+        phase_done("16f")
+    programs_cross(dev, card, cross_legs)
+    print(f"phase 16 took {time.perf_counter() - t16:.1f} s [{card}]", flush=True)
+    return runs
+
+
 def kernel_entries(results, adpcm_results, session_results, wide_results, runs) -> list:
     """The ``kernels`` JSON line's entries: each kernel of ``REPLACES`` with
     phase 2's measurements (``results``, ``adpcm_results``; the session's
@@ -4768,12 +5692,22 @@ def main():
 
     phase_done(15)
 
+    # phase 16: the programs around the package: 16a the conference example
+    # at 1,024 legs, 16b the CLI's bench, 16c two CLI call processes a pair,
+    # 16d the gateway example at 1,024 legs, 16e the IVR and the secured
+    # call, 16f the CLI's other subcommands, 16g the CPU against the card
+    program_runs = phase16(kernels, dev, card, phase_done)
+
+    phase_done(16)
+
     # launches over the main-path runs that were counted: the flagship, the
     # three e2e runs, the session and the wideband call at full width, the
     # gateway and its codec chains, the captures' build and their replay, the
     # negotiated calls' media, the video pixel path (none: PyTorch ops), the
     # audio SFU, the mixed fleet in both modes (a tick: the flagship member's),
-    # the quirk session and the sharded flagship (counted in each rank)
+    # the quirk session, the sharded flagship (counted in each rank), the
+    # conference example's server and its clients (each a tick of its own),
+    # the CLI's bench, its call leg and the gateway example
     runs = {"flagship": (launches, TICKS),
             "e2e": ({k: e2e_launches[k] + srtp_launches[k] + big_launches[k] for k in launches},
                     e2e_ticks + srtp_ticks + big_ticks),
@@ -4791,6 +5725,7 @@ def main():
             # a tick of a rank: 15a and 15b's four ranks and 15d's one
             "sharded": (shard_launches, shard_ticks)}
     runs.update({f"chain_{codec}": (c, CHAIN_TICKS) for codec, c in chain_launches.items()})
+    runs.update(program_runs)
     entries = kernel_entries(results, adpcm_results, session_results, wide_results, runs)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
@@ -4799,5 +5734,59 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def programs_only(n):
+    """``python3 chip_smoke.py --programs N``: phase 16 alone, ``n`` times
+    on the card, after the kernels' and the edge's builds (the spread of
+    its readings over runs of one call); each run prints phase 16's lines
+    and its seconds, no result line, and any failed bar ends the script
+    non-zero."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, REPO)
+    from mediastreamer2_tpu_torch import native
+    from mediastreamer2_tpu_torch.ops import kernels
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    kernels.build()
+    native.build()
+    native.build_pump()
+    for i in range(n):
+        t0 = time.perf_counter()
+        runs = phase16(kernels, torch.device("cuda", 0), card)
+        print(f"programs run {i}: {time.perf_counter() - t0:.1f} s, launches a tick "
+              f"{ {r: {k: v / t for k, v in c.items() if v} for r, (c, t) in runs.items()} } "
+              f"[{card}]", flush=True)
+
+
+def calls_only(n):
+    """``python3 chip_smoke.py --calls N``: 16c alone, ``n`` times on the
+    card (the spread of its pairs' readings): each run's lines, a failed
+    bar printed and the next run started; non-zero at the end if any
+    failed."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, REPO)
+    from mediastreamer2_tpu_torch.ops import kernels
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    kernels.build()
+    failed = 0
+    for i in range(n):
+        with tempfile.TemporaryDirectory(prefix="ms2_calls_") as tmp:
+            try:
+                cli_calls(torch.device("cuda", 0), card, tmp)
+            except AssertionError as e:
+                failed += 1
+                print(f"calls run {i}: {e}", flush=True)
+    print(f"calls: {n - failed} of {n} runs held the bar [{card}]", flush=True)
+    if failed:
+        raise SystemExit(1)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--programs"]:
+        programs_only(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--calls"]:
+        calls_only(int(sys.argv[2]))
+    else:
+        main()

@@ -105,19 +105,28 @@ class WorkerThread:
 
 def discover_mtu(host: str, port: int = 5060) -> int:
     """Path-MTU discovery (cf. ms_discover_mtu, src/base/mtu.c): connect a
-    UDP socket and read the kernel's cached path MTU."""
+    UDP socket and read the kernel's cached path MTU. Returns -1 where the
+    kernel refuses the path-MTU socket options (gVisor answers
+    IP_MTU_DISCOVER with EOPNOTSUPP), as the reference reports a failed
+    socket call; the JAX package raises there."""
     IP_MTU = 14
     IP_MTU_DISCOVER = 10
     IP_PMTUDISC_DO = 2
     s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
     try:
-        s.setsockopt(socket.IPPROTO_IP, IP_MTU_DISCOVER, IP_PMTUDISC_DO)
+        try:
+            s.setsockopt(socket.IPPROTO_IP, IP_MTU_DISCOVER, IP_PMTUDISC_DO)
+        except OSError:
+            return -1
         s.connect((host, port))
         try:
             s.send(b"\x00" * 16)
         except OSError:
             pass
-        return s.getsockopt(socket.IPPROTO_IP, IP_MTU)
+        try:
+            return s.getsockopt(socket.IPPROTO_IP, IP_MTU)
+        except OSError:
+            return -1
     finally:
         s.close()
 

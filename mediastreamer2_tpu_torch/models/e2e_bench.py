@@ -160,11 +160,29 @@ class E2EResult:
     # tick, download)
     phases_ms: Optional[dict] = None
 
+    @property
+    def realtime_ok(self) -> bool:
+        """The tick kept its 10 ms deadline on average."""
+        return self.ms_per_tick <= 10.0
+
 
 class E2EConferenceBench:
     """N self-looped G.711 conference legs over real localhost UDP."""
 
     K = 1                   # ticks a dispatch (the JAX package's k_block)
+
+    @staticmethod
+    def prefill_for(k_block: int) -> int:
+        """Jitter-ring priming, in ticks, for blocks of ``k_block`` ticks
+        (the JAX package's formula; this bench runs K = 1: ``PREFILL``)."""
+        return max(3, k_block // 2) if k_block <= 8 else max(8, k_block // 2)
+
+    @classmethod
+    def added_latency_ms(cls, k_block: int, depth: int) -> float:
+        """The mouth-to-ear latency a (K, depth) configuration adds: K ticks
+        a block, each in flight ``depth`` blocks behind the one dispatched,
+        plus the jitter ring's priming."""
+        return (k_block * (depth + 1) + cls.prefill_for(k_block)) * 10.0
 
     def __init__(self, factory, n_legs: int, device=None, srtp: bool = False,
                  srtp_suite: str = "AES_CM_128_HMAC_SHA1_80", seed: int = 0,

@@ -188,6 +188,13 @@ def hw_crypto() -> bool:
     return bool(_load().ms2_rtp_hw_crypto())
 
 
+def rtp_edge_hw_crypto() -> bool:
+    """The JAX package's name for ``hw_crypto``. Departure: where the edge
+    does not build, this raises (as ``_load`` does everywhere in the port);
+    the JAX package returns False there."""
+    return hw_crypto()
+
+
 def aes_ecb(key: bytes, data: bytes, decrypt: bool = False) -> bytes:
     """AES-128/256 over whole 16-byte blocks, each on its own (the CM
     keystream's counter blocks, the key wrap)."""

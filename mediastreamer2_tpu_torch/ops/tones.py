@@ -59,8 +59,12 @@ def _gen_process(state, ins, params, ctx):
     B, S = x.shape
     rate = ctx.in_formats[0].rate
     n = torch.arange(S, dtype=torch.float32, device=x.device)[None, :]
-    w1 = 2 * math.pi * params["f1"][:, None] / rate
-    w2 = 2 * math.pi * params["f2"][:, None] / rate
+    # the rate as a tensor filled on the device (no host copy): CUDA divides
+    # by a host scalar as a multiply by its reciprocal, a bit off the
+    # quotient, which the carried phase would add up tick after tick
+    r = torch.full((), float(rate), dtype=torch.float32, device=x.device)
+    w1 = 2 * math.pi * params["f1"][:, None] / r
+    w2 = 2 * math.pi * params["f2"][:, None] / r
     tone = torch.sin(state["phase1"][:, None] + w1 * n)
     tone = tone + torch.where(params["f2"][:, None] > 0,
                               torch.sin(state["phase2"][:, None] + w2 * n), 0.0)

@@ -1,7 +1,10 @@
-"""Audio similarity oracle (a copy of ``audio_diff`` from
-``mediastreamer2_tpu/utils/audiodiff.py``, which cannot be imported without
-jax, batched over rows in torch): the reference's ``ms_audio_diff``, a
-normalized peak cross-correlation searched over time shifts, computed by FFT.
+"""Audio similarity oracles (a port of ``mediastreamer2_tpu/utils/audiodiff.py``,
+which cannot be imported without jax): ``audio_diff``, the reference's
+``ms_audio_diff``, a normalized peak cross-correlation searched over time
+shifts, computed by FFT and batched over rows in torch; the silence
+detector and ``ms_audio_compare_silence_and_speech`` built on it; energy
+and SNR in dB. Every alignment here goes through this module's
+``audio_diff``.
 """
 from __future__ import annotations
 
@@ -77,3 +80,86 @@ def quality_bar(ref: np.ndarray, got: np.ndarray, leg_step: int = 37, device="cp
             "legs_below_0.999": int((sims < 0.999).sum()), "rms_err": rms,
             "max_abs_err": float(err.max()), "energy_gap_db_max": gap,
             "pass": bool(sampled >= 0.999 and rms <= 5e-3 and gap <= 1.5)}
+
+
+def silence_mask(ref: np.ndarray, threshold: float = 0.001,
+                 half_window: int = 200,
+                 smooth_half_window: int = 1400) -> np.ndarray:
+    """Boolean silence mask of the reference signal: the reference's
+    two-stage detector (audiodiff.c ms_audio_compute_energy_in_silence),
+    a sliding mean of |x| below ``threshold``, then a majority vote over a
+    wider window that removes speckle. Input whose peak is above 1.5 is
+    taken as int16-scaled."""
+    x = np.abs(np.asarray(ref, np.float64))
+    if x.size and x.max() > 1.5:
+        x = x / 32768.0
+    n = len(x)
+    if n == 0:
+        return np.zeros(0, bool)
+    idx = np.arange(n)
+    csum = np.cumsum(np.concatenate([[0.0], x]))
+    w0 = np.maximum(0, idx - half_window)
+    wn = np.minimum(n, idx + half_window + 1)
+    raw = ((csum[wn] - csum[w0]) / (wn - w0) < threshold).astype(np.float64)
+    csum2 = np.cumsum(np.concatenate([[0.0], raw]))
+    w0 = np.maximum(0, idx - smooth_half_window)
+    wn = np.minimum(n, idx + smooth_half_window + 1)
+    return (csum2[wn] - csum2[w0]) / (wn - w0) >= 0.5
+
+
+def _aligned(ref: np.ndarray, rec: np.ndarray, shift: int):
+    """``ref`` and ``rec`` cut to a common length after dropping the head
+    of whichever lags by ``shift`` (``audio_diff``'s: > 0, rec lags)."""
+    if shift > 0:
+        rec = rec[shift:]
+    elif shift < 0:
+        ref = ref[-shift:]
+    n = min(len(ref), len(rec))
+    return ref[:n], rec[:n]
+
+
+def audio_compare_silence_and_speech(ref: np.ndarray, rec: np.ndarray, rate: int,
+                                     align_window_ms: tuple = (0, 2000)) -> Tuple[float, float]:
+    """(speech similarity, silence energy): the reference's second test
+    oracle ``ms_audio_compare_silence_and_speech`` (audiodiff.c /
+    msutils.h:76). Aligns on ``align_window_ms`` by ``audio_diff``'s shift,
+    finds the reference's silent spans (``silence_mask``), then returns the
+    similarity over the speech samples only (shifts up to 1% of them) and
+    the summed energy of ``rec`` over the silent ones (noise or echo put
+    into the pauses)."""
+    ref = np.asarray(ref, np.float64)
+    rec = np.asarray(rec, np.float64)
+    s0 = int(align_window_ms[0] * rate / 1000)
+    s1 = min(int(align_window_ms[1] * rate / 1000), len(ref), len(rec))
+    ref, rec = _aligned(ref, rec, audio_diff(ref[s0:s1], rec[s0:s1])[1])
+    mask = silence_mask(ref)
+    energy = float((rec[mask] ** 2).sum())
+    speech = ~mask
+    sim, _ = audio_diff(ref[speech], rec[speech], max_shift=max(1, int(speech.sum()) // 100))
+    return sim, energy
+
+
+def energy_db(x: np.ndarray) -> float:
+    """Mean power of ``x`` in dB (1e-12 added: silence is -120 dB)."""
+    x = np.asarray(x, np.float64)
+    p = (x * x).mean() if len(x) else 0.0
+    return 10.0 * np.log10(p + 1e-12)
+
+
+def snr_db(ref: np.ndarray, test: np.ndarray, align: bool = True) -> float:
+    """Signal-to-noise ratio of ``test`` against ``ref`` after the best
+    gain, and with ``align`` after ``audio_diff``'s shift; ``-inf`` for a
+    zero reference."""
+    ref = np.asarray(ref, np.float64)
+    test = np.asarray(test, np.float64)
+    if align:
+        ref, test = _aligned(ref, test, audio_diff(ref, test)[1])
+    else:
+        n = min(len(ref), len(test))
+        ref, test = ref[:n], test[:n]
+    denom = (ref * ref).sum()
+    if denom == 0:
+        return -np.inf
+    g = (ref * test).sum() / ((test * test).sum() + 1e-30)
+    err = ref - g * test
+    return 10.0 * np.log10(denom / ((err * err).sum() + 1e-30))

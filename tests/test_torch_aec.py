@@ -10,9 +10,10 @@ torch.set_num_threads(1)
 import numpy as np  # noqa: E402
 
 from conftest import make_speechlike  # noqa: E402
-from test_aec import RATE, S, erle_db, simulate  # noqa: E402
+from test_aec import RATE, S, erle_db, room_ir, simulate  # noqa: E402
 from mediastreamer2_tpu_torch import Factory, Format, GraphBuilder  # noqa: E402
 from mediastreamer2_tpu_torch.ops.aec import get_state_blob, set_state_blob  # noqa: E402
+from mediastreamer2_tpu_torch.utils.audiodiff import snr_db  # noqa: E402
 
 
 def port_simulate(near, far, B, ticks):
@@ -63,6 +64,43 @@ def test_aec_erle_convergence(runs):
     assert e > erle_db(runs["echo"], runs["out"], slice(0, 30 * S))
     e_jax = erle_db(runs["echo"], runs["out_jax"], converged)
     assert abs(e - e_jax) < 2.0, (e, e_jax)
+
+
+def test_aec_preserves_near_speech(factory):
+    """tests/test_aec.py's second bar on the port: near speech enters at
+    tick 150 under the far end's echo (double-talk) and comes through the
+    canceller at an SNR above 5 dB over ticks 200-300. The port's number is
+    held to the bar, not to JAX's (both sit just above it)."""
+    ticks = 300
+    near, _, near_sig, _, _ = simulate(factory, B=2, ticks=ticks, near_talk=True)
+    far = make_speechlike(S * ticks, RATE, seed=0)
+    out, st, _ = port_simulate(near, far, B=2, ticks=ticks)
+    tail = slice(200 * S, 300 * S)
+    s = snr_db(near_sig[tail], out[tail])
+    assert s > 5, f"near speech SNR through the port's AEC {s:.2f} dB"
+    assert st["ec"]["Ws_r"].dtype == torch.bfloat16          # the default shadow
+
+
+def test_aec_bf16_shadow_quality_parity(monkeypatch):
+    """tests/test_aec.py's third bar on the port: the bf16 shadow
+    (stochastic rounding, AEC_BF16_SHADOW=1, the default) converges to an
+    ERLE above 15 dB and within 2 dB of the f32 shadow's
+    (AEC_BF16_SHADOW=0). The variable is read when the state is made."""
+    ticks = 300
+    rng = np.random.default_rng(0)
+    n = S * ticks
+    far = make_speechlike(n, RATE, seed=0)
+    echo = np.convolve(far, room_ir(rng, 400))[:n].astype(np.float32)
+    near = echo + 1e-4 * rng.standard_normal(n).astype(np.float32)
+    converged = slice(150 * S, 300 * S)
+    erle = {}
+    for flag, dtype in (("0", torch.float32), ("1", torch.bfloat16)):
+        monkeypatch.setenv("AEC_BF16_SHADOW", flag)
+        out, st, _ = port_simulate(near, far, B=2, ticks=ticks)
+        assert st["ec"]["Ws_r"].dtype == dtype, flag
+        erle[flag] = erle_db(echo, out, converged)
+    assert erle["1"] > 15, f"bf16-shadow converged ERLE {erle['1']:.1f} dB"
+    assert erle["1"] > erle["0"] - 2.0, f"bf16 {erle['1']:.1f} vs f32 {erle['0']:.1f} dB"
 
 
 def test_aec_state_blob_roundtrip(runs):

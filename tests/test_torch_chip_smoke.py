@@ -7,8 +7,10 @@ DVI4 clamp fixtures; the launches phases 8a and 9b expect a tick pair or
 round; the loops that ``REPLACES`` names; and the harness of the later
 phases on the CPU at tiny sizes (10, 11 and the video call's phase 12,
 which catches no failure, through phase 15's leg sharding over two gloo
-ranks, whose bars must fail a perturbed shard); and the kernels JSON
-line's entries, ``sharded`` included."""
+ranks, whose bars must fail a perturbed shard, to phase 16's programs:
+16a's two runs, one as ``python -m``, each side's launches counted
+apart, 16c's counted call leg); and the kernels JSON line's entries,
+``sharded`` and the programs' runs included."""
 import importlib.util
 import os
 
@@ -1215,3 +1217,191 @@ def test_kernels_line_carries_the_sharded_run(smoke):
             assert e["launches"] == 100 + ticks
         else:
             assert per_tick == {"flagship": 0.0, "sharded": 0.0} and e["launches"] == 0
+
+
+# -- phase 16: the programs around the package, on the CPU at tiny sizes ------
+def test_phase_16a_conference_example_on_the_cpu(smoke, capsys):
+    """16a at 8 legs: the example's server on a thread for 2 s, the clients
+    following its ticks for 150 ticks; the bars hold (listeners above 0.85
+    against the speech sent, mix-minus) and each side's launches come back
+    (0 on the CPU) with its own ticks."""
+    import torch
+    from mediastreamer2_tpu_torch.ops import kernels
+    runs = smoke.conference_example(kernels, torch.device("cpu"), "cpu", legs=8, seconds=2,
+                                    client_ticks=150)
+    assert set(runs) == {"conference_server", "conference_clients"}
+    assert runs["conference_server"][1] == 200 and runs["conference_clients"][1] == 150
+    assert not any(v for launches, _ in runs.values() for v in launches.values())
+    out = capsys.readouterr().out
+    assert "16a conference example: 8 legs in groups of 4" in out
+    assert "the server 200 ticks paced (2 s)" in out and "bars met True" in out
+
+
+def test_phase_16a_conference_example_as_python_m_on_the_cpu(smoke, capsys):
+    """16a from a fresh interpreter at 8 legs: ``python -m`` the example for
+    2 s, the native edge as its clients for 150 ticks; it exits 0, prints
+    its statistics, and the bars hold."""
+    import torch
+    res = smoke.conference_example_process(torch.device("cpu"), "cpu", legs=8, seconds=2,
+                                           client_ticks=150)
+    assert res["ticks"] == 200 and res["recv_min"] >= 75 and res["leg0"]["recv"] >= 75
+    assert res["listeners_min"] > 0.85 and res["energy_ratio_max"] < 0.05
+    assert "16a conference example from a fresh interpreter (python -m): 8 legs" in \
+        capsys.readouterr().out
+
+
+def test_split_counts_gives_each_section_its_launches(smoke):
+    """Launches between one mark and the next belong to the first mark's
+    owner, those before the first mark to ``first_owner``, those after
+    the last to the last mark's owner."""
+    c = lambda n: {"fused_volume": n, "mdf_apply": n // 2}
+    marks = [("server", c(2)), ("clients", c(3)), ("server", c(7)), ("clients", c(8))]
+    side = smoke.split_counts(marks, c(12), "server")
+    assert side["server"] == {"fused_volume": 2 + 1 + 1, "mdf_apply": 1 + 0 + 1}
+    assert side["clients"] == {"fused_volume": 4 + 4, "mdf_apply": 2 + 2}
+
+
+def test_phase_16c_call_in_this_process_on_the_cpu(smoke, capsys):
+    """16c's counted leg: ``mediastream call --ec --agc`` for 1 s in this
+    process exits 0; on the CPU no kernel launches."""
+    import torch
+    from mediastreamer2_tpu_torch.ops import kernels
+    launches, ticks = smoke.cli_call(kernels, torch.device("cpu"), "cpu")
+    assert ticks == 100 and not any(launches.values())
+    assert "16c mediastream call in this process (--ec --agc, B = 1): 100 ticks, exit 0" in \
+        capsys.readouterr().out
+
+
+def test_start_together_releases_the_processes_at_once(smoke):
+    """Two processes that reach their ready line 1.5 s apart, each with
+    0.3 s of work after it (the call's warm-up), are held there and go on
+    within 0.5 s of each other; each one's output comes back whole."""
+    import sys
+    code = ("import sys, time; time.sleep(float(sys.argv[1])); print('ready'); "
+            "time.sleep(0.3); print(time.time())")
+    cmds = [[sys.executable, "-c", code, d] for d in ("0", "1.5")]
+    procs, lines, readers = smoke.start_together(cmds, "ready", 60)
+    for p, r in zip(procs, readers):
+        assert p.wait(30) == 0
+        r.join(10)
+    after = [float(ln[1]) for ln in lines]
+    assert [ln[0] for ln in lines] == ["ready\n", "ready\n"]
+    assert abs(after[0] - after[1]) < 0.5, after
+
+
+def test_phase_16a_fails_a_server_that_mixes_no_one(smoke, monkeypatch):
+    """A conference server whose legs each sit alone (group_id = leg) sends
+    every listener silence: 16a's listener bar fails."""
+    import torch
+    from mediastreamer2_tpu_torch.examples import conference_server
+    from mediastreamer2_tpu_torch.ops import kernels
+    monkeypatch.setattr(conference_server.torch, "div", lambda a, b, rounding_mode: a)
+    with pytest.raises(AssertionError, match="16a: bars not met"):
+        smoke.conference_example(kernels, torch.device("cpu"), "cpu", legs=8, seconds=2,
+                                 client_ticks=120)
+
+
+def test_phase_16b_and_16d_on_the_cpu(smoke, capsys):
+    """16b's bench at 4 legs for a second; 16d's gateway at 4 legs for a
+    second: every packet back, the listeners above 0.85 from tick 40."""
+    import torch
+    from mediastreamer2_tpu_torch.ops import kernels
+    cpu = torch.device("cpu")
+    launches, ticks = smoke.cli_bench(kernels, cpu, "cpu", legs=4, seconds=1)
+    assert ticks == 100 and not any(launches.values())
+    launches, ticks = smoke.gateway_example(kernels, cpu, "cpu", legs=4, seconds=1)
+    assert ticks == 100 and not any(launches.values())
+    out = capsys.readouterr().out
+    assert "16b mediastream bench: 4 legs x 100 ticks, exit 0" in out
+    assert "packets received a leg min 100 of 100, missing 0, pump drops 0" in out
+
+
+def test_phase_16e_to_16g_on_the_cpu(smoke, capsys, tmp_path):
+    """16e (the IVR at 2 legs, the secured call both ways), 16f (every
+    other subcommand; record x.mkv writes where libopus is found and
+    raises naming it where it is not) and 16g (CPU against CPU: equal)."""
+    import torch
+    cpu = torch.device("cpu")
+    assert smoke.ivr_and_secure_calls(cpu, "cpu", legs=2) == {"ivr": 0, "dtls": 0, "zrtp": 0}
+    checks = smoke.other_subcommands(cpu, "cpu", str(tmp_path))
+    assert all(checks.values()) and len(checks) == 13
+    sims, rms = smoke.programs_cross(cpu, "cpu", legs=2)
+    assert sims.min() == pytest.approx(1.0) and rms == 0.0
+    assert "16g programs, the CPU against the card: ivr_server at 2 legs" in capsys.readouterr().out
+
+
+def test_phase_16f_record_mkv_refusal_without_libopus(smoke, monkeypatch, tmp_path):
+    """On a machine without libopus (the card's) 16f holds the refusal."""
+    import torch
+    from mediastreamer2_tpu_torch.ops import host_codecs
+    monkeypatch.setattr(host_codecs, "opus_available", lambda: False)
+    checks = smoke.other_subcommands(torch.device("cpu"), "cpu", str(tmp_path))
+    assert checks["record .mkv raises"] and "record .mkv" not in checks
+
+
+def test_phase_16_fixtures(smoke, tmp_path):
+    """The capture holds the sequence numbers across the wrap, the swapped
+    pair and the gap; the MKV fixtures' frames come back through
+    ``mkv_received`` from packets made as mkvstream makes them; the ports
+    found bind; ``device_args`` is empty for the card."""
+    import socket
+    import torch
+    from mediastreamer2_tpu_torch.io.pcap import PcapRtpPlayer
+    from mediastreamer2_tpu_torch.net.h26x import packetize
+    from mediastreamer2_tpu_torch.net.rtp import RtpPacket
+    from mediastreamer2_tpu_torch.ops.vp8 import vp8_payload_pack
+    codes = smoke.pcap_fixture(str(tmp_path / "c.pcap"))
+    seqs = [p.seq for _, p in PcapRtpPlayer(str(tmp_path / "c.pcap")).packets]
+    a = smoke.PCAP_SWAPPED
+    assert len(seqs) == smoke.PCAP_PACKETS - 1 and codes.shape == (smoke.PCAP_PACKETS, 80)
+    assert seqs[a] == (65500 + a + 1) & 0xFFFF and seqs[a + 1] == (65500 + a) & 0xFFFF
+    assert (65500 + smoke.PCAP_MISSING) & 0xFFFF not in seqs and 0 in seqs
+    for codec in ("vp8", "h264"):
+        want, params = smoke.mkv_fixture(str(tmp_path / f"{codec}.mkv"), codec)
+        assert len(want) == smoke.MKV_FRAMES and sum(k for k, _ in want) == 2
+        datagrams, seq = [], 0
+        for k, (key, data) in enumerate(want):
+            if codec == "vp8":
+                pays = vp8_payload_pack([data[i:i + 1400] for i in range(0, len(data), 1400)])
+            else:
+                pays = packetize((params if key else []) + data, mtu=1400)
+            for j, p in enumerate(pays):
+                datagrams.append(RtpPacket(payload_type=102, seq=seq, timestamp=k, ssrc=1,
+                                           payload=p, marker=j == len(pays) - 1).pack())
+                seq += 1
+        got = smoke.mkv_received(datagrams[::-1], codec)      # order restored by seq
+        assert got == ([d for _, d in want] if codec == "vp8"
+                       else [(params if key else []) + n for key, n in want])
+    base = smoke.free_ports(4, host="127.0.0.1")
+    assert 2000 <= base and base + 4 <= 16000
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", base + 3))
+    assert smoke.device_args(torch.device("cpu")) == ["--device", "cpu"]
+    assert smoke.device_args(torch.device("cuda", 0)) == []
+
+
+def test_kernels_line_carries_the_program_runs(smoke):
+    """The conference example's server and its clients, the CLI's bench, its
+    call leg and the gateway example are counted runs of the kernels line:
+    their launches a tick per kernel, each over its own ticks."""
+    meas = dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5, bound_by="bytes")
+    results = {name: dict(meas) for name in smoke.REPLACES if not name.startswith(("dvi4", "g726"))}
+    adpcm = {f"{n}@{kbps}": dict(meas) for n in ("g726_encode", "g726_decode")
+             for kbps in smoke.G726_RATES.values()}
+    adpcm.update({n: dict(meas) for n in ("dvi4_encode", "dvi4_decode")})
+    zero = dict.fromkeys(smoke.REPLACES, 0)
+    runs = {"conference_server": ({**zero, "fused_volume": 402}, 400),
+            "conference_clients": ({**zero, "fused_volume": 2 * 340, "mdf_apply": 340,
+                                    "mdf_update_fused": 340}, 340),
+            "cli_bench": ({**zero, "fused_volume": 800}, 200),
+            "cli_call": ({**zero, "fused_volume": 300, "mdf_apply": 100,
+                          "mdf_update_fused": 100}, 100),
+            "gateway_example": ({**zero, "g722_encode": 201}, 200)}
+    entries = {e["name"]: e for e in smoke.kernel_entries(results, adpcm, {}, {}, runs)}
+    assert entries["mdf_apply"]["launches_per_tick"]["conference_clients"] == 1.0
+    assert entries["mdf_apply"]["launches_per_tick"]["conference_server"] == 0.0
+    assert entries["fused_volume"]["launches_per_tick"]["conference_server"] == 402 / 400
+    assert entries["mdf_update_fused"]["launches_per_tick"]["cli_call"] == 1.0
+    assert entries["g722_encode"]["launches_per_tick"]["gateway_example"] == 201 / 200
+    assert entries["fused_volume"]["launches"] == 402 + 2 * 340 + 800 + 300
+    assert entries["g722_decode"]["launches"] == 0

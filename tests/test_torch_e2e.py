@@ -212,3 +212,40 @@ def test_native_edge_srtp_raises():
                 edge.set_srtp(0, b"\x00" * 16, b"\x00" * 14, "NULL_HMAC_SHA1_80")
     finally:
         s1.close(); s2.close(); tx.close(); rx.close()
+
+
+@pytest.mark.parametrize("k_block", [1, 2, 8, 16])
+def test_prefill_and_added_latency_match_jax(k_block):
+    """The bench's latency arithmetic is the JAX package's, name for name."""
+    from mediastreamer2_tpu.models.e2e_bench import E2EConferenceBench as JaxBench
+    assert E2EConferenceBench.prefill_for(k_block) == JaxBench.prefill_for(k_block)
+    for depth in range(4):
+        assert (E2EConferenceBench.added_latency_ms(k_block, depth)
+                == JaxBench.added_latency_ms(k_block, depth))
+
+
+def test_prefill_at_the_ports_block_is_its_prefill():
+    """The port runs K = 1: its jitter ring primes PREFILL ticks, and its
+    mouth-to-ear figure is added_latency_ms(1, DEPTH)."""
+    from mediastreamer2_tpu_torch.models.e2e_bench import PREFILL
+    assert E2EConferenceBench.K == 1
+    assert E2EConferenceBench.prefill_for(E2EConferenceBench.K) == PREFILL == 3
+    assert E2EConferenceBench.added_latency_ms(1, DEPTH) == (DEPTH + 1 + PREFILL) * 10.0
+
+
+@pytest.mark.parametrize("ms,ok", [(9.99, True), (10.0, True), (10.01, False)])
+def test_realtime_ok_matches_jax(ms, ok):
+    from mediastreamer2_tpu.models.e2e_bench import E2EResult as JaxResult
+    from mediastreamer2_tpu_torch.models.e2e_bench import E2EResult
+    common = dict(n_legs=4, ticks=10, ms_per_tick=ms, late_ticks=0, loss_rate=0.0,
+                  fidelity=1.0, mouth_to_ear_ms=60.0)
+    assert E2EResult(out_finite=True, **common).realtime_ok is ok
+    assert JaxResult(k_block=1, pipeline_depth=DEPTH, **common).realtime_ok is ok
+
+
+def test_rtp_edge_hw_crypto_is_hw_crypto():
+    """The JAX package's name for the edge's AES path, on the port's edge
+    (not on a build of JAX's, whose shared name races across workers)."""
+    from mediastreamer2_tpu_torch import native
+    assert native.rtp_edge_hw_crypto() is native.hw_crypto()
+    assert isinstance(native.rtp_edge_hw_crypto(), bool)

@@ -376,7 +376,8 @@ def test_mandatory_key_change():
 # -- the port's imports ----------------------------------------------------------
 def test_importing_the_port_loads_no_jax_and_no_cryptography():
     """Every module of the port (the gateway's among them: the codecs,
-    Baudot, flow control, the bridge, the transcoder and the ring stream),
+    Baudot, flow control, the bridge, the transcoder and the ring stream;
+    the CLI, the four examples and the entry point),
     imported in a fresh interpreter, leaves jax, the JAX package and
     cryptography out of sys.modules."""
     code = (
@@ -387,7 +388,9 @@ def test_importing_the_port_loads_no_jax_and_no_cryptography():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'mediastreamer2_tpu', 'cryptography'))\n"
         "bad += ['missing ' + n for n in ('ops.adpcm', 'ops.g726', 'ops.baudot',\n"
-        "        'ops.flowcontrol', 'utils.itc', 'models.transcode', 'models.ring_stream')\n"
+        "        'ops.flowcontrol', 'utils.itc', 'models.transcode', 'models.ring_stream',\n"
+        "        'tools.mediastream', 'examples.conference_server', 'examples.ivr_server',\n"
+        "        'examples.secure_call', 'examples.transcode_gateway', 'entry')\n"
         "        if 'mediastreamer2_tpu_torch.' + n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('mediastreamer2_tpu_torch')]), bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

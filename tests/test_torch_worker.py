@@ -81,6 +81,22 @@ def test_discover_mtu_loopback():
     assert discover_mtu("127.0.0.1") >= 1500
 
 
+def test_discover_mtu_refused_socket_option_is_minus_one(monkeypatch):
+    """Where the kernel refuses IP_MTU_DISCOVER (gVisor: EOPNOTSUPP), the
+    port returns -1 rather than raising (the JAX package raises)."""
+    import errno
+    import socket as socket_mod
+    real = socket_mod.socket
+
+    class Refusing(real):
+        def setsockopt(self, level, opt, value):
+            if level == socket_mod.IPPROTO_IP and opt == 10:
+                raise OSError(errno.EOPNOTSUPP, "Operation not supported")
+            return super().setsockopt(level, opt, value)
+    monkeypatch.setattr(socket_mod, "socket", Refusing)
+    assert discover_mtu("127.0.0.1") == -1
+
+
 def test_echo_limiter_wiring():
     """The remote talks loudly and the local side's echo limiter is on: the
     peer energy reaches the send volume and ducks its gain."""
