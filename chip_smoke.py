@@ -804,6 +804,84 @@ def _timed(entry, cost, make_args, kernel_fn, plain_fn):
     return entry
 
 
+def _slices_equal(name, fn, args, parts=4):
+    """``fn`` on the whole batch against ``fn`` on ``parts`` row slices of
+    it, each a view of a second copy of ``args`` (a kernel that works in
+    place works on the views): every output and every argument after the
+    calls, bit for bit. A leg's result may not depend on the batch around
+    it, as a shard's rows must equal the whole batch's (phase 15)."""
+    whole = [a.clone() for a in args]
+    cut = [a.clone() for a in args]
+    got = fn(*whole)
+    B = args[0].shape[0]
+    edges = [B * k // parts for k in range(parts + 1)]
+    outs = [fn(*[a[lo:hi] for a in cut]) for lo, hi in zip(edges, edges[1:])]
+    for i, g in enumerate(got):
+        _require_equal(f"{name} output {i}, whole batch against {parts} row slices",
+                       torch.cat([o[i] for o in outs]), g)
+    for i, (a, w) in enumerate(zip(cut, whole)):
+        _require_equal(f"{name} argument {i}, whole batch against {parts} row slices", a, w)
+
+
+def volume_args(rnd, B, S):
+    """fused_volume's inputs: x [B, S] f32, the gains at the tick's two
+    ends, the DC estimate and its enable flag (half the legs) [B]."""
+    return (rnd(B, S, s=0.5), rnd(B).abs() + 0.1, rnd(B).abs() + 0.1, rnd(B, s=0.05),
+            (rnd(B) > 0).float())
+
+
+def apply_args(rnd, B, P, F, sdt):
+    """mdf_apply's inputs: Wm (bf16), Ws (``sdt``) and the history Xh
+    (bf16) [B, P, F], the new block (Xr, Xi) [B, F] f32."""
+    return ([rnd(B, P, F, s=0.1).to(torch.bfloat16) for _ in range(2)]
+            + [rnd(B, P, F, s=0.1).to(sdt) for _ in range(2)]
+            + [rnd(B, P, F).to(torch.bfloat16) for _ in range(2)]
+            + [rnd(B, F) for _ in range(2)])
+
+
+def check_volume(kernels, name, args):
+    """fused_volume against its plain version (its sums run in another
+    order: rtol 1e-5, atol 1e-6) and against itself on row slices; returns
+    the largest absolute error."""
+    err = 0.0
+    for a, b in zip(kernels.fused_volume(*args), kernels.fused_volume_reference(*args)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        err = max(err, _max_err(a, b))
+    _slices_equal(name, kernels.fused_volume, args)
+    return err
+
+
+def check_apply(kernels, name, args):
+    """mdf_apply against its plain version, bit for bit (no FMA
+    contraction): the four sums and the shifted history; then against
+    itself on row slices."""
+    a_k = [t.clone() for t in args]
+    a_p = [t.clone() for t in args]
+    got = kernels.mdf_apply(*a_k)
+    want = kernels.mdf_apply_reference(*a_p)
+    for i, (a, b) in enumerate(zip(got + tuple(a_k[4:6]), want + tuple(a_p[4:6]))):
+        _require_equal(f"{name} output {i}", a, b)
+    _slices_equal(name, kernels.mdf_apply, args)
+
+
+RAGGED_VOLUME = (5, 441)      # fused_volume rows not 16-byte aligned (44.1 kHz ticks)
+RAGGED_APPLY = (5, 5, 81)     # mdf_apply planes of P * F % 8 != 0 (a 50 ms tail at 8 kHz)
+
+
+def ragged_checks(kernels, card, rnd):
+    """The kernels' element-by-element paths, which the shapes of the main
+    paths never take: fused_volume on rows that are not 16-byte aligned,
+    mdf_apply on planes that are not (both shadow types), each against its
+    plain version and against itself on row slices."""
+    check_volume(kernels, "fused_volume (unaligned rows)", volume_args(rnd, *RAGGED_VOLUME))
+    for sdt in (torch.bfloat16, torch.float32):
+        check_apply(kernels, f"mdf_apply (unaligned planes, {sdt})",
+                    apply_args(rnd, *RAGGED_APPLY, sdt))
+    print(f"kernel scalar paths: fused_volume x {list(RAGGED_VOLUME)} (rtol 1e-5, atol 1e-6) and "
+          f"mdf_apply {' x '.join(map(str, RAGGED_APPLY))} (bf16 and f32 Ws, bit-exact) match "
+          f"plain and their row slices [{card}]", flush=True)
+
+
 def kernel_checks(kernels, dev, card, B, S, P, F, full=True):
     """Phase 2 at one set of shapes: each kernel against its plain version
     on the card, timed (device time, ``device_ms``) beside its bound.
@@ -815,38 +893,23 @@ def kernel_checks(kernels, dev, card, B, S, P, F, full=True):
     results = {}
 
     # fused_volume: [B, S] f32; sums run in another order (rtol 1e-5)
-    def vol_args():
-        return (rnd(B, S, s=0.5), rnd(B).abs() + 0.1, rnd(B).abs() + 0.1, rnd(B, s=0.05),
-                (torch.rand((B,), generator=g, device=dev) < 0.5).float())
-    vargs = vol_args()
-    got = kernels.fused_volume(*vargs)
-    want = kernels.fused_volume_reference(*vargs)
-    err = 0.0
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
-        err = max(err, _max_err(a, b))
+    err = check_volume(kernels, "fused_volume", volume_args(rnd, B, S))
     results["fused_volume"] = _timed(
-        {"max_abs_err": err, "tolerance": "rtol 1e-5, atol 1e-6"}, fused_volume_cost(B, S),
-        vol_args, kernels.fused_volume, kernels.fused_volume_reference)
+        {"max_abs_err": err, "tolerance": "rtol 1e-5, atol 1e-6", "row_slices": 4},
+        fused_volume_cost(B, S), lambda: volume_args(rnd, B, S),
+        kernels.fused_volume, kernels.fused_volume_reference)
+    if full:
+        ragged_checks(kernels, card, rnd)
 
     # mdf_apply: [B, P, F], bit-exact (no FMA contraction); shadow taps bf16
     # (the default) and f32 (the megakernel and f32-shadow modes)
     modes = [("mdf_apply (f32 Ws)", torch.float32)] if full else []
     for name, sdt in modes + [("mdf_apply", torch.bfloat16)]:
-        def apply_args():
-            return ([rnd(B, P, F, s=0.1).to(torch.bfloat16) for _ in range(2)]
-                    + [rnd(B, P, F, s=0.1).to(sdt) for _ in range(2)]
-                    + [rnd(B, P, F).to(torch.bfloat16) for _ in range(2)]
-                    + [rnd(B, F) for _ in range(2)])
-        args = apply_args()
-        a_k = [t.clone() for t in args]
-        got = kernels.mdf_apply(*a_k)
-        want = kernels.mdf_apply_reference(*args)
-        for i, (a, b) in enumerate(zip(got + tuple(a_k[4:6]), want + tuple(args[4:6]))):
-            _require_equal(f"{name} output {i}", a, b)
+        check_apply(kernels, name, apply_args(rnd, B, P, F, sdt))
         results[name] = _timed(
-            {"max_abs_err": 0.0, "tolerance": "bit-exact"},
-            mdf_apply_cost(B, P, F, torch.finfo(sdt).bits // 8), apply_args,
+            {"max_abs_err": 0.0, "tolerance": "bit-exact", "row_slices": 4},
+            mdf_apply_cost(B, P, F, torch.finfo(sdt).bits // 8),
+            lambda sdt=sdt: apply_args(rnd, B, P, F, sdt),
             kernels.mdf_apply, kernels.mdf_apply_reference)
 
     # mdf_update_fused: the f32 shadow mode at cpos 3, then the bf16 shadow
@@ -904,8 +967,10 @@ def kernel_checks(kernels, dev, card, B, S, P, F, full=True):
             update_args, lambda *a: kernels.mdf_update(cpos, *a, mu, pr_f, rs_f),
             lambda *a: kernels.mdf_update_reference(cpos, *a, mu, pr_f, rs_f))
     for name, r in results.items():
+        sliced = (f"; whole batch = {r['row_slices']} row slices, bit for bit"
+                  if "row_slices" in r else "")
         print(f"kernel {name} [B={B} S={S} P={P} F={F}]: matches plain ({r['tolerance']}, "
-              f"max abs err {r['max_abs_err']}); device {r['ms']:.4f} ms per launch, bound "
+              f"max abs err {r['max_abs_err']}{sliced}); device {r['ms']:.4f} ms per launch, bound "
               f"{r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB, {r['bound_by']}), "
               f"{100 * r['bound_ms'] / r['ms']:.0f}% of bound; plain {r['plain_ms']:.4f} ms "
               f"[{card}]", flush=True)
@@ -4473,6 +4538,7 @@ GW_EXAMPLE_SECONDS = 2           # per-leg Python over 2,048 sockets: ~137 ms a 
 GW_EXAMPLE_SETTLE = 40        # 16d's listener bar starts here (G.722's start transient)
 GW_EXAMPLE_LEAD = 2           # ticks the sender's packets run ahead of the gateway's
 GW_EXAMPLE_SSRC = 0xB000
+GW_EXAMPLE_DRAIN_S = 1.0      # how long the receivers wait for the gateway's last packets
 EXAMPLE_BAR = 0.85            # 16a and 16d: listeners against the speech sent
 IVR_LEGS = 16                 # 16e: examples/ivr_server, not paced
 IVR_SECONDS = 3               # the callers press their digits at tick 150
@@ -4980,6 +5046,22 @@ def cli_call(kernels, dev, card, seconds=CLI_CALL_COUNTED_SECONDS):
     return launches, ticks
 
 
+def drain_pump(pump, receivers, want, wait_s=GW_EXAMPLE_DRAIN_S):
+    """Each receiver's datagrams from ``pump``, read until every receiver
+    holds ``want`` or ``wait_s`` has passed. A sender's last datagrams can
+    still sit in their sockets, not yet taken by the pump's thread, when
+    the sender's thread has been joined: on a loaded host 16d read 99 of
+    100 a leg, and the 100th a moment later."""
+    got = [[] for _ in receivers]
+    deadline = time.perf_counter() + wait_s
+    while True:
+        for g, r in zip(got, receivers):
+            g.extend(d for _, d in pump.read(r.sock))
+        if all(len(g) >= want for g in got) or time.perf_counter() >= deadline:
+            return got
+        time.sleep(0.005)
+
+
 def gateway_example(kernels, dev, card, legs=GW_EXAMPLE_LEGS, seconds=GW_EXAMPLE_SECONDS):
     """Phase 16d: ``examples/transcode_gateway`` (mu-law at 8 kHz in, G.722
     at 16 kHz out, a receive and a send socket a leg) on a thread, paced
@@ -5035,7 +5117,7 @@ def gateway_example(kernels, dev, card, legs=GW_EXAMPLE_LEGS, seconds=GW_EXAMPLE
         res = gw.join_result(timeout=60 + 20 * seconds)
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
-        got = [[RtpPacket.unpack(d) for _, d in pump.read(r.sock)] for r in receivers]
+        got = [[RtpPacket.unpack(d) for d in g] for g in drain_pump(pump, receivers, res["ticks"])]
         dropped = sum(pump.dropped(r.sock) for r in receivers)
     finally:
         for r in receivers:

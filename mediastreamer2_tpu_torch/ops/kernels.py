@@ -53,7 +53,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "ms2_kernels.cu", _PKG / "csrc" / "g722_kernels.cu",
            _PKG / "csrc" / "adpcm_kernels.cu")
 BUILD_DIR = _PKG / "_build"
-MDF_MAX_P = 16          # partitions one mdf_apply thread holds (csrc MDF_MAX_P)
+MDF_MAX_P = 16          # partitions mdf_apply takes (csrc MDF_MAX_P)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -21,6 +21,7 @@ import torch
 
 from mediastreamer2_tpu_torch.core.block import tick_samples
 from mediastreamer2_tpu_torch.core.filter import FilterDef, register_filter
+from mediastreamer2_tpu_torch.ops.rfft import rowwise_mm
 
 HALF_TAPS = 16          # one-sided taps at unity ratio (speex quality ~7)
 KAISER_BETA = 8.6       # ~80 dB stopband
@@ -84,7 +85,10 @@ def _resample_process(state, ins, params, ctx):
     B = x.shape[0]
     x_ext = torch.cat([state["hist"], x], dim=1)
     if ch == 1:
-        out = x_ext @ RT
+        out = rowwise_mm(x_ext, RT)
+    elif x.device.type == "cpu":                   # a row a (leg, channel)
+        xe = x_ext.reshape(B, -1, ch).transpose(1, 2).reshape(B * ch, -1)
+        out = rowwise_mm(xe, RT).reshape(B, ch, -1).transpose(1, 2).reshape(B, -1)
     else:
         xe = x_ext.reshape(B, -1, ch)              # de-interleave
         out = torch.einsum("mo,bmc->boc", RT, xe).reshape(B, -1)

@@ -5,10 +5,11 @@ cos/sin basis built in float64 with numpy, stored as float32, and cached
 per ``(n, device)``. Conventions match numpy.fft.rfft/irfft (forward:
 X_k = sum x_n e^{-2pi i nk/N}).
 
-These products run outside any hand kernel, so they go to ``torch.matmul``.
-Importing this module turns TF32 off for CUDA matmuls and cuDNN and sets
-the float32 matmul precision to "highest": a TF32 product keeps about three
-decimal digits, which the echo canceller's error spectra cannot afford.
+These products run outside any hand kernel, so they go to ``torch.matmul``
+on the card and to ``rowwise_mm`` on the CPU. Importing this module turns
+TF32 off for CUDA matmuls and cuDNN and sets the float32 matmul precision
+to "highest": a TF32 product keeps about three decimal digits, which the
+echo canceller's error spectra cannot afford.
 
 Left out: the ``RFFT_BF16`` basis option (``ops/rfft.py:48`` of the JAX
 package), measured neutral there and not part of the default semantics.
@@ -23,6 +24,41 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
+
+
+ROW_BLOCK = 8
+
+
+def rowwise_mm(x, w):
+    """``x [..., K] @ w [K, N]``, with each row's bits independent of the
+    number of rows in the call and of the row's place among them.
+
+    On the CPU, MKL picks a float32 product's blocking from its row count,
+    so one row of ``x @ w`` rounds differently in a call of 8 rows than in
+    one of 2 or 1 (an AMD EPYC with AVX-512 and MKL 2024.2: 1-3 ulp on 93%
+    of a flagship tick's outputs; ``MKL_CBWR=COMPATIBLE`` does not help). A
+    leg shard holds a slice of the batch's rows, so its DFTs and resampler
+    products would not equal the whole batch's bit for bit. Here the CPU
+    product runs as a batch of fixed 8-row blocks, the last one zero-padded
+    (``torch.bmm`` against ``w`` expanded over the blocks): every block is
+    the same product, and on that host a row's bits depended neither on the
+    row count, nor on its offset, nor on the thread count (1 or 8). It costs
+    1.1-1.6x a plain product at 1,024 rows and a few microseconds a call at
+    8 (``tools/cpu_product_cost.py``); ``tests/test_torch_row_invariance.py``
+    holds the property at the flagship's and the session's sizes. On the
+    card the product is plain ``x @ w``: shards run there with no cuBLAS
+    workspace (``parallel/sharding.py``)."""
+    if x.device.type != "cpu":
+        return x @ w
+    lead, k = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, k)
+    m = rows.shape[0]
+    pad = (-m) % ROW_BLOCK
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad, k))])
+    nb = rows.shape[0] // ROW_BLOCK
+    y = torch.bmm(rows.reshape(nb, ROW_BLOCK, k), w.expand(nb, *w.shape))
+    return y.reshape(-1, w.shape[1])[:m].reshape(*lead, w.shape[1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,33 +124,34 @@ def _on(kind: str, n: int, device: torch.device):
 def rfft(x, n: int):
     """x [..., n] float32 -> (re, im) each [..., n//2+1]."""
     c, s, _, _ = _on("fwd", n, x.device)
-    return x @ c, x @ s
+    return rowwise_mm(x, c), rowwise_mm(x, s)
 
 
 def irfft(re, im, n: int):
     """(re, im) [..., n//2+1] -> x [..., n]."""
     cw, sw, _, _ = _on("inv", n, re.device)
-    return re @ cw + im @ sw
+    return rowwise_mm(re, cw) + rowwise_mm(im, sw)
 
 
 def rfft_tail(x_tail, n: int):
     """rfft of [zeros(n/2), x_tail] without materializing the zeros (the
     MDF error-spectrum transform)."""
     _, _, c_t, s_t = _on("fwd", n, x_tail.device)
-    return x_tail @ c_t, x_tail @ s_t
+    return rowwise_mm(x_tail, c_t), rowwise_mm(x_tail, s_t)
 
 
 def irfft_tail(re, im, n: int):
     """Last n/2 samples of irfft(re, im, n) (the overlap-save output)."""
     _, _, cw_t, sw_t = _on("inv", n, re.device)
-    return re @ cw_t + im @ sw_t
+    return rowwise_mm(re, cw_t) + rowwise_mm(im, sw_t)
 
 
 def apply_constraint(re, im, n: int):
     """(re, im) -> constrained (re', im'): equivalent to
     rfft(irfft(re, im, n) with samples n//2: zeroed, n)."""
     arr, ari, air, aii = _on("con", n, re.device)
-    return re @ arr + im @ air, re @ ari + im @ aii
+    return (rowwise_mm(re, arr) + rowwise_mm(im, air),
+            rowwise_mm(re, ari) + rowwise_mm(im, aii))
 
 
 def cmul(ar, ai, br, bi):
