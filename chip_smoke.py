@@ -34,7 +34,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    soft and hard limits, whether cv2 imports, /dev/video* and DISPLAY;
 2. each kernel against its plain version, at the flagship's shapes
    (fused_volume; mdf_apply with bf16 and with f32 shadow taps;
-   mdf_update at cpos 0, 3, 7; mdf_update_fused, f32 and bf16 shadow)
+   mdf_update at cpos 0, 3, 7; mdf_update_fused, f32 and bf16 shadow,
+   at cpos 0, 3, 7 and on four row slices with their lin0, timed on no
+   flag set and on 30% of legs promoted, reseeded or hard-reset, each
+   bound counting what its legs need; the element-by-element paths)
    at the session's (B = 1,024, S = 80, F = 81: the three kernels of
    its path) and the wideband call's (B = 1,024, S = 160, F = 161), and
    g722_encode / g722_decode bit-exact (codes or samples and every state
@@ -624,14 +627,30 @@ def mdf_update_cost(B, P, F):
             28 * B * P * F)
 
 
-def mdf_update_fused_cost(B, P, F, ws_bytes, wm_read_legs=0, wm_write_legs=0):
-    """Ws read and written, Xh read; Wm read only on the legs that reseed
-    (and are not hard-reset) and written only on the legs promoted, as the
-    data of the call needs; the [B, F] f32 operands and the [B] flags, mu,
-    cpos and srk in."""
-    return (B * P * F * (2 * ws_bytes * 2 + 2 * 2) + P * F * 2 * 2 * (wm_read_legs + wm_write_legs)
-            + 4 * B * F * 5 + B * (4 + 3) + 4 + 8,
-            40 * B * P * F)
+def mdf_update_fused_cost(B, P, F, ws_bytes, wm_read_legs=0, wm_write_legs=0,
+                          update_legs=None):
+    """(bytes, operations) that the data of the call needs: Ws written on
+    every leg; Ws and Xh read, and the five [B, F] f32 operands (Er, Ei,
+    inv_norm, gc_r, gc_i), only on the ``update_legs`` that compute the
+    update (all ``B`` by default, the ordinary mix); Wm read on the legs
+    that reseed (and are not hard-reset) and written on the legs promoted;
+    the [B] flags, mu, cpos and srk in. ``update_mix`` counts the legs of
+    each kind from the flags. ~40 operations an updated element."""
+    upd = B if update_legs is None else update_legs
+    return (B * P * F * 2 * ws_bytes + upd * (P * F * (2 * ws_bytes + 2 * 2) + 4 * F * 5)
+            + P * F * 2 * 2 * (wm_read_legs + wm_write_legs) + B * (4 + 3) + 4 + 8,
+            40 * upd * P * F)
+
+
+def update_mix(promote, reseed, hard_reset, bf16_shadow=True):
+    """(update legs, Wm-read legs, Wm-write legs) of mdf_update_fused's
+    flags ([B] bool tensors): in the bf16 mode a leg that reseeds or
+    hard-resets needs no update (Ws' is Wm or +0); in the f32 mode a
+    promoted leg needs it all the same (Wm' = rne(up)). Wm is read where a
+    leg reseeds and is not hard-reset, written where it is promoted."""
+    quiet = reseed | hard_reset
+    update = ~quiet if bf16_shadow else (~quiet | promote)
+    return (int(update.sum()), int((reseed & ~hard_reset).sum()), int(promote.sum()))
 
 
 # G.722: a leg's 80 code slots run one after another, whatever the
@@ -804,18 +823,21 @@ def _timed(entry, cost, make_args, kernel_fn, plain_fn):
     return entry
 
 
-def _slices_equal(name, fn, args, parts=4):
+def _slices_equal(name, fn, args, parts=4, row_kwargs=None):
     """``fn`` on the whole batch against ``fn`` on ``parts`` row slices of
     it, each a view of a second copy of ``args`` (a kernel that works in
     place works on the views): every output and every argument after the
     calls, bit for bit. A leg's result may not depend on the batch around
-    it, as a shard's rows must equal the whole batch's (phase 15)."""
+    it, as a shard's rows must equal the whole batch's (phase 15).
+    ``row_kwargs(lo)``: the keyword arguments of a call on the rows from
+    ``lo`` on (mdf_update_fused's ``lin0``), the whole batch's at 0."""
     whole = [a.clone() for a in args]
     cut = [a.clone() for a in args]
-    got = fn(*whole)
+    kw = row_kwargs or (lambda lo: {})
+    got = fn(*whole, **kw(0))
     B = args[0].shape[0]
     edges = [B * k // parts for k in range(parts + 1)]
-    outs = [fn(*[a[lo:hi] for a in cut]) for lo, hi in zip(edges, edges[1:])]
+    outs = [fn(*[a[lo:hi] for a in cut], **kw(lo)) for lo, hi in zip(edges, edges[1:])]
     for i, g in enumerate(got):
         _require_equal(f"{name} output {i}, whole batch against {parts} row slices",
                        torch.cat([o[i] for o in outs]), g)
@@ -864,6 +886,63 @@ def check_apply(kernels, name, args):
     _slices_equal(name, kernels.mdf_apply, args)
 
 
+UPDATE_MIXES = ("ordinary", "30% mix")
+UNALIGNED_UPDATE = (16, 8, 81)  # mdf_update_fused on planes one element off 16-byte alignment
+
+
+def update_flags(rnd, B, mix):
+    """mdf_update_fused's promote, reseed and hard_reset ([B] bool): none
+    set (``ordinary``, a real tick's: nearly every leg an ordinary
+    update); ``30% mix``: each on 30% of the legs (a normal draw under
+    -0.5244), a hard-reset leg never promoted; ``every kind``: leg b takes
+    the bits of b % 8 (hard reset 1, reseed 2, promote 4), so that a leg
+    that updates (rounds by its index) sits in every quarter of 16 legs,
+    and in the last of RAGGED_APPLY's 5."""
+    dev = rnd(1).device
+    if mix == "ordinary":
+        return [torch.zeros(B, dtype=torch.bool, device=dev) for _ in range(3)]
+    if mix == "every kind":
+        b = torch.arange(B, device=dev) % 8
+        return [(b & bit) > 0 for bit in (4, 2, 1)]
+    flags = [rnd(B) < -0.5244 for _ in range(3)]
+    flags[0] &= ~flags[2]
+    return flags
+
+
+def update_args(rnd, B, P, F, sdt, unaligned=False):
+    """mdf_update_fused's per-leg inputs but the flags: Ws (``sdt``), Wm,
+    Xh (bf16) [B, P, F], the five [B, F] f32 operands and mu [B].
+    ``unaligned``: the [B, P, F] planes one element past a 16-byte
+    boundary (contiguous views), which the kernel takes element by
+    element."""
+    def plane(s, dt):
+        x = rnd(B, P, F, s=s).to(torch.bfloat16).to(dt)
+        if not unaligned:
+            return x
+        view = torch.empty(x.numel() + 1, dtype=dt, device=x.device)[1:].view(B, P, F)
+        return view.copy_(x)
+    return ([plane(0.1, sdt) for _ in range(2)] + [plane(0.1, torch.bfloat16) for _ in range(2)]
+            + [plane(1.0, torch.bfloat16) for _ in range(2)]
+            + [rnd(B, F, s=0.3), rnd(B, F, s=0.3), rnd(B, F).abs(), rnd(B, F, s=0.05),
+               rnd(B, F, s=0.05), rnd(B).abs() * 0.6])
+
+
+def check_update(kernels, name, cpos, args, flags, srk):
+    """mdf_update_fused against its plain version, bit for bit (Ws and Wm
+    after the call), then against itself on four row slices, each with its
+    own ``lin0 = lo * P * F``, as a shard's rows are updated (phase 15e)."""
+    a_k = [t.clone() for t in args]
+    a_p = [t.clone() for t in args]
+    kernels.mdf_update_fused(cpos, *a_k, *flags, srk)
+    kernels.mdf_update_fused_reference(cpos, *a_p, *flags, srk)
+    for label, a, b in zip(("Ws_r", "Ws_i", "Wm_r", "Wm_i"), a_k, a_p):
+        _require_equal(f"{name} {label}", a, b)
+    _, P, F = args[0].shape
+    _slices_equal(name, lambda *rows, lin0=0: kernels.mdf_update_fused(cpos, *rows, srk,
+                                                                     lin0=lin0),
+                  list(args) + list(flags), row_kwargs=lambda lo: {"lin0": lo * P * F})
+
+
 RAGGED_VOLUME = (5, 441)      # fused_volume rows not 16-byte aligned (44.1 kHz ticks)
 RAGGED_APPLY = (5, 5, 81)     # mdf_apply planes of P * F % 8 != 0 (a 50 ms tail at 8 kHz)
 
@@ -871,15 +950,27 @@ RAGGED_APPLY = (5, 5, 81)     # mdf_apply planes of P * F % 8 != 0 (a 50 ms tail
 def ragged_checks(kernels, card, rnd):
     """The kernels' element-by-element paths, which the shapes of the main
     paths never take: fused_volume on rows that are not 16-byte aligned,
-    mdf_apply on planes that are not (both shadow types), each against its
-    plain version and against itself on row slices."""
+    mdf_apply on planes that are not (both shadow types), mdf_update_fused
+    on such planes and on aligned shapes at an unaligned base (both shadow
+    types, every kind of leg), each against its plain version and against
+    itself on row slices."""
     check_volume(kernels, "fused_volume (unaligned rows)", volume_args(rnd, *RAGGED_VOLUME))
     for sdt in (torch.bfloat16, torch.float32):
         check_apply(kernels, f"mdf_apply (unaligned planes, {sdt})",
                     apply_args(rnd, *RAGGED_APPLY, sdt))
-    print(f"kernel scalar paths: fused_volume x {list(RAGGED_VOLUME)} (rtol 1e-5, atol 1e-6) and "
-          f"mdf_apply {' x '.join(map(str, RAGGED_APPLY))} (bf16 and f32 Ws, bit-exact) match "
-          f"plain and their row slices [{card}]", flush=True)
+    srk = torch.tensor(987654321, dtype=torch.int64, device=rnd(1).device)
+    for (B, P, F), unaligned in ((RAGGED_APPLY, False), (UNALIGNED_UPDATE, True)):
+        for sdt in (torch.bfloat16, torch.float32):
+            cpos = torch.tensor(P // 2, dtype=torch.int32, device=srk.device)
+            check_update(kernels, f"mdf_update_fused ({B} x {P} x {F}, unaligned base "
+                         f"{unaligned}, {sdt})", cpos, update_args(rnd, B, P, F, sdt, unaligned),
+                         update_flags(rnd, B, "every kind"), srk)
+    print(f"kernel scalar paths: fused_volume x {list(RAGGED_VOLUME)} (rtol 1e-5, atol 1e-6), "
+          f"mdf_apply {' x '.join(map(str, RAGGED_APPLY))} (bf16 and f32 Ws, bit-exact) and "
+          f"mdf_update_fused {' x '.join(map(str, RAGGED_APPLY))} and "
+          f"{' x '.join(map(str, UNALIGNED_UPDATE))} at an unaligned base (bf16 and f32 Ws, every "
+          f"kind of leg, bit-exact, row slices with their lin0) match plain and their row slices "
+          f"[{card}]", flush=True)
 
 
 def kernel_checks(kernels, dev, card, B, S, P, F, full=True):
@@ -889,7 +980,6 @@ def kernel_checks(kernels, dev, card, B, S, P, F, full=True):
     the e2e leg's); the session's path runs the bf16-shadow kernels only."""
     g = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *shape, s=1.0: s * torch.randn(shape, generator=g, device=dev)
-    legs = lambda: torch.rand((B,), generator=g, device=dev) < 0.3
     results = {}
 
     # fused_volume: [B, S] f32; sums run in another order (rtol 1e-5)
@@ -912,40 +1002,40 @@ def kernel_checks(kernels, dev, card, B, S, P, F, full=True):
             lambda sdt=sdt: apply_args(rnd, B, P, F, sdt),
             kernels.mdf_apply, kernels.mdf_apply_reference)
 
-    # mdf_update_fused: the f32 shadow mode at cpos 3, then the bf16 shadow
-    # (default, timed) at cpos 0, 3, 7; 30% of legs promoted, reseeded or
-    # hard-reset
-    hist = [rnd(B, P, F).to(torch.bfloat16) for _ in range(2)]
-    spec = [rnd(B, F, s=0.3), rnd(B, F, s=0.3), rnd(B, F).abs(),
-            rnd(B, F, s=0.05), rnd(B, F, s=0.05)]
-    mu = rnd(B).abs() * 0.6
-    flags = [legs(), legs(), legs()]
-    flags[0] &= ~flags[2]
+    # mdf_update_fused: bit-exact at cpos 0, 3, 7, bf16 shadow (the default)
+    # and f32 shadow, on 30% of legs promoted, reseeded or hard-reset, and
+    # on four row slices with their lin0; timed on the ordinary mix (no
+    # flag, a real tick's: the headline) and on the 30% mix, whose quiet
+    # legs read less
     srk = torch.tensor(123456789, dtype=torch.int64, device=dev)
-    cases = ((3, torch.float32),) if full else ()
-    for cpos_v, sdt in cases + ((0, torch.bfloat16), (3, torch.bfloat16), (7, torch.bfloat16)):
-        cpos = torch.tensor(cpos_v, dtype=torch.int32, device=dev)
-        ws = [rnd(B, P, F, s=0.1).to(torch.bfloat16).to(sdt) for _ in range(2)]
-        wm = [rnd(B, P, F, s=0.1).to(torch.bfloat16) for _ in range(2)]
-        st_k = [t.clone() for t in ws + wm]
-        st_p = [t.clone() for t in ws + wm]
-        kernels.mdf_update_fused(cpos, *st_k, *hist, *spec, mu, *flags, srk)
-        kernels.mdf_update_fused_reference(cpos, *st_p, *hist, *spec, mu, *flags, srk)
-        for name, a, b in zip(("Ws_r", "Ws_i", "Wm_r", "Wm_i"), st_k, st_p):
-            _require_equal(f"mdf_update_fused {name} cpos={cpos_v} {sdt}", a, b)
-
-    def fused_args():
-        return ([rnd(B, P, F, s=0.1).to(torch.bfloat16) for _ in range(6)]
-                + [t.clone() for t in spec])
-    wm_read = int((flags[1] & ~flags[2]).sum())
-    results["mdf_update_fused"] = _timed(
-        {"max_abs_err": 0.0, "tolerance": "bit-exact"},
-        mdf_update_fused_cost(B, P, F, 2, wm_read, int(flags[0].sum())), fused_args,
-        lambda *a: kernels.mdf_update_fused(cpos, *a, mu, *flags, srk),
-        lambda *a: kernels.mdf_update_fused_reference(cpos, *a, mu, *flags, srk))
+    mixes = {mix: update_flags(rnd, B, mix) for mix in UPDATE_MIXES}
+    for sdt in (torch.bfloat16, torch.float32):
+        for cpos_v in (0, 3, 7):
+            cpos = torch.tensor(cpos_v, dtype=torch.int32, device=dev)
+            check_update(kernels, f"mdf_update_fused cpos={cpos_v} {sdt}", cpos,
+                         update_args(rnd, B, P, F, sdt), mixes["30% mix"], srk)
+    timed = [(torch.bfloat16, mix) for mix in UPDATE_MIXES]
+    timed += [(torch.float32, "ordinary")] if full else []
+    for sdt, mix in timed:
+        bf16_shadow = sdt == torch.bfloat16
+        name = "mdf_update_fused" + ("" if bf16_shadow else " (f32 Ws)") + (
+            "" if mix == "ordinary" else f" ({mix})")
+        flags = mixes[mix]
+        upd, wm_read, wm_write = update_mix(*flags, bf16_shadow)
+        results[name] = _timed(
+            {"max_abs_err": 0.0, "tolerance": "bit-exact", "row_slices": 4, "mix": mix},
+            mdf_update_fused_cost(B, P, F, torch.finfo(sdt).bits // 8, wm_read, wm_write, upd),
+            lambda sdt=sdt: update_args(rnd, B, P, F, sdt),
+            lambda *a, flags=flags: kernels.mdf_update_fused(cpos, *a, *flags, srk),
+            lambda *a, flags=flags: kernels.mdf_update_fused_reference(cpos, *a, *flags, srk))
     if full:
         # mdf_update: f32 Ws, bf16 Wm [B, P, F], bit-exact at cpos 0, 3, 7;
         # promote and reseed 0/1 floats on 30% of legs each, never both
+        hist = [rnd(B, P, F).to(torch.bfloat16) for _ in range(2)]
+        spec = [rnd(B, F, s=0.3), rnd(B, F, s=0.3), rnd(B, F).abs(),
+                rnd(B, F, s=0.05), rnd(B, F, s=0.05)]
+        mu = rnd(B).abs() * 0.6
+        flags = mixes["30% mix"]
         pr_f, rs_f = flags[0].float(), (flags[1] & ~flags[0]).float()
         for cpos_v in (0, 3, 7):
             cpos = torch.tensor(cpos_v, dtype=torch.int32, device=dev)
@@ -958,13 +1048,13 @@ def kernel_checks(kernels, dev, card, B, S, P, F, full=True):
             for name, a, b in zip(("Ws_r", "Ws_i", "Wm_r", "Wm_i"), st_k, st_p):
                 _require_equal(f"mdf_update {name} cpos={cpos_v}", a, b)
 
-        def update_args():
+        def megakernel_args():
             return ([rnd(B, P, F, s=0.1) for _ in range(2)]
                     + [rnd(B, P, F, s=0.1).to(torch.bfloat16) for _ in range(4)]
                     + [t.clone() for t in spec])
         results["mdf_update"] = _timed(
             {"max_abs_err": 0.0, "tolerance": "bit-exact"}, mdf_update_cost(B, P, F),
-            update_args, lambda *a: kernels.mdf_update(cpos, *a, mu, pr_f, rs_f),
+            megakernel_args, lambda *a: kernels.mdf_update(cpos, *a, mu, pr_f, rs_f),
             lambda *a: kernels.mdf_update_reference(cpos, *a, mu, pr_f, rs_f))
     for name, r in results.items():
         sliced = (f"; whole batch = {r['row_slices']} row slices, bit for bit"

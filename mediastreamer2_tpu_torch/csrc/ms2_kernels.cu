@@ -337,25 +337,229 @@ mdf_apply_kernel(const bf16* __restrict__ wm_r, const bf16* __restrict__ wm_i,
 //       0 unsharded), mod 2^32: JAX hashes a sharded array's global iota
 //     Wm' = promote ? Ws' : Wm       (the ROUNDED shadow value)
 // Ws and Wm are updated in place; Wm is written only where promoted.
-//
 // cpos and srk arrive through device pointers (the Pallas kernel took cpos
 // through SMEM), so the host never waits for the device to learn them.
-// One thread per element; neighbouring threads take neighbouring f.
-// Bandwidth-bound: reads Ws, Wm, Xh once, writes Ws once (and Wm rarely).
+//
+// Bandwidth-bound, and what it must move depends on the leg. An ordinary
+// leg reads Ws and Xh and its five [F] f32 operands and writes Ws: 14.5
+// bytes an element at P = 8 with a bf16 shadow. In the bf16 mode a leg
+// that hard-resets writes Ws' = +0 (sround(0) is +0 bit for bit) and one
+// that reseeds Ws' = Wm (a bf16 value widened to f32 has 16 low zero bits,
+// and the hash adds less than 2^16, so the rounding gives it back bit for
+// bit): neither reads Ws, Xh or the operands. In the f32 mode a promoted
+// leg needs `up` for Wm' whatever its other flags.
+//
+// A block takes one leg (every flag is uniform across it), its threads
+// 16-byte chunks of UPD_N = 8 elements of the leg's contiguous P * F run of
+// each plane (an f32 Ws chunk is two float4): a leg's planes start 16-byte
+// aligned when P * F % 8 == 0 and the bases are. A thread issues the loads
+// of its first K chunks (Ws, Xh, and Wm where the leg reads it) and of one
+// bin's operands before it uses any, and works out the chunks'
+// stochastic-rounding noise, which needs no tap, while they are in
+// flight. It stages the leg's operands in shared memory -- stepw = mu *
+// inv, con = mu * gc (the JAX association), E -- once a leg instead of
+// once an element. The barrier waits for those loads alone, so in a block
+// of more than four warps they go first and a warp then works as soon as
+// its own taps are in; in a smaller block (the session's, 1,024 x 8 x 81)
+// the taps go first, which measured faster there (PERF.md,
+// tools/volume_apply_variants.py). A chunk's bins run from k0 % F without
+// wrapping (the operands are staged for F + UPD_N bins), one 16-byte
+// shared load an element; its stores are 16-byte chunks. A chunk that
+// holds none of the constrained partition skips the per-element test.
+// Planes that are not aligned go element by element through the same
+// code. The hash's index is the element's place in the whole batch, so a
+// leg's bits do not depend on the rows around it.
+//
+// K = 1, with 64 registers (two 512-thread blocks an SM), for the bf16
+// shadow; the f32 shadow's chunks hold twice the registers, and its
+// launcher takes K = 2 where a leg has over 256 chunks (fewer, fuller
+// threads, faster at 4096 x 8 x 481) and K = 1 below. Four elements a
+// chunk, several legs a block, two chunks a thread for the bf16 shadow,
+// fewer resident blocks and operands read an element at a time from
+// device memory were all slower on the card (PERF.md).
 // ---------------------------------------------------------------------------
-static __device__ __forceinline__ bf16 sround_bf16(float x, uint32_t lin, uint32_t salt)
+#define UPD_MAX_THREADS 512
+#define UPD_N 8
+
+// the stochastic rounding's hash (ops/aec.py:142-152): h = lin * C1 + salt * C2,
+// mixed; the rounding adds its low 16 bits to the f32 bit pattern
+#define SR_C1 2654435761u
+#define SR_C2 0x9E3779B9u
+static __device__ __forceinline__ uint32_t sr_noise(uint32_t h)
 {
-    uint32_t bits = __float_as_uint(x);
-    uint32_t h = lin * 2654435761u + salt * 0x9E3779B9u;
     h ^= h >> 16;
     h *= 0x85EBCA6Bu;
     h ^= h >> 13;
-    bits += h & 0xFFFFu;
-    return __ushort_as_bfloat16((unsigned short)(bits >> 16));
+    return h & 0xFFFFu;
 }
 
-template <typename TS, bool SROUND>
-__global__ void __launch_bounds__(256)
+// N consecutive elements of a plane as they sit in memory
+template <int N> struct BfN { uint32_t w[N / 2]; };    // bf16 pairs, the lower element low
+template <int N> struct FN { float v[N]; };
+template <typename TS, int N> struct ChunkOf { typedef BfN<N> type; };
+template <int N> struct ChunkOf<float, N> { typedef FN<N> type; };
+
+template <int N> static __device__ __forceinline__ float el(const BfN<N>& c, int j)
+{
+    const uint32_t w = c.w[j >> 1];
+    return __uint_as_float((j & 1) ? (w & 0xFFFF0000u) : (w << 16));
+}
+template <int N> static __device__ __forceinline__ float el(const FN<N>& c, int j) { return c.v[j]; }
+template <int N> static __device__ __forceinline__ void put(FN<N>& c, int j, float x) { c.v[j] = x; }
+template <int N> static __device__ __forceinline__ void zero(BfN<N>& c)
+{
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) c.w[j] = 0u;
+}
+template <int N> static __device__ __forceinline__ void zero(FN<N>& c)
+{
+#pragma unroll
+    for (int j = 0; j < N; ++j) c.v[j] = 0.f;
+}
+
+// n: the chunk's elements inside the plane (N but for the last chunk of an
+// unaligned plane); vec: whole 16-byte accesses
+template <int N>
+static __device__ __forceinline__ void load(BfN<N>& c, const bf16* p, int n, bool vec)
+{
+    static_assert(N == 8, "a bf16 chunk is one 16-byte access");
+    if (vec) {
+        const uint4 u = *reinterpret_cast<const uint4*>(p);
+        c.w[0] = u.x; c.w[1] = u.y; c.w[2] = u.z; c.w[3] = u.w;
+    } else {
+        const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+        for (int j = 0; j < N / 2; ++j)
+            c.w[j] = (2 * j < n ? (uint32_t)q[2 * j] : 0u)
+                   | ((2 * j + 1 < n ? (uint32_t)q[2 * j + 1] : 0u) << 16);
+    }
+}
+template <int N>
+static __device__ __forceinline__ void load(FN<N>& c, const float* p, int n, bool vec)
+{
+    if (vec) {
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q) {
+            const float4 a = reinterpret_cast<const float4*>(p)[q];
+            c.v[4 * q] = a.x; c.v[4 * q + 1] = a.y; c.v[4 * q + 2] = a.z; c.v[4 * q + 3] = a.w;
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < N; ++j) c.v[j] = j < n ? p[j] : 0.f;
+    }
+}
+template <int N>
+static __device__ __forceinline__ void store(bf16* p, const BfN<N>& c, int n, bool vec)
+{
+    if (vec) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(c.w[0], c.w[1], c.w[2], c.w[3]);
+    } else {
+        unsigned short* q = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+            if (j < n) q[j] = (unsigned short)(c.w[j >> 1] >> (16 * (j & 1)));
+    }
+}
+template <int N>
+static __device__ __forceinline__ void store(float* p, const FN<N>& c, int n, bool vec)
+{
+    if (vec) {
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q)
+            reinterpret_cast<float4*>(p)[q] =
+                make_float4(c.v[4 * q], c.v[4 * q + 1], c.v[4 * q + 2], c.v[4 * q + 3]);
+    } else {
+#pragma unroll
+        for (int j = 0; j < N; ++j)
+            if (j < n) p[j] = c.v[j];
+    }
+}
+// Ws' of a leg that needs no update: Wm as it is, or widened to f32
+template <int N> static __device__ __forceinline__ void from_wm(BfN<N>& c, const BfN<N>& wm) { c = wm; }
+template <int N> static __device__ __forceinline__ void from_wm(FN<N>& c, const BfN<N>& wm)
+{
+#pragma unroll
+    for (int j = 0; j < N; ++j) c.v[j] = el(wm, j);
+}
+
+// A leg's bin operands in shared memory: a 16-byte record {stepw, E_r,
+// E_i, con_r} and con_i a bin, for the F + UPD_N indices i of bin i % F,
+// so that a chunk's bins f0 .. f0 + UPD_N - 1 never wrap. Index i sits at
+// slot i + i / 8: the 8 lanes of a quarter warp read bins 8 apart, which
+// then fall on 8 different 16-byte bank groups.
+static __host__ __device__ __forceinline__ int upd_slot(int i) { return i + (i >> 3); }
+static __host__ __device__ __forceinline__ int upd_slots(int F) { return upd_slot(F + UPD_N) + 1; }
+static __host__ __device__ __forceinline__ size_t upd_smem(int F)
+{
+    return round16((size_t)upd_slots(F) * (sizeof(float4) + sizeof(float)));
+}
+
+// The stochastic rounding's noise of a chunk's N elements, from the hash of
+// the first one, h0 = lin * C1 + salt * C2: the real part's in the low 16
+// bits and the imaginary part's (salt + 1) in the high 16. It needs no tap,
+// so it is worked out while the taps are in flight.
+template <int N>
+static __device__ __forceinline__ void chunk_noise(uint32_t h0, uint32_t (&nz)[N])
+{
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+        const uint32_t h = h0 + (uint32_t)j * SR_C1;
+        nz[j] = sr_noise(h) | (sr_noise(h + SR_C2) << 16);
+    }
+}
+
+// One chunk's update from its loaded taps, the leg's staged operands and
+// (bf16 mode) its noise: Ws' (and, in the f32 mode, Wm' = rne(up)) of its
+// N elements, bins f0 on, element j in the constrained partition iff
+// 0 <= dc + j < F.
+template <bool SROUND, typename CS, typename CB, int N>
+static __device__ __forceinline__ void update_chunk(
+    const CS& wr, const CS& wi, const CB& hr, const CB& hi, const CB& mr, const CB& mi,
+    const uint32_t (&nz)[N], const float4* s_rec, const float* s_ci, int f0, int dc, int F,
+    bool rs, bool hz, CS& nr, CS& ni, CB& qr, CB& qi)
+{
+    const bool any_c = (unsigned)(dc + N - 1) < (unsigned)(F + N - 1);
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+        float ur[2], ui[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            const int sl = upd_slot(f0 + j + e);
+            const float4 r = s_rec[sl];
+            const float xr = el(hr, j + e), xi = el(hi, j + e);
+            const float gr = xr * r.y + xi * r.z;
+            const float gi = xr * r.z - xi * r.y;
+            float dr = r.x * gr, di = r.x * gi;
+            if (any_c && (unsigned)(dc + j + e) < (unsigned)F) {
+                dr = r.w;
+                di = s_ci[sl];
+            }
+            ur[e] = el(wr, j + e) + dr;
+            ui[e] = el(wi, j + e) + di;
+        }
+        if constexpr (SROUND) {
+            const uint32_t r0 = __float_as_uint(ur[0]) + (nz[j] & 0xFFFFu);
+            const uint32_t r1 = __float_as_uint(ur[1]) + (nz[j + 1] & 0xFFFFu);
+            const uint32_t i0 = __float_as_uint(ui[0]) + (nz[j] >> 16);
+            const uint32_t i1 = __float_as_uint(ui[1]) + (nz[j + 1] >> 16);
+            nr.w[j >> 1] = __byte_perm(r0, r1, 0x7632);        // the two upper halves
+            ni.w[j >> 1] = __byte_perm(i0, i1, 0x7632);
+        } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                put(nr, j + e, hz ? 0.f : (rs ? el(mr, j + e) : ur[e]));
+                put(ni, j + e, hz ? 0.f : (rs ? el(mi, j + e) : ui[e]));
+            }
+            qr.w[j >> 1] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(ur[0]))
+                         | ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(ur[1])) << 16);
+            qi.w[j >> 1] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(ui[0]))
+                         | ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(ui[1])) << 16);
+        }
+    }
+}
+
+template <typename TS, bool SROUND, int K>
+__global__ void __launch_bounds__(UPD_MAX_THREADS, SROUND ? 2 : 1)
 mdf_update_fused_kernel(const int* __restrict__ cpos_p,
                         TS* __restrict__ ws_r, TS* __restrict__ ws_i,
                         bf16* __restrict__ wm_r, bf16* __restrict__ wm_i,
@@ -368,63 +572,143 @@ mdf_update_fused_kernel(const int* __restrict__ cpos_p,
                         const uint8_t* __restrict__ reseed,
                         const uint8_t* __restrict__ hard_reset,
                         const long long* __restrict__ srk_p, uint32_t lin0,
-                        int B, int P, int F)
+                        int P, int F, int vec)
 {
-    const size_t n = (size_t)B * P * F;
-    const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= n) return;
+    constexpr int N = UPD_N;
+    typedef typename ChunkOf<TS, N>::type CS;
+    typedef BfN<N> CB;
+    extern __shared__ float s_op[];
+    const int b = blockIdx.x;
+    const int t = threadIdx.x, T = blockDim.x;
     const int pf = P * F;
-    const int b = (int)(idx / pf);
-    const int rem = (int)(idx - (size_t)b * pf);
-    const int p = rem / F;
-    const int bf = b * F + (rem - p * F);
-    const float m = mu[b];
+    const int nch = (pf + N - 1) / N;
+    const size_t plane = (size_t)b * pf;
+    const bool pr = promote[b] != 0, rs = reseed[b] != 0, hz = hard_reset[b] != 0;
+    const bool need_up = SROUND ? !(rs || hz) : (!(rs || hz) || pr);
+    const bool read_wm = rs && !hz;
 
-    const float hr = __bfloat162float(xh_r[idx]);
-    const float hi = __bfloat162float(xh_i[idx]);
-    const float er = e_r[bf], ei = e_i[bf];
-    const float gr = hr * er + hi * ei;
-    const float gi = hr * ei - hi * er;
-    const float wsr = ld(ws_r + idx), wsi = ld(ws_i + idx);
-    float up_r, up_i;
-    if (p == *cpos_p) {
-        up_r = wsr + m * gc_r[bf];
-        up_i = wsi + m * gc_i[bf];
-    } else {
-        const float stepw = m * inv_norm[bf];
-        up_r = wsr + stepw * gr;
-        up_i = wsi + stepw * gi;
+    if (!need_up) {                     // Ws' = +0 or Wm; Wm' = Ws' where promoted (bf16)
+        for (int c = t; c < nch; c += T) {
+            const int k = N * c, n = min(N, pf - k);
+            CS nr, ni;
+            CB mr, mi;
+            if (hz) {
+                zero(nr);
+                zero(ni);
+            } else {
+                load(mr, wm_r + plane + k, n, vec);
+                load(mi, wm_i + plane + k, n, vec);
+                from_wm(nr, mr);
+                from_wm(ni, mi);
+            }
+            store(ws_r + plane + k, nr, n, vec);
+            store(ws_i + plane + k, ni, n, vec);
+            if constexpr (SROUND) {
+                if (pr) {
+                    store(wm_r + plane + k, nr, n, vec);
+                    store(wm_i + plane + k, ni, n, vec);
+                }
+            }
+        }
+        return;
     }
-    const bool pr = promote[b] != 0;
-    const bool rs = reseed[b] != 0;
-    const bool hz = hard_reset[b] != 0;
-    float nr = up_r, ni = up_i;
-    if (rs) {
-        nr = __bfloat162float(wm_r[idx]);
-        ni = __bfloat162float(wm_i[idx]);
+
+    // the thread's first K chunks and one bin's operands: all their loads
+    // in flight before any is used, the operands first in a block of more
+    // than four warps (the barrier waits for them alone)
+    const size_t row = (size_t)b * F;
+    const float m = mu[b];
+    float inv = 0.f, er = 0.f, ei = 0.f, gr = 0.f, gi = 0.f;   // bin t % F's, as loaded
+    auto load_bin = [&](int i) {
+        const size_t f = row + (i < F ? i : i % F);
+        inv = inv_norm[f];
+        er = e_r[f];
+        ei = e_i[f];
+        gr = gc_r[f];
+        gi = gc_i[f];
+    };
+    if (T > 128 && t < F + N)
+        load_bin(t);
+    CS wr[K], wi[K];
+    CB hr[K], hi[K], mr[K], mi[K];
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+        const int c = t + q * T;
+        if (c < nch) {
+            const int k = N * c, n = min(N, pf - k);
+            load(wr[q], ws_r + plane + k, n, vec);
+            load(wi[q], ws_i + plane + k, n, vec);
+            load(hr[q], xh_r + plane + k, n, vec);
+            load(hi[q], xh_i + plane + k, n, vec);
+            if (!SROUND && read_wm) {
+                load(mr[q], wm_r + plane + k, n, vec);
+                load(mi[q], wm_i + plane + k, n, vec);
+            }
+        }
     }
-    if (hz) {
-        nr = 0.f;
-        ni = 0.f;
-    }
+    if (T <= 128 && t < F + N)
+        load_bin(t);
+    const int cbase = *cpos_p * F;      // the constrained partition's elements
+    uint32_t salt = 0u;
+    if constexpr (SROUND)
+        salt = (uint32_t)(unsigned long long)(*srk_p) * 2u;
+    const uint32_t lin_b = lin0 + (uint32_t)plane;      // wraps as JAX's uint32 iota
+    uint32_t nz[K][N];
     if constexpr (SROUND) {
-        const uint32_t salt = (uint32_t)(unsigned long long)(*srk_p) * 2u;
-        const uint32_t lin = lin0 + (uint32_t)idx;     // wraps as JAX's uint32 iota
-        const bf16 qr = sround_bf16(nr, lin, salt);
-        const bf16 qi = sround_bf16(ni, lin, salt + 1u);
-        ws_r[idx] = qr;
-        ws_i[idx] = qi;
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+            chunk_noise((lin_b + (uint32_t)(N * (t + q * T))) * SR_C1 + salt * SR_C2, nz[q]);
+    }
+    float4* s_rec = reinterpret_cast<float4*>(s_op);
+    float* s_ci = s_op + 4 * upd_slots(F);
+    for (int i = t; i < F + N; i += T) {       // stepw = mu * inv, con = mu * gc
+        if (i != t)
+            load_bin(i);
+        s_rec[upd_slot(i)] = make_float4(m * inv, er, ei, m * gr);
+        s_ci[upd_slot(i)] = m * gi;
+    }
+    __syncthreads();
+
+    // a chunk's update and stores
+    auto finish = [&](int c, const CS& cwr, const CS& cwi, const CB& chr, const CB& chi,
+                      const CB& cmr, const CB& cmi, const uint32_t (&cnz)[N]) {
+        const int k0 = N * c, n = min(N, pf - k0);
+        CS nr, ni;
+        CB qr, qi;                      // Wm' (f32 mode: rne(up))
+        update_chunk<SROUND>(cwr, cwi, chr, chi, cmr, cmi, cnz, s_rec, s_ci, k0 % F,
+                             k0 - cbase, F, rs, hz, nr, ni, qr, qi);
+        store(ws_r + plane + k0, nr, n, vec);
+        store(ws_i + plane + k0, ni, n, vec);
         if (pr) {
-            wm_r[idx] = qr;
-            wm_i[idx] = qi;
+            if constexpr (SROUND) {
+                store(wm_r + plane + k0, nr, n, vec);
+                store(wm_i + plane + k0, ni, n, vec);
+            } else {
+                store(wm_r + plane + k0, qr, n, vec);
+                store(wm_i + plane + k0, qi, n, vec);
+            }
         }
-    } else {
-        ws_r[idx] = nr;
-        ws_i[idx] = ni;
-        if (pr) {
-            wm_r[idx] = __float2bfloat16_rn(up_r);
-            wm_i[idx] = __float2bfloat16_rn(up_i);
+    };
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+        if (t + q * T < nch)
+            finish(t + q * T, wr[q], wi[q], hr[q], hi[q], mr[q], mi[q], nz[q]);
+    for (int c = t + K * T; c < nch; c += T) {
+        const int k = N * c, n = min(N, pf - k);
+        CS cwr, cwi;
+        CB chr, chi, cmr, cmi;
+        load(cwr, ws_r + plane + k, n, vec);
+        load(cwi, ws_i + plane + k, n, vec);
+        load(chr, xh_r + plane + k, n, vec);
+        load(chi, xh_i + plane + k, n, vec);
+        if (!SROUND && read_wm) {
+            load(cmr, wm_r + plane + k, n, vec);
+            load(cmi, wm_i + plane + k, n, vec);
         }
+        uint32_t cnz[N];
+        if constexpr (SROUND)
+            chunk_noise((lin_b + (uint32_t)k) * SR_C1 + salt * SR_C2, cnz);
+        finish(c, cwr, cwi, chr, chi, cmr, cmi, cnz);
     }
 }
 
@@ -603,26 +887,39 @@ int ms2_mdf_update_fused(int device, int shadow_bf16, const void* cpos,
 {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const size_t n = (size_t)B * P * F;
-    if (n == 0) return (int)cudaGetLastError();
-    const unsigned blocks = (unsigned)((n + 255) / 256);
+    if (B == 0 || P == 0 || F == 0) return (int)cudaGetLastError();
+    const void* p[6] = {ws_r, ws_i, wm_r, wm_i, xh_r, xh_i};
+    int vec = (size_t)P * F % UPD_N == 0;       // every leg's chunks 16-byte aligned
+    for (int i = 0; i < 6; ++i)
+        vec = vec && ((uintptr_t)p[i] % 16) == 0;
+    const int nch = (int)(((size_t)P * F + UPD_N - 1) / UPD_N);
+    const int K = !shadow_bf16 && nch > 256 ? 2 : 1;
+    const int per = (nch + K - 1) / K;          // a thread's K chunks loaded at once
+    const int threads = per >= UPD_MAX_THREADS ? UPD_MAX_THREADS : (per + 31) / 32 * 32;
+    const size_t smem = upd_smem(F);
+    if (smem > MDF_MAX_SMEM) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
+#define UPD_LAUNCH(TS, SR, K)                                                               \
+    do {                                                                                    \
+        if (smem > 48 * 1024) {                                                             \
+            err = cudaFuncSetAttribute(mdf_update_fused_kernel<TS, SR, K>,                  \
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem); \
+            if (err != cudaSuccess) return (int)err;                                        \
+        }                                                                                   \
+        mdf_update_fused_kernel<TS, SR, K><<<B, threads, smem, s>>>(                         \
+            (const int*)cpos, (TS*)ws_r, (TS*)ws_i, (bf16*)wm_r, (bf16*)wm_i,               \
+            (const bf16*)xh_r, (const bf16*)xh_i, (const float*)e_r, (const float*)e_i,     \
+            (const float*)inv_norm, (const float*)gc_r, (const float*)gc_i,                 \
+            (const float*)mu, (const uint8_t*)promote, (const uint8_t*)reseed,              \
+            (const uint8_t*)hard_reset, (const long long*)srk, lin0, P, F, vec);            \
+    } while (0)
     if (shadow_bf16)
-        mdf_update_fused_kernel<bf16, true><<<blocks, 256, 0, s>>>(
-            (const int*)cpos, (bf16*)ws_r, (bf16*)ws_i, (bf16*)wm_r,
-            (bf16*)wm_i, (const bf16*)xh_r, (const bf16*)xh_i,
-            (const float*)e_r, (const float*)e_i, (const float*)inv_norm,
-            (const float*)gc_r, (const float*)gc_i, (const float*)mu,
-            (const uint8_t*)promote, (const uint8_t*)reseed,
-            (const uint8_t*)hard_reset, (const long long*)srk, lin0, B, P, F);
+        UPD_LAUNCH(bf16, true, 1);
+    else if (K == 2)
+        UPD_LAUNCH(float, false, 2);
     else
-        mdf_update_fused_kernel<float, false><<<blocks, 256, 0, s>>>(
-            (const int*)cpos, (float*)ws_r, (float*)ws_i, (bf16*)wm_r,
-            (bf16*)wm_i, (const bf16*)xh_r, (const bf16*)xh_i,
-            (const float*)e_r, (const float*)e_i, (const float*)inv_norm,
-            (const float*)gc_r, (const float*)gc_i, (const float*)mu,
-            (const uint8_t*)promote, (const uint8_t*)reseed,
-            (const uint8_t*)hard_reset, (const long long*)srk, lin0, B, P, F);
+        UPD_LAUNCH(float, false, 1);
+#undef UPD_LAUNCH
     return (int)cudaGetLastError();
 }
 

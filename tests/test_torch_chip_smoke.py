@@ -61,6 +61,79 @@ def test_bytes_at_the_flagship_shapes(smoke):
             == pytest.approx(260.1, abs=0.5))
 
 
+def test_mdf_update_fused_bytes_follow_the_mix(smoke):
+    """The bytes that mdf_update_fused's data needs (``update_mix``,
+    ``mdf_update_fused_cost``). The ordinary mix (no flag) at the session's
+    shape, bf16 Ws: Ws read and written and Xh read, 12 bytes an element,
+    and five f32 operands, 20 bytes a bin: 14.5 bytes an element, 9.63 MB,
+    0.0029 ms. A hand-built mix of eight legs, leg b the bits of b (hard
+    reset 1, reseed 2, promote 4): with a bf16 shadow legs 0 and 4 update,
+    legs 2 and 6 read Wm, legs 4 to 7 write it; with an f32 shadow the
+    promoted legs update too (0, 4, 5, 6, 7)."""
+    import torch
+    P, F = 8, 81
+    ordinary = [torch.zeros(1024, dtype=torch.bool) for _ in range(3)]
+    assert smoke.update_mix(*ordinary) == (1024, 0, 0)
+    nbytes, ops = smoke.mdf_update_fused_cost(1024, P, F, 2, 0, 0, update_legs=1024)
+    assert nbytes == 1024 * P * F * 12 + 1024 * F * 20 + 1024 * 7 + 12 == 9_628_684
+    assert nbytes - 1024 * 7 - 12 == 1024 * P * F * 14.5
+    assert smoke.bound((nbytes, ops)) == (pytest.approx(0.002874, abs=1e-6), "bytes")
+    assert smoke.mdf_update_fused_cost(1024, P, F, 2) == (nbytes, ops)
+    flags = smoke.update_flags(lambda *shape, s=1.0: torch.zeros(shape), 8, "every kind")
+    assert [[int(f[b]) for f in flags] for b in (0, 3, 6)] == [[0, 0, 0], [0, 1, 1], [1, 1, 0]]
+    assert smoke.update_mix(*flags) == (2, 2, 4)
+    assert smoke.update_mix(*flags, bf16_shadow=False) == (5, 2, 4)
+    assert smoke.mdf_update_fused_cost(8, P, F, 2, 2, 4, update_legs=2)[0] == (
+        8 * P * F * 2 * 2 + 2 * (P * F * (2 * 2 + 2 * 2) + 4 * F * 5)
+        + P * F * 2 * 2 * (2 + 4) + 8 * 7 + 12)
+    assert smoke.mdf_update_fused_cost(8, P, F, 4, 2, 4, update_legs=5)[0] == (
+        8 * P * F * 2 * 4 + 5 * (P * F * (2 * 4 + 2 * 2) + 4 * F * 5)
+        + P * F * 2 * 2 * (2 + 4) + 8 * 7 + 12)
+    # the 30% mix's quiet legs read nothing: fewer bytes than the ordinary mix
+    g = torch.Generator().manual_seed(0)
+    mix = smoke.update_flags(lambda *shape, s=1.0: s * torch.randn(shape, generator=g), 1024,
+                             "30% mix")
+    upd, wm_read, wm_write = smoke.update_mix(*mix)
+    assert 0.35 < upd / 1024 < 0.65 and not (mix[0] & mix[2]).any()
+    assert smoke.mdf_update_fused_cost(1024, P, F, 2, wm_read, wm_write, upd)[0] < nbytes
+
+
+def test_update_check_holds_the_plain_version_and_fails_a_faulty_kernel(smoke):
+    """Phase 2's check of mdf_update_fused (``check_update``) on the CPU,
+    the plain version in both places: bit for bit, and on four row slices,
+    each with its own lin0, in both modes; it fails a kernel that rounds
+    every slice from index 0 (lin0 dropped) and one that writes Wm on a leg
+    that is not promoted."""
+    import types
+
+    import torch
+
+    from mediastreamer2_tpu_torch.ops import kernels
+    g = torch.Generator().manual_seed(1)
+    rnd = lambda *shape, s=1.0: s * torch.randn(shape, generator=g)  # noqa: E731
+    B, P, F = 16, 8, 81
+    srk = torch.tensor(42, dtype=torch.int64)
+    cpos = torch.tensor(3, dtype=torch.int32)
+    flags = smoke.update_flags(rnd, B, "every kind")
+    for sdt in (torch.bfloat16, torch.float32):
+        smoke.check_update(kernels, f"plain {sdt}", cpos, smoke.update_args(rnd, B, P, F, sdt),
+                           flags, srk)
+
+    def no_lin0(*a, lin0=0):
+        return kernels.mdf_update_fused_reference(*a)
+
+    def promotes_all(cpos, *a, lin0=0):
+        a = list(a)
+        a[12] = torch.ones_like(a[12])
+        return kernels.mdf_update_fused_reference(cpos, *a, lin0=lin0)
+    for fault, match in ((no_lin0, "row slices"), (promotes_all, "Wm_r")):
+        fake = types.SimpleNamespace(mdf_update_fused=fault,
+                                     mdf_update_fused_reference=kernels.mdf_update_fused_reference)
+        with pytest.raises(AssertionError, match=match):
+            smoke.check_update(fake, "faulty", cpos,
+                               smoke.update_args(rnd, B, P, F, torch.bfloat16), flags, srk)
+
+
 def test_bound_takes_the_larger_time(smoke):
     ms, by = smoke.bound((3.35e9, 1))
     assert ms == pytest.approx(1.0) and by == "bytes"

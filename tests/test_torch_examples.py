@@ -10,6 +10,7 @@ import importlib.util
 import os
 import select
 import sys
+import threading
 import time
 
 import pytest
@@ -159,6 +160,41 @@ def test_secure_call(zrtp, capsys):
     else:
         assert r["suite"].startswith("AEAD_AES_") and r["sas"] is None
     assert "secured in " in capsys.readouterr().out
+
+
+def test_secure_call_receiver_follows_the_sender(monkeypatch):
+    """Departure from the JAX example, whose receiver ticks on a paced
+    ticker of its own (``rx.start``): the port's receiver follows the
+    sender's ticks (``secure_call.follow``). Here the sender slips as on a
+    loaded host (every 25th of its ticks takes 60 ms more); a receiver
+    paced on its own would run ahead of it, its jitter buffer dry, and
+    play a gap at each slip. Following, it runs its tick k only after the
+    sender's tick k, as many ticks as the sender, and the call holds 0.9."""
+    from mediastreamer2_tpu_torch.core import ticker as ticker_mod
+    seen = []                                   # (sender's ticks, receiver's) at each rx tick
+    follow = secure_call.follow
+
+    def watched(rx, tx, done):
+        do_tick = rx.do_tick
+
+        def rx_tick():
+            seen.append((tx.stats.ticks, rx.stats.ticks))
+            return do_tick()
+        rx.do_tick = rx_tick
+        return follow(rx, tx, done)
+    monkeypatch.setattr(secure_call, "follow", watched)
+    tick = ticker_mod.Ticker.do_tick
+
+    def slipping(self):
+        if self.stats.ticks % 25 == 24 and threading.current_thread() is threading.main_thread():
+            time.sleep(0.06)
+        return tick(self)
+    monkeypatch.setattr(ticker_mod.Ticker, "do_tick", slipping)
+    r = secure_call.run(secure_call.build_parser().parse_args(["--seconds", "2", "--device",
+                                                               "cpu"]))
+    assert r["secured"] and r["similarity"] > 0.9
+    assert len(seen) == r["sent"] == 210
+    assert all(rx_ticks < tx_ticks for tx_ticks, rx_ticks in seen)
 
 
 def test_transcode_gateway_sends_the_tone_it_was_sent(smoke):
