@@ -1,0 +1,7 @@
+"""Share of the traced window in which no kernel, copy or memset runs on
+the device (unpaced cells)."""
+
+
+def read(ctx):
+    w = ctx.trace.window_s()
+    return 100.0 * (1.0 - ctx.trace.busy_s() / w) if w > 0 else None
