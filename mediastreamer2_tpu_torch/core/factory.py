@@ -9,7 +9,8 @@ Reference: src/base/msfactory.c (registry at :193-194, plugin dlopen at
 * plugins are Python modules exposing ``ms_plugin_init(factory)``: the
   import machinery replaces dlopen;
 * ``enable_statistics`` sets a flag, as in the JAX package; per-node times
-  come from ``CompiledGraph.profile_nodes``.
+  come from the graph's profiler spans (``ms2.node/<name>``, made by
+  ``CompiledGraph.step``), which ``CompiledGraph.profile_nodes`` reads.
 """
 from __future__ import annotations
 

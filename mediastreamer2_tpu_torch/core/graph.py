@@ -14,24 +14,28 @@ Differences from the JAX package:
 * ``run_scan`` is a Python loop of K steps that stacks its outputs; PyTorch
   runs eagerly, so there is nothing to fuse at this level.
 * ``init_state`` / ``init_params`` take the device the tensors live on.
-* ``profile_nodes`` times each node with CUDA events around its calls on
-  the card (the host clock on the CPU), on a copy of the node's state. The
-  JAX version ends each timed run with a one-scalar readback, a workaround
-  for a TPU link where ``block_until_ready`` returned early; it is left
-  out.
+* ``step`` marks itself (``ms2.step``) and each node's ``process``
+  (``ms2.node/<name>``) as profiler spans (``core/trace.py``), free while
+  no profiler records. ``profile_nodes`` reads its per-node times from
+  those spans over whole steps, where the JAX version times each node
+  alone; its one-scalar readback, a workaround for a TPU link where
+  ``block_until_ready`` returned early, is left out.
 
 ``ext_source`` / ``ext_sink`` are special-cased by name, as in JAX.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd import DeviceType
 
 from mediastreamer2_tpu_torch.core.block import Format, block_shape, block_dtype
 from mediastreamer2_tpu_torch.core.filter import FilterCtx, FilterDef, LegShard
+from mediastreamer2_tpu_torch.core.trace import span
+
+STEP_SPAN = "ms2.step"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +126,15 @@ def _toposort(n_nodes: int, links: Sequence[Link]) -> List[int]:
     return order
 
 
+def _leaves(tree):
+    """The tensors of a tree of dicts and tuples."""
+    if isinstance(tree, dict):
+        tree = tuple(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
 def clone_tree(tree):
     """A copy of a state entry (None, or a dict of tensors and dicts)."""
     if isinstance(tree, dict):
@@ -183,6 +196,10 @@ class CompiledGraph:
                                               block_dtype(fmt))
             elif node.fdef.name == "ext_sink":
                 self.ext_outputs.append(node.name)
+        # the profiler span of each node's process, None for the ext nodes
+        self.spans: List[Optional[str]] = [
+            None if node.fdef.name in ("ext_source", "ext_sink") else f"ms2.node/{node.name}"
+            for node in self.nodes]
 
     def for_shard(self, shard: LegShard) -> "CompiledGraph":
         """This graph built again for one shard of its legs: the same nodes,
@@ -215,42 +232,44 @@ class CompiledGraph:
         Returns (new_state, ext_out, events).
         """
         ext_in = ext_in or {}
-        edge_vals: Dict[Tuple[int, int], Any] = {}
-        new_state = dict(state)
-        ext_out: Dict[str, Any] = {}
-        events: Dict[str, Any] = {}
+        with span(STEP_SPAN):
+            edge_vals: Dict[Tuple[int, int], Any] = {}
+            new_state = dict(state)
+            ext_out: Dict[str, Any] = {}
+            events: Dict[str, Any] = {}
 
-        for i in self.order:
-            node = self.nodes[i]
-            ctx = self.ctxs[i]
-            ins = tuple(edge_vals[(l.src, l.srcpin)]
-                        for l in (self._in_link[(i, pin)] for pin in range(node.fdef.ninputs)))
-            st = new_state.get(node.name)
-            p = params.get(node.name, {})
-            if node.fdef.name == "ext_source":
-                if node.name not in ext_in:
-                    raise KeyError(f"ext_source '{node.name}' needs an entry in ext_in "
-                                   f"(have {sorted(ext_in)})")
-                want = self.ext_inputs[node.name][0]
-                got = tuple(ext_in[node.name].shape)
-                if got != want:
-                    raise ValueError(f"ext_source '{node.name}': input shape {got} "
-                                     f"!= expected {want}")
-                outs = (ext_in[node.name],)
-                ev = {}
-            elif node.fdef.name == "ext_sink":
-                ext_out[node.name] = ins[0]
-                outs = ()
-                ev = {}
-            else:
-                st, outs, ev = node.fdef.process(st, ins, p, ctx)
-            if node.fdef.init is not None:
-                new_state[node.name] = st
-            for pin, v in enumerate(outs):
-                edge_vals[(i, pin)] = v
-            for k, v in ev.items():
-                events[f"{node.name}.{k}"] = v
-        return new_state, ext_out, events
+            for i in self.order:
+                node = self.nodes[i]
+                ctx = self.ctxs[i]
+                ins = tuple(edge_vals[(l.src, l.srcpin)]
+                            for l in (self._in_link[(i, pin)] for pin in range(node.fdef.ninputs)))
+                st = new_state.get(node.name)
+                p = params.get(node.name, {})
+                if node.fdef.name == "ext_source":
+                    if node.name not in ext_in:
+                        raise KeyError(f"ext_source '{node.name}' needs an entry in ext_in "
+                                       f"(have {sorted(ext_in)})")
+                    want = self.ext_inputs[node.name][0]
+                    got = tuple(ext_in[node.name].shape)
+                    if got != want:
+                        raise ValueError(f"ext_source '{node.name}': input shape {got} "
+                                         f"!= expected {want}")
+                    outs = (ext_in[node.name],)
+                    ev = {}
+                elif node.fdef.name == "ext_sink":
+                    ext_out[node.name] = ins[0]
+                    outs = ()
+                    ev = {}
+                else:
+                    with span(self.spans[i]):
+                        st, outs, ev = node.fdef.process(st, ins, p, ctx)
+                if node.fdef.init is not None:
+                    new_state[node.name] = st
+                for pin, v in enumerate(outs):
+                    edge_vals[(i, pin)] = v
+                for k, v in ev.items():
+                    events[f"{node.name}.{k}"] = v
+            return new_state, ext_out, events
 
     def run_scan(self, state, params, ext_in_seq, length: Optional[int] = None):
         """K ticks in a loop. ext_in_seq: dict name -> [K, batch, samples].
@@ -272,47 +291,30 @@ class CompiledGraph:
         """Per-node timing attribution (cf. per-filter MSFilterStats
         box-plots, msfilter.h:154-159 / ms_factory_log_statistics).
 
-        The tick runs every node back to back, so per-filter time does not
-        exist at run time; this diagnostic runs each node's process alone,
-        ``iters`` times after one warm-up call, on the inputs the previous
-        nodes produced (same shapes), and returns mean milliseconds by node
-        name. The ext nodes are not timed. Each node runs on a copy of its
-        state, so ``state`` is left as it was. ``ext_in`` holds tensors on
-        the graph's device. On the card the calls are timed by a pair of
-        CUDA events on the current stream.
+        Runs one warm-up step and then ``iters`` whole steps under
+        ``torch.profiler``, on a copy of ``state`` (``state`` is left as it
+        was), and returns mean milliseconds a call by node name, read from
+        the nodes' spans (``ms2.node/<name>``): device time on the card,
+        host time on the CPU. The ext nodes are not timed. ``ext_in`` holds
+        tensors on the graph's device.
         """
+        from torch.profiler import ProfilerActivity, profile
         ext_in = ext_in or {}
-        edge_vals: Dict[Tuple[int, int], Any] = {}
+        st = self.step(clone_tree(state), params, ext_in)[0]
+        cuda = any(t.is_cuda for t in _leaves((st, params, ext_in)))
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        with profile(activities=activities) as prof:
+            for _ in range(iters):
+                st = self.step(st, params, ext_in)[0]
+            if cuda:
+                torch.cuda.synchronize()
+        by_span = {e.key: e for e in prof.key_averages() if e.device_type == DeviceType.CPU}
         results: Dict[str, float] = {}
         for i in self.order:
-            node = self.nodes[i]
-            ctx = self.ctxs[i]
-            ins = tuple(edge_vals[(l.src, l.srcpin)]
-                        for l in (self._in_link[(i, pin)] for pin in range(node.fdef.ninputs)))
-            if node.fdef.name == "ext_source":
-                outs = (torch.as_tensor(ext_in[node.name]),)
-            elif node.fdef.name == "ext_sink":
-                outs = ()
-            else:
-                st = clone_tree(state.get(node.name))
-                p = params.get(node.name, {})
-                st, outs, _ = node.fdef.process(st, ins, p, ctx)
-                cuda = any(t.is_cuda for t in (*ins, *outs) if isinstance(t, torch.Tensor))
-                if cuda:
-                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                    start.record()
-                    for _ in range(iters):
-                        st, _, _ = node.fdef.process(st, ins, p, ctx)
-                    end.record()
-                    end.synchronize()
-                    results[node.name] = start.elapsed_time(end) / iters
-                else:
-                    t0 = time.perf_counter()
-                    for _ in range(iters):
-                        st, _, _ = node.fdef.process(st, ins, p, ctx)
-                    results[node.name] = (time.perf_counter() - t0) / iters * 1e3
-            for pin, v in enumerate(outs):
-                edge_vals[(i, pin)] = v
+            if self.spans[i] is not None:
+                e = by_span[self.spans[i]]
+                us = e.device_time_total if cuda else e.cpu_time_total
+                results[self.nodes[i].name] = us / e.count / 1e3
         return results
 
     def describe(self) -> str:

@@ -72,8 +72,12 @@ import torch
 from mediastreamer2_tpu_torch.core.block import TICK_MS
 from mediastreamer2_tpu_torch.core.events import EventQueue
 from mediastreamer2_tpu_torch.core.graph import clone_tree
+from mediastreamer2_tpu_torch.core.trace import span
 
 _UINT32_LEAVES = frozenset({"srk"})     # uint32 scalars in the JAX package
+# profiler spans of a tick's phases, at the points phase_ms times them
+_QUEUE, _PULL, _DISPATCH, _PUBLISH = (
+    f"ms2.ticker/{phase}" for phase in ("queue", "pull", "dispatch", "publish"))
 
 
 def resolve_device(device) -> torch.device:
@@ -94,15 +98,21 @@ class _FifoLock:
         self._asked = 0
         self._served = 0
 
-    def __enter__(self):
+    def acquire(self):
         with self._cv:
             ticket, self._asked = self._asked, self._asked + 1
             self._cv.wait_for(lambda: self._served == ticket)
 
-    def __exit__(self, *exc):
+    def release(self):
         with self._cv:
             self._served += 1
             self._cv.notify_all()
+
+    def __enter__(self):
+        self.acquire()
+
+    def __exit__(self, *exc):
+        self.release()
 
 
 # One tick's host side (mutations, io_pull, uploads, the step's launches)
@@ -404,26 +414,33 @@ class Ticker(_PacedBeat):
         with self._mut_lock:
             muts, self._mutations = self._mutations, []
         tq = time.perf_counter()
-        with DISPATCH, self.on_stream():
-            t0 = time.perf_counter()
-            for fn in muts:
-                fn(self)
-            host_in = self._io_pull(tick) if self._io_pull else self._zeros_in()
-            ext_in = {k: self._upload(slot, k, v) for k, v in host_in.items()}
-            if self._step_fn is None:
-                ext_in = self._cast_in(ext_in)
-            writes, self._param_writes = self._param_writes, []
-            for node, key, value in writes:
-                dst = self.params[node][key]
-                src = (torch.from_numpy(value) if dst.device.type == "cpu"
-                       else self._upload(slot, f"param:{node}.{key}", value))
-                dst.copy_(src.reshape(dst.shape), non_blocking=True)
-            t1 = time.perf_counter()
-            self.state, ext_out, events = self._step(self.state, self.params, ext_in)
-            rb = dict(ext_out)
-            rb.update({f"{n}.{k}": self.state[n][k] for n, k in self.readback_state})
-            rb.update({f"ev:{k}": v for k, v in events.items()})
-            done, host = self._readback(slot, rb)
+        with span(_QUEUE):
+            DISPATCH.acquire()
+        try:
+            with self.on_stream():
+                t0 = time.perf_counter()
+                with span(_PULL):
+                    for fn in muts:
+                        fn(self)
+                    host_in = self._io_pull(tick) if self._io_pull else self._zeros_in()
+                    ext_in = {k: self._upload(slot, k, v) for k, v in host_in.items()}
+                    if self._step_fn is None:
+                        ext_in = self._cast_in(ext_in)
+                    writes, self._param_writes = self._param_writes, []
+                    for node, key, value in writes:
+                        dst = self.params[node][key]
+                        src = (torch.from_numpy(value) if dst.device.type == "cpu"
+                               else self._upload(slot, f"param:{node}.{key}", value))
+                        dst.copy_(src.reshape(dst.shape), non_blocking=True)
+                t1 = time.perf_counter()
+                with span(_DISPATCH):
+                    self.state, ext_out, events = self._step(self.state, self.params, ext_in)
+                    rb = dict(ext_out)
+                    rb.update({f"{n}.{k}": self.state[n][k] for n, k in self.readback_state})
+                    rb.update({f"ev:{k}": v for k, v in events.items()})
+                    done, host = self._readback(slot, rb)
+        finally:
+            DISPATCH.release()
         t2 = time.perf_counter()
         ph = self.phase_ms
         for name, d in (("queue", t0 - tq), ("pull", t1 - t0), ("dispatch", t2 - t1)):
@@ -433,17 +450,18 @@ class Ticker(_PacedBeat):
         out: Dict = {}
         if len(self._inflight) > self.pipeline_depth:
             item = self._inflight.pop(0)
-            if self.async_publish and self.pipeline_depth > 0:
-                if self._publish_err is not None:
-                    err, self._publish_err = self._publish_err, None
-                    raise err
-                if self._publish_pool is None:
-                    from mediastreamer2_tpu_torch.core.worker import normal_priority_pool
-                    self._publish_pool = normal_priority_pool(1, f"{self.name}-publish")
-                self._slot_busy[item[1]] = self._publish_pool.submit(
-                    self._publish_guarded, *item)
-            else:
-                out = self._publish(*item)
+            with span(_PUBLISH):
+                if self.async_publish and self.pipeline_depth > 0:
+                    if self._publish_err is not None:
+                        err, self._publish_err = self._publish_err, None
+                        raise err
+                    if self._publish_pool is None:
+                        from mediastreamer2_tpu_torch.core.worker import normal_priority_pool
+                        self._publish_pool = normal_priority_pool(1, f"{self.name}-publish")
+                    self._slot_busy[item[1]] = self._publish_pool.submit(
+                        self._publish_guarded, *item)
+                else:
+                    out = self._publish(*item)
         t3 = time.perf_counter()
         d = (t3 - t2) * 1e3
         ph["publish"] += d

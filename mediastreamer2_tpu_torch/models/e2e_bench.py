@@ -60,6 +60,7 @@ import torch
 
 from mediastreamer2_tpu_torch.core.block import Format, tick_samples
 from mediastreamer2_tpu_torch.core.graph import GraphBuilder
+from mediastreamer2_tpu_torch.core.trace import span
 from mediastreamer2_tpu_torch.ops.g711 import (float_to_pcm16, pcm16_to_float,
                                                ulaw_decode, ulaw_encode)
 
@@ -72,6 +73,11 @@ DEPTH = 2               # ticks in flight between dispatch and readback
 PREFILL = 3             # jitter-ring priming, ticks
 # ticks left out of the measurement: pipeline fill + jitter-ring priming
 WARMUP_TICKS = DEPTH + 2 + PREFILL
+# profiler spans (core/trace.py): the device program's codec ends, and the
+# host loop's phases at the points run(trace=True) times them
+_DECODE, _ENCODE = "ms2.e2e/decode", "ms2.e2e/encode"
+_EDGE_TX, _EDGE_RX, _SUBMIT, _POP = (
+    f"ms2.e2e/{phase}" for phase in ("edge_tx", "edge_rx", "submit", "pop"))
 
 
 def build_e2e_graph(factory, batch: int, device):
@@ -107,9 +113,11 @@ def e2e_tick(cg, state, params, codes, mic):
     """One tick of the e2e device program: mu-law codes [N, 80] (any
     integer dtype) and mic [N, S] -> (state, tx codes uint8 [N, 80],
     decoded rx f32 [N, 80], graph output f32 [N, 80])."""
-    dec = pcm16_to_float(ulaw_decode(codes.to(torch.int32)))
+    with span(_DECODE):
+        dec = pcm16_to_float(ulaw_decode(codes.to(torch.int32)))
     state, out, _ = cg.step(state, params, {"rx": dec, "mic": mic})
-    tx = ulaw_encode(float_to_pcm16(out["out"])).to(torch.uint8)
+    with span(_ENCODE):
+        tx = ulaw_encode(float_to_pcm16(out["out"])).to(torch.uint8)
     return state, tx, dec, out["out"]
 
 
@@ -157,7 +165,8 @@ class E2EResult:
     # and decrypt) + jitter insert + playout, submit = uploader handoff,
     # pop = wait for the oldest in-flight tick's results, dispatch = the
     # uploader thread's host time per tick (upload, every launch of the
-    # tick, download)
+    # tick, download); the first four are also the profiler spans
+    # ms2.e2e/<phase> of every run
     phases_ms: Optional[dict] = None
 
     @property
@@ -414,16 +423,18 @@ class E2EConferenceBench:
                         next_edge = now
                     next_edge += interval
                 t_a = time.perf_counter() if trace else 0.0
-                self.tx.send(cur_tx, ts_inc=S8)
+                with span(_EDGE_TX):
+                    self.tx.send(cur_tx, ts_inc=S8)
                 if trace:
                     t_b = time.perf_counter()
                     ph["edge_tx"] += t_b - t_a
                     ph_max["edge_tx"] = max(ph_max["edge_tx"], t_b - t_a)
                     t_a = t_b
-                self.rx.poll()
-                pay, fl = self.rx.read_tick()
-                stage[:] = pay
-                stage[fl == 0] = 0xFF                 # silence, not 0x00
+                with span(_EDGE_RX):
+                    self.rx.poll()
+                    pay, fl = self.rx.read_tick()
+                    stage[:] = pay
+                    stage[fl == 0] = 0xFF             # silence, not 0x00
                 if trace:
                     d = time.perf_counter() - t_a
                     ph["edge_rx"] += d
@@ -432,14 +443,16 @@ class E2EConferenceBench:
                     flags_total += N
                     flags_missing += int(N - fl.sum())
                 t_a = time.perf_counter() if trace else 0.0
-                q.append(uploader.submit(self._gpu_tick, slot, reader))
+                with span(_SUBMIT):
+                    q.append(uploader.submit(self._gpu_tick, slot, reader))
                 if trace:
                     d = time.perf_counter() - t_a
                     ph["submit"] += d
                     ph_max["submit"] = max(ph_max["submit"], d)
                 if len(q) > D:
                     t_a = time.perf_counter() if trace else 0.0
-                    cur_tx, sent_p, recv_p = q.pop(0).result().result()
+                    with span(_POP):
+                        cur_tx, sent_p, recv_p = q.pop(0).result().result()
                     if trace:
                         d = time.perf_counter() - t_a
                         ph["pop"] += d

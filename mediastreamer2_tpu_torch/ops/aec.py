@@ -39,6 +39,12 @@ tensors):
 
 ``cpos`` (and ``srk``) stay on the device: the host never waits for them.
 
+A tick runs in five profiler spans that cover it (``core/trace.py``):
+``ms2.aec/analysis`` (the far block's spectrum and the history powers),
+``/apply``, ``/adapt`` (the error spectrum, the normalisation, the
+constraint and the two-path decisions), ``/update`` and ``/suppress`` (the
+output limiter and the residual-echo suppressor).
+
 Built for one shard of the legs (``FilterCtx.shard``), the filter reads
 the megakernel rule from the whole batch and hands ``mdf_update_fused``
 the shard's first index (``offset * P * F``), so the stochastic rounding
@@ -63,6 +69,7 @@ import numpy as np
 import torch
 
 from mediastreamer2_tpu_torch.core.filter import FilterDef, register_filter
+from mediastreamer2_tpu_torch.core.trace import span
 from mediastreamer2_tpu_torch.ops import kernels
 from mediastreamer2_tpu_torch.ops.rfft import (rfft, irfft, rfft_tail, irfft_tail,
                                                apply_constraint, cmul_conj, cabs2)
@@ -78,6 +85,9 @@ SUPPRESS_BETA = 2.5    # over-subtraction factor (on the *residual* estimate)
 SUPPRESS_FLOOR = 0.15  # spectral floor
 LEAK_RISE = 1.01       # min-statistics leak tracker creep-up per tick
 STORE_DTYPE = torch.bfloat16
+# the profiler spans of the five stages of a tick, which cover it
+_ANALYSIS, _APPLY, _ADAPT, _UPDATE, _SUPPRESS = (
+    f"ms2.aec/{stage}" for stage in ("analysis", "apply", "adapt", "update", "suppress"))
 
 
 def _partitions(ctx):
@@ -165,129 +175,134 @@ def _aec_process(state, ins, params, ctx):
     megakernel = not bf16_shadow and _megakernel_path(ctx.global_batch)
     lin0 = ctx.shard.offset * P * state["Wm_r"].shape[2] if ctx.shard is not None else 0
 
-    far_blk = torch.cat([state["far_prev"], far], dim=1)            # [B, 2S]
-    Xr, Xi = rfft(far_blk, two_s)                                   # [B, F]
-    # the block leaving the history this tick, read before the in-place
-    # shift, in the storage dtype so the telescoping power sum adds and
-    # removes identical quantized values
-    drop_pow = cabs2(state["Xh_r"][:, -1].float(), state["Xh_i"][:, -1].float())
-    inst_q = cabs2(Xr.to(STORE_DTYPE).float(), Xi.to(STORE_DTYPE).float())
+    with span(_ANALYSIS):
+        far_blk = torch.cat([state["far_prev"], far], dim=1)            # [B, 2S]
+        Xr, Xi = rfft(far_blk, two_s)                                   # [B, F]
+        # the block leaving the history this tick, read before the in-place
+        # shift, in the storage dtype so the telescoping power sum adds and
+        # removes identical quantized values
+        drop_pow = cabs2(state["Xh_r"][:, -1].float(), state["Xh_i"][:, -1].float())
+        inst_q = cabs2(Xr.to(STORE_DTYPE).float(), Xi.to(STORE_DTYPE).float())
 
     # --- history shift + dual filter apply (in place on Xh) ----------------
-    Xh_r, Xh_i = state["Xh_r"], state["Xh_i"]
-    Ym_r, Ym_i, Ys_r, Ys_i = kernels.mdf_apply(
-        state["Wm_r"], state["Wm_i"], state["Ws_r"], state["Ws_i"],
-        Xh_r, Xh_i, Xr, Xi)
-    y_m = irfft_tail(Ym_r, Ym_i, two_s)
-    y_s = irfft_tail(Ys_r, Ys_i, two_s)
-    e_m = near - y_m
-    e_s = near - y_s
+    with span(_APPLY):
+        Xh_r, Xh_i = state["Xh_r"], state["Xh_i"]
+        Ym_r, Ym_i, Ys_r, Ys_i = kernels.mdf_apply(
+            state["Wm_r"], state["Wm_i"], state["Ws_r"], state["Ws_i"],
+            Xh_r, Xh_i, Xr, Xi)
+        y_m = irfft_tail(Ym_r, Ym_i, two_s)
+        y_s = irfft_tail(Ys_r, Ys_i, two_s)
+        e_m = near - y_m
+        e_s = near - y_s
 
     # --- shadow adaptation inputs ------------------------------------------
-    Er, Ei = rfft_tail(e_s, two_s)
-    # exact MDF-NLMS normalization by the running per-bin history power
-    Hp = torch.clamp(state["Hp"] + inst_q - drop_pow, min=0.0)
-    # fade out bins where the far end carries no energy (continuous ramp)
-    thr = 1e-3 * Hp.mean(dim=1, keepdim=True) + 1e-12
-    bin_w = torch.clamp(Hp / thr - 1.0, 0.0, 1.0)
-    inv_norm = bin_w / (Hp + 1e-5)
-    mu = params["mu"] * params["adapt"].to(torch.float32)
-    # causality constraint on ONE partition per tick, round-robin
-    cpos = state["cpos"]
-    cidx = cpos.reshape(1).long()
-    hp_r = torch.index_select(Xh_r, 1, cidx)[:, 0].float()
-    hp_i = torch.index_select(Xh_i, 1, cidx)[:, 0].float()
-    gp_r, gp_i = cmul_conj(hp_r, hp_i, Er, Ei)
-    gc_r, gc_i = apply_constraint(gp_r * inv_norm, gp_i * inv_norm, two_s)
+    with span(_ADAPT):
+        Er, Ei = rfft_tail(e_s, two_s)
+        # exact MDF-NLMS normalization by the running per-bin history power
+        Hp = torch.clamp(state["Hp"] + inst_q - drop_pow, min=0.0)
+        # fade out bins where the far end carries no energy (continuous ramp)
+        thr = 1e-3 * Hp.mean(dim=1, keepdim=True) + 1e-12
+        bin_w = torch.clamp(Hp / thr - 1.0, 0.0, 1.0)
+        inv_norm = bin_w / (Hp + 1e-5)
+        mu = params["mu"] * params["adapt"].to(torch.float32)
+        # causality constraint on ONE partition per tick, round-robin
+        cpos = state["cpos"]
+        cidx = cpos.reshape(1).long()
+        hp_r = torch.index_select(Xh_r, 1, cidx)[:, 0].float()
+        hp_i = torch.index_select(Xh_i, 1, cidx)[:, 0].float()
+        gp_r, gp_i = cmul_conj(hp_r, hp_i, Er, Ei)
+        gc_r, gc_i = apply_constraint(gp_r * inv_norm, gp_i * inv_norm, two_s)
 
-    # --- two-path transfer decisions (per-leg, hysteretic) ------------------
-    Em = ERR_EWMA * state["Em"] + (1 - ERR_EWMA) * (e_m * e_m).mean(dim=1)
-    Es = ERR_EWMA * state["Es"] + (1 - ERR_EWMA) * (e_s * e_s).mean(dim=1)
-    Dn = ERR_EWMA * state["Dn"] + (1 - ERR_EWMA) * (near * near).mean(dim=1)
-    # shadow-error floor via min statistics
-    Nf = torch.where(Dn > 1e-7, torch.minimum(state["Nf"] * 1.01, Es), state["Nf"])
-    at_floor = Es < 2.0 * Nf
-    better = (Es < COPY_RATIO * Em) & ((Es < ERLE_GATE * Dn) | at_floor)
-    worse = (Es > RESET_RATIO * Em) & (Em < 0.8 * Dn)
-    zero = torch.zeros_like(state["promote_cnt"])
-    promote_cnt = torch.where(better, state["promote_cnt"] + 1, zero)
-    reseed_cnt = torch.where(worse, state["reseed_cnt"] + 1, zero)
-    promote = promote_cnt >= HOLD_TICKS
-    reseed = reseed_cnt >= HOLD_TICKS
-    promote_cnt = torch.where(promote, zero, promote_cnt)
-    reseed_cnt = torch.where(reseed, zero, reseed_cnt)
-    # catastrophic-divergence insurance (leaky evidence counter)
-    active = Dn > 1e-5
-    diverged = ((torch.minimum(Em, Es) > 1.05 * Dn) | (Es > 10.0 * Dn)) & active
-    diverge_cnt = torch.where(
-        diverged, state["diverge_cnt"] + 1,
-        torch.where(active, torch.clamp(state["diverge_cnt"] - 1, min=0),
-                    state["diverge_cnt"]))
-    hard_reset = diverge_cnt >= 2 * HOLD_TICKS
-    diverge_cnt = torch.where(hard_reset, zero, diverge_cnt)
-    # never promote taps declared catastrophically diverged this tick
-    promote = promote & ~hard_reset
+        # --- two-path transfer decisions (per-leg, hysteretic) --------------
+        Em = ERR_EWMA * state["Em"] + (1 - ERR_EWMA) * (e_m * e_m).mean(dim=1)
+        Es = ERR_EWMA * state["Es"] + (1 - ERR_EWMA) * (e_s * e_s).mean(dim=1)
+        Dn = ERR_EWMA * state["Dn"] + (1 - ERR_EWMA) * (near * near).mean(dim=1)
+        # shadow-error floor via min statistics
+        Nf = torch.where(Dn > 1e-7, torch.minimum(state["Nf"] * 1.01, Es), state["Nf"])
+        at_floor = Es < 2.0 * Nf
+        better = (Es < COPY_RATIO * Em) & ((Es < ERLE_GATE * Dn) | at_floor)
+        worse = (Es > RESET_RATIO * Em) & (Em < 0.8 * Dn)
+        zero = torch.zeros_like(state["promote_cnt"])
+        promote_cnt = torch.where(better, state["promote_cnt"] + 1, zero)
+        reseed_cnt = torch.where(worse, state["reseed_cnt"] + 1, zero)
+        promote = promote_cnt >= HOLD_TICKS
+        reseed = reseed_cnt >= HOLD_TICKS
+        promote_cnt = torch.where(promote, zero, promote_cnt)
+        reseed_cnt = torch.where(reseed, zero, reseed_cnt)
+        # catastrophic-divergence insurance (leaky evidence counter)
+        active = Dn > 1e-5
+        diverged = ((torch.minimum(Em, Es) > 1.05 * Dn) | (Es > 10.0 * Dn)) & active
+        diverge_cnt = torch.where(
+            diverged, state["diverge_cnt"] + 1,
+            torch.where(active, torch.clamp(state["diverge_cnt"] - 1, min=0),
+                        state["diverge_cnt"]))
+        hard_reset = diverge_cnt >= 2 * HOLD_TICKS
+        diverge_cnt = torch.where(hard_reset, zero, diverge_cnt)
+        # never promote taps declared catastrophically diverged this tick
+        promote = promote & ~hard_reset
 
     # --- gradient + NLMS update + transfer copies (in place on Ws, Wm) ------
-    if megakernel:
-        Ws_r, Ws_i, Wm_r, Wm_i = kernels.mdf_update(
-            cpos, state["Ws_r"], state["Ws_i"], state["Wm_r"], state["Wm_i"],
-            Xh_r, Xh_i, Er, Ei, inv_norm, gc_r, gc_i, mu,
-            promote.to(torch.float32), reseed.to(torch.float32))
-        h3 = hard_reset[:, None, None]
-        Ws_r.masked_fill_(h3, 0.0)
-        Ws_i.masked_fill_(h3, 0.0)
-    else:
-        Ws_r, Ws_i, Wm_r, Wm_i = kernels.mdf_update_fused(
-            cpos, state["Ws_r"], state["Ws_i"], state["Wm_r"], state["Wm_i"],
-            Xh_r, Xh_i, Er, Ei, inv_norm, gc_r, gc_i, mu, promote, reseed,
-            hard_reset, state.get("srk"), lin0)
-    Em = torch.where(promote, Es, Em)
-    Es = torch.where(reseed, Em, Es)
-    Es = torch.where(hard_reset, Dn, Es)
+    with span(_UPDATE):
+        if megakernel:
+            Ws_r, Ws_i, Wm_r, Wm_i = kernels.mdf_update(
+                cpos, state["Ws_r"], state["Ws_i"], state["Wm_r"], state["Wm_i"],
+                Xh_r, Xh_i, Er, Ei, inv_norm, gc_r, gc_i, mu,
+                promote.to(torch.float32), reseed.to(torch.float32))
+            h3 = hard_reset[:, None, None]
+            Ws_r.masked_fill_(h3, 0.0)
+            Ws_i.masked_fill_(h3, 0.0)
+        else:
+            Ws_r, Ws_i, Wm_r, Wm_i = kernels.mdf_update_fused(
+                cpos, state["Ws_r"], state["Ws_i"], state["Wm_r"], state["Wm_i"],
+                Xh_r, Xh_i, Er, Ei, inv_norm, gc_r, gc_i, mu, promote, reseed,
+                hard_reset, state.get("srk"), lin0)
+        Em = torch.where(promote, Es, Em)
+        Es = torch.where(reseed, Em, Es)
+        Es = torch.where(hard_reset, Dn, Es)
 
-    e = torch.where(promote[:, None], e_s, e_m)
-    y = torch.where(promote[:, None], y_s, y_m)
-    # per-tick output limiter: blend back toward the mic (continuously) if
-    # the selected filter makes this block worse than the raw mic
-    blk_near = (near * near).mean(dim=1)
-    blk_err = (e * e).mean(dim=1)
-    w_bad = torch.clamp(blk_err / (2.0 * blk_near + 1e-9) - 1.0, 0.0, 1.0)[:, None]
-    e = (1.0 - w_bad) * e + w_bad * near
-    y = (1.0 - w_bad) * y
-    e = torch.where(params["enabled"][:, None], e, near)
+    with span(_SUPPRESS):
+        e = torch.where(promote[:, None], e_s, e_m)
+        y = torch.where(promote[:, None], y_s, y_m)
+        # per-tick output limiter: blend back toward the mic (continuously) if
+        # the selected filter makes this block worse than the raw mic
+        blk_near = (near * near).mean(dim=1)
+        blk_err = (e * e).mean(dim=1)
+        w_bad = torch.clamp(blk_err / (2.0 * blk_near + 1e-9) - 1.0, 0.0, 1.0)[:, None]
+        e = (1.0 - w_bad) * e + w_bad * near
+        y = (1.0 - w_bad) * y
+        e = torch.where(params["enabled"][:, None], e, near)
 
-    new_state = {"Wm_r": Wm_r, "Wm_i": Wm_i, "Ws_r": Ws_r, "Ws_i": Ws_i,
-                 "Xh_r": Xh_r, "Xh_i": Xh_i, "far_prev": far, "Hp": Hp,
-                 "Em": Em, "Es": Es, "Dn": Dn, "Nf": Nf,
-                 "leak": state["leak"],
-                 "promote_cnt": promote_cnt, "reseed_cnt": reseed_cnt,
-                 "diverge_cnt": diverge_cnt,
-                 "cpos": torch.remainder(cpos + 1, P).to(torch.int32)}
-    if bf16_shadow:
-        new_state["srk"] = state["srk"] + 1
-    # --- residual echo suppression ------------------------------------------
-    if ctx.params.get("no_suppress"):
-        # build-time suppressor bypass (static)
-        return new_state, (e,), {}
+        new_state = {"Wm_r": Wm_r, "Wm_i": Wm_i, "Ws_r": Ws_r, "Ws_i": Ws_i,
+                     "Xh_r": Xh_r, "Xh_i": Xh_i, "far_prev": far, "Hp": Hp,
+                     "Em": Em, "Es": Es, "Dn": Dn, "Nf": Nf,
+                     "leak": state["leak"],
+                     "promote_cnt": promote_cnt, "reseed_cnt": reseed_cnt,
+                     "diverge_cnt": diverge_cnt,
+                     "cpos": torch.remainder(cpos + 1, P).to(torch.int32)}
+        if bf16_shadow:
+            new_state["srk"] = state["srk"] + 1
+        # --- residual echo suppression --------------------------------------
+        if ctx.params.get("no_suppress"):
+            # build-time suppressor bypass (static)
+            return new_state, (e,), {}
 
-    # over-subtract only the estimated residual (leak * |Y|); `leak` is the
-    # residual/echo power ratio, tracked as a slow minimum
-    Ey = (y * y).mean(dim=1)
-    inst_leak = (e * e).mean(dim=1) / (Ey + 1e-9)
-    rise = torch.where(Dn < 1.5 * Ey, LEAK_RISE, 1.0)
-    leak = torch.clamp(torch.minimum(state["leak"] * rise, inst_leak), 0.01, 1.0)
-    Ehr, Ehi = rfft(e, S)
-    mag_e = torch.sqrt(cabs2(Ehr, Ehi) + 1e-18)
-    Yhr, Yhi = rfft(y, S)
-    mag_y = torch.sqrt(cabs2(Yhr, Yhi) + 1e-18)
-    resid_mag = torch.sqrt(leak)[:, None] * mag_y
-    gain = torch.clamp((mag_e - SUPPRESS_BETA * resid_mag) / (mag_e + 1e-9),
-                       SUPPRESS_FLOOR, 1.0)
-    e_sup = irfft(Ehr * gain, Ehi * gain, S)
-    out = torch.where((params["suppress"] & params["enabled"])[:, None], e_sup, e)
-    new_state["leak"] = leak
-    return new_state, (out,), {}
+        # over-subtract only the estimated residual (leak * |Y|); `leak` is the
+        # residual/echo power ratio, tracked as a slow minimum
+        Ey = (y * y).mean(dim=1)
+        inst_leak = (e * e).mean(dim=1) / (Ey + 1e-9)
+        rise = torch.where(Dn < 1.5 * Ey, LEAK_RISE, 1.0)
+        leak = torch.clamp(torch.minimum(state["leak"] * rise, inst_leak), 0.01, 1.0)
+        Ehr, Ehi = rfft(e, S)
+        mag_e = torch.sqrt(cabs2(Ehr, Ehi) + 1e-18)
+        Yhr, Yhi = rfft(y, S)
+        mag_y = torch.sqrt(cabs2(Yhr, Yhi) + 1e-18)
+        resid_mag = torch.sqrt(leak)[:, None] * mag_y
+        gain = torch.clamp((mag_e - SUPPRESS_BETA * resid_mag) / (mag_e + 1e-9),
+                           SUPPRESS_FLOOR, 1.0)
+        e_sup = irfft(Ehr * gain, Ehi * gain, S)
+        out = torch.where((params["suppress"] & params["enabled"])[:, None], e_sup, e)
+        new_state["leak"] = leak
+        return new_state, (out,), {}
 
 
 register_filter(FilterDef(
