@@ -37,7 +37,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    mdf_update at cpos 0, 3, 7; mdf_update_fused, f32 and bf16 shadow,
    at cpos 0, 3, 7 and on four row slices with their lin0, timed on no
    flag set and on 30% of legs promoted, reseeded or hard-reset, each
-   bound counting what its legs need; the element-by-element paths)
+   bound counting what its legs need; the element-by-element paths;
+   the echo canceller's ``EC_KERNELS`` bit-exact and on four row
+   slices: spectrum_planes with and without the alternating sign and
+   planes_spectrum at F bins and at the suppressor's S/2 + 1,
+   suppress_gain on legs from loud to silent)
    at the session's (B = 1,024, S = 80, F = 81: the three kernels of
    its path) and the wideband call's (B = 1,024, S = 160, F = 161), and
    g722_encode / g722_decode bit-exact (codes or samples and every state
@@ -64,7 +68,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    way, on one block and on 1,024;
 3. the flagship at 4,096 legs (1,024 four-party conferences) for 100
    ticks of echo-coupled input: fused_volume, mdf_apply and
-   mdf_update_fused launched once per tick and mdf_update never, all
+   mdf_update_fused launched once per tick and mdf_update never,
+   spectrum_planes 5, planes_spectrum 4 and suppress_gain once a tick
+   (``EC_KERNELS``: every launch bar wants them with mdf_apply), the
+   echo canceller's 8 DFTs a tick all FFTs (``ops/rfft.calls``), all
    outputs finite, the AEC's shadow filter converged (Es < 0.5 * Dn) on
    >= 90% of legs; ms/tick;
 4. the flagship on the CPU (plain versions) against the card (kernels) on
@@ -396,6 +403,17 @@ REPLACES = {  # the TPU kernel (or lax.scan) each CUDA kernel replaces
     "g726_decode": "mediastreamer2_tpu/ops/g726.py:180",
 }
 SOURCES = {"g722": G722_SOURCE, "dvi4": ADPCM_SOURCE, "g726": ADPCM_SOURCE}   # by name prefix
+# the echo canceller's kernels that replace no TPU kernel, only the port's own
+# PyTorch operations: what each replaces, and its launches an echo-canceller
+# tick (the DFTs' FFT path: 5 spectra to planes, 4 planes to complex-to-real
+# inputs; the suppressor's gain once)
+EC_KERNELS = {
+    "spectrum_planes": ("mediastreamer2_tpu_torch/ops/rfft.py: a cuFFT spectrum split into "
+                        "(re, im) planes", 5),
+    "planes_spectrum": ("mediastreamer2_tpu_torch/ops/rfft.py: (re, im) planes interleaved "
+                        "into a complex-to-real input", 4),
+    "suppress_gain": ("mediastreamer2_tpu_torch/ops/aec.py: the suppressor's gain", 1),
+}
 SYSTEM_LIBRARIES = ("opus", "gsm", "speex", "bcg729", "bv16", "avcodec", "vpx", "aom", "X11",
                     "ssl", "crypto", "asound", "pulse-simple")
 # kernels whose registers phase 1 prints and whose spills fail it, by a
@@ -407,6 +425,7 @@ SPILL_CHECKED = {"g722_encode": "g722_encode_kernel", "g722_decode": "g722_decod
                  "g726_decode (40 kbit/s)": "g726_decode_kernelILi5E"}
 LEGS = 4096
 TICKS = 100
+FLAGSHIP_DFTS = 8             # the echo canceller's DFT calls a tick (ops/rfft.py)
 CROSS_LEGS = 256
 CROSS_TICKS = 100
 E2E_LEGS = 1024
@@ -640,6 +659,19 @@ def mdf_update_fused_cost(B, P, F, ws_bytes, wm_read_legs=0, wm_write_legs=0,
     return (B * P * F * 2 * ws_bytes + upd * (P * F * (2 * ws_bytes + 2 * 2) + 4 * F * 5)
             + P * F * 2 * 2 * (wm_read_legs + wm_write_legs) + B * (4 + 3) + 4 + 8,
             40 * upd * P * F)
+
+
+def planes_cost(B, F):
+    """spectrum_planes or planes_spectrum: a [B, F] complex64 spectrum read
+    and two [B, F] f32 planes written, or the other way; one or two
+    operations an element."""
+    return 16 * B * F, 2 * B * F
+
+
+def suppress_gain_cost(B, F):
+    """Four [B, F] f32 planes (the error's and the echo estimate's) and
+    leak [B] in, two planes out; ~20 operations a bin."""
+    return 4 * B * (6 * F + 1), 20 * B * F
 
 
 def update_mix(promote, reseed, hard_reset, bf16_shadow=True):
@@ -973,6 +1005,65 @@ def ragged_checks(kernels, card, rnd):
           f"[{card}]", flush=True)
 
 
+def ec_kernel_checks(kernels, g, B, S, F):
+    """Phase 2's checks of ``EC_KERNELS`` at one set of shapes: each kernel
+    against its plain version on the card, bit for bit and on four row
+    slices, then timed beside its bound. The layout passes at the
+    overlap-save transforms' F bins (n = 2S) and at the suppressor's
+    S/2 + 1 (n = S), spectra to planes with and without the alternating
+    sign, the DC and Nyquist imaginary parts far from zero; the
+    suppressor's gain, on legs from loud to silent."""
+    from mediastreamer2_tpu_torch.ops import aec
+    dev = g.device
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    exact = lambda: {"max_abs_err": 0.0, "tolerance": "bit-exact", "row_slices": 4}
+    results = {}
+
+    def check(name, fn, plain, args):
+        got, want = fn(*args), plain(*args)
+        for i, (a, b) in enumerate(zip(got, want)):
+            _require_equal(f"{name} output {i}", a, b)
+        _slices_equal(name, fn, args)
+
+    def spectrum(f):
+        z = torch.complex(rnd(B, f), rnd(B, f))
+        z[:, 0] += 3j
+        z[:, -1] -= 2j
+        return (z,)
+
+    def planes(f):
+        z = spectrum(f)[0]
+        return z.real.contiguous(), z.imag.contiguous()
+
+    half = S // 2 + 1
+    for f, n, tag in ((F, 2 * S, ""), (half, S, f" ({half} bins)")):
+        for alt in (False, True):
+            check(f"spectrum_planes{' alternate' if alt else ''}{tag}",
+                  lambda z, alt=alt: kernels.spectrum_planes(z, alt),
+                  lambda z, alt=alt: kernels.spectrum_planes_reference(z, alt), spectrum(f))
+        results[f"spectrum_planes{tag}"] = _timed(
+            exact(), planes_cost(B, f), lambda f=f: spectrum(f), kernels.spectrum_planes,
+            kernels.spectrum_planes_reference)
+        fn = lambda re, im, n=n: (kernels.planes_spectrum(re, im, n),)
+        plain = lambda re, im, n=n: (kernels.planes_spectrum_reference(re, im, n),)
+        check(f"planes_spectrum{tag}", fn, plain, planes(f))
+        results[f"planes_spectrum{tag}"] = _timed(exact(), planes_cost(B, f),
+                                                  lambda f=f: planes(f), fn, plain)
+
+    sup = (aec.SUPPRESS_BETA, aec.SUPPRESS_FLOOR)
+
+    def gain_args():
+        scale = torch.exp(-6 * torch.rand((B, 1), generator=g, device=dev))
+        er, ei, yr, yi = (scale * rnd(B, half) for _ in range(4))
+        er[::7], ei[::7] = 0.0, 0.0         # silent error spectra
+        return er, ei, yr, yi, torch.rand(B, generator=g, device=dev).clamp(0.01, 1.0)
+    fn = lambda *a: kernels.suppress_gain(*a, *sup)
+    plain = lambda *a: kernels.suppress_gain_reference(*a, *sup)
+    check("suppress_gain", fn, plain, gain_args())
+    results["suppress_gain"] = _timed(exact(), suppress_gain_cost(B, half), gain_args, fn, plain)
+    return results
+
+
 def kernel_checks(kernels, dev, card, B, S, P, F, full=True):
     """Phase 2 at one set of shapes: each kernel against its plain version
     on the card, timed (device time, ``device_ms``) beside its bound.
@@ -1056,6 +1147,7 @@ def kernel_checks(kernels, dev, card, B, S, P, F, full=True):
             {"max_abs_err": 0.0, "tolerance": "bit-exact"}, mdf_update_cost(B, P, F),
             megakernel_args, lambda *a: kernels.mdf_update(cpos, *a, mu, pr_f, rs_f),
             lambda *a: kernels.mdf_update_reference(cpos, *a, mu, pr_f, rs_f))
+    results.update(ec_kernel_checks(kernels, g, B, S, F))
     for name, r in results.items():
         sliced = (f"; whole batch = {r['row_slices']} row slices, bit for bit"
                   if "row_slices" in r else "")
@@ -1501,11 +1593,16 @@ def environ(**env):
                 os.environ[k] = v
 
 
-def _require_counts(path, launches, want):
-    """Every kernel's launches equal ``want``'s (0 where it names none)."""
+def _require_counts(path, launches, want, what="kernel launches"):
+    """Every kernel's launches (or every count of ``what``) equal
+    ``want``'s (0 where it names none). An echo canceller's tick launches
+    mdf_apply once and each kernel of ``EC_KERNELS`` as often as that
+    names: where ``want`` does not name one, it is wanted that many times
+    ``want``'s mdf_apply."""
+    want = {**{k: n * want.get("mdf_apply", 0) for k, (_, n) in EC_KERNELS.items()}, **want}
     want = {k: want.get(k, 0) for k in launches}
     if launches != want:
-        raise AssertionError(f"{path}: kernel launches {launches}, expected {want}")
+        raise AssertionError(f"{path}: {what} {launches}, expected {want}")
 
 
 def run_e2e(kernels, dev, card, legs, ticks, paced, srtp=False):
@@ -5544,6 +5641,26 @@ def kernel_entries(results, adpcm_results, session_results, wide_results, runs) 
     return entries
 
 
+def ec_kernel_entries(results, session_results, wide_results, runs) -> list:
+    """The ``kernels`` JSON line's entries of ``EC_KERNELS``, as
+    ``kernel_entries`` makes them, ``replaces`` naming the port's PyTorch
+    operations each kernel replaces: phase 2's measurements at the
+    flagship's shapes (a layout pass at its F bins), the session's and the
+    wideband call's beside them, and the launches of the counted ``runs``."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    entries = []
+    for name, (replaces, _) in EC_KERNELS.items():
+        entry = {"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
+                 "launches": sum(c[name] for c, _ in runs.values()),
+                 **{k: results[name][k] for k in keys}, "library_ms": None,
+                 "launches_per_tick": {path: c[name] / n for path, (c, n) in runs.items()}}
+        for label, res_at in (("session_shapes", session_results),
+                              ("wideband_shapes", wide_results)):
+            entry[label] = {k: res_at[name][k] for k in keys}
+        entries.append(entry)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
@@ -5551,7 +5668,7 @@ def main():
     sys.path.insert(0, REPO)
     from mediastreamer2_tpu_torch import native
     from mediastreamer2_tpu_torch.models.flagship import echo_coupled_inputs
-    from mediastreamer2_tpu_torch.ops import kernels
+    from mediastreamer2_tpu_torch.ops import kernels, rfft
     from mediastreamer2_tpu_torch.utils.audiodiff import quality_bar
 
     dev = torch.device("cuda", 0)
@@ -5613,8 +5730,10 @@ def main():
     # phase 3: the flagship at 4,096 legs, counted launches
     mic, far = flagship_fixture(LEGS, TICKS)
     kernels.reset_launch_counts()
+    dft0 = dict(rfft.calls)
     state, out, finite, per_tick = run_flagship(LEGS, TICKS, dev, mic, far)
     launches = kernels.launch_counts()
+    dfts = {k: v - dft0[k] for k, v in rfft.calls.items()}
     del mic, far
     ec = state["ec"]
     conv = float((ec["Es"] < 0.5 * ec["Dn"]).float().mean())
@@ -5622,10 +5741,11 @@ def main():
                  for k in ("Wm_r", "Wm_i", "Ws_r", "Ws_i", "Xh_r", "Xh_i")) / 1e6
     print(f"flagship: {LEGS} legs x {TICKS} ticks, {1e3 * per_tick:.3f} ms/tick "
           f"(host clock, ticks 1..{TICKS - 1}), AEC taps+history {tap_mb:.1f} MB, "
-          f"launches {launches}, finite {finite}, shadow converged on "
-          f"{100 * conv:.1f}% of legs, out {tuple(out.shape)} [{card}]", flush=True)
+          f"launches {launches}, DFT calls by path {dfts}, finite {finite}, shadow converged "
+          f"on {100 * conv:.1f}% of legs, out {tuple(out.shape)} [{card}]", flush=True)
     _require_counts("flagship", launches, {"fused_volume": TICKS, "mdf_apply": TICKS,
                                            "mdf_update": 0, "mdf_update_fused": TICKS})
+    _require_counts("flagship", dfts, {"fft": FLAGSHIP_DFTS * TICKS}, "DFT calls by path")
     if not finite:
         raise AssertionError("flagship output holds non-finite values")
     if tuple(out.shape) != (LEGS, TICKS * 160):
@@ -5899,6 +6019,7 @@ def main():
     runs.update({f"chain_{codec}": (c, CHAIN_TICKS) for codec, c in chain_launches.items()})
     runs.update(program_runs)
     entries = kernel_entries(results, adpcm_results, session_results, wide_results, runs)
+    entries += ec_kernel_entries(results, session_results, wide_results, runs)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@
 // which the stochastic rounding of the echo canceller's shadow taps needs
 // (one f32 ulp of difference before rounding can flip a bf16 ulp after).
 //
-// None of the four has a matrix product in it: all are bound by device
+// None of them has a matrix product in it: all are bound by device
 // memory bandwidth. The [B, P, F] bf16 tap and history tensors of the echo
 // canceller set the pace, so each kernel reads every such element once
 // and writes only what changes.
@@ -813,6 +813,79 @@ static int launch_mdf_apply(int device, const void* const* p, int B, int P, int 
 }
 
 // ---------------------------------------------------------------------------
+// suppress_gain -- the echo canceller's residual-echo suppressor gain
+// (ops/aec.py's suppress stage), applied to the error spectrum: per bin
+//
+//   |E| = sqrt(er^2 + ei^2 + 1e-18), |Y| likewise
+//   g   = clamp((|E| - beta sqrt(leak) |Y|) / (|E| + 1e-9), floor, 1)
+//   out = (er g, ei g)
+//
+// Some twenty PyTorch passes over [B, F] in one, a thread a bin; each
+// operation rounds as PyTorch's does (-fmad=false).
+//   in:  er, ei, yr, yi [B, F], leak [B];  out: [2, B, F] (re, im), B * F < 2^31
+// ---------------------------------------------------------------------------
+#define SUPPRESS_THREADS 256
+
+__global__ void suppress_gain_kernel(const float* __restrict__ er, const float* __restrict__ ei,
+                                     const float* __restrict__ yr, const float* __restrict__ yi,
+                                     const float* __restrict__ leak, float* __restrict__ out,
+                                     unsigned total, unsigned F, float beta, float floor_gain)
+{
+    const unsigned i = blockIdx.x * SUPPRESS_THREADS + threadIdx.x;
+    if (i >= total) return;
+    const float a = er[i], b = ei[i], c = yr[i], d = yi[i];
+    const float mag_e = sqrtf(a * a + b * b + 1e-18f);
+    const float mag_y = sqrtf(c * c + d * d + 1e-18f);
+    const float resid = sqrtf(leak[i / F]) * mag_y;
+    float g = (mag_e - beta * resid) / (mag_e + 1e-9f);
+    g = g != g ? g : fminf(fmaxf(g, floor_gain), 1.0f);        // torch.clamp keeps a NaN
+    out[i] = a * g;
+    out[total + i] = b * g;
+}
+
+// ---------------------------------------------------------------------------
+// The FFT path's layout passes (ops/rfft.py). cuFFT reads and writes
+// interleaved complex spectra; the echo canceller's kernels and its
+// pointwise code take (re, im) planes. One pass each way reads and writes
+// each element once, and the per-bin factors ride along:
+//
+//   spectrum_planes: z [rows, F] complex -> re, im [rows, F]
+//       (re, im) = z, times (-1)^k with `alternate` (the spectrum of a
+//       block shifted by n/2 samples)
+//   planes_spectrum: re, im [rows, F] -> z [rows, F] complex
+//       z = (scale re, scale im), the imaginary part 0 at k = 0 and, with
+//       `zero_last`, at k = F - 1 (DC and Nyquist, which a complex-to-real
+//       transform of a real signal's spectrum must not see); scale = 1/n
+//       for a transform that runs unnormalised
+//
+// A thread an element, rows * F < 2^31 (the wrapper checks).
+// ---------------------------------------------------------------------------
+#define LAYOUT_THREADS 256
+
+__global__ void spectrum_planes_kernel(const float2* __restrict__ z, float* __restrict__ re,
+                                       float* __restrict__ im, unsigned total, unsigned F,
+                                       int alternate)
+{
+    const unsigned i = blockIdx.x * LAYOUT_THREADS + threadIdx.x;
+    if (i >= total) return;
+    const float2 v = z[i];
+    const bool flip = alternate && ((i % F) & 1u);
+    re[i] = flip ? -v.x : v.x;
+    im[i] = flip ? -v.y : v.y;
+}
+
+__global__ void planes_spectrum_kernel(const float* __restrict__ re,
+                                       const float* __restrict__ im, float2* __restrict__ z,
+                                       unsigned total, unsigned F, float scale, int zero_last)
+{
+    const unsigned i = blockIdx.x * LAYOUT_THREADS + threadIdx.x;
+    if (i >= total) return;
+    const unsigned k = i % F;
+    const bool real_bin = k == 0 || (zero_last && k == F - 1);
+    z[i] = make_float2(re[i] * scale, real_bin ? 0.0f : im[i] * scale);
+}
+
+// ---------------------------------------------------------------------------
 // C entry points. Every pointer is a device pointer; `stream` is a
 // cudaStream_t of `device`.
 // ---------------------------------------------------------------------------
@@ -920,6 +993,47 @@ int ms2_mdf_update_fused(int device, int shadow_bf16, const void* cpos,
     else
         UPD_LAUNCH(float, false, 1);
 #undef UPD_LAUNCH
+    return (int)cudaGetLastError();
+}
+
+int ms2_suppress_gain(int device, const void* er, const void* ei, const void* yr,
+                      const void* yi, const void* leak, void* out, int B, int F, float beta,
+                      float floor_gain, void* stream)
+{
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned total = (unsigned)B * (unsigned)F;
+    if (total == 0) return (int)cudaGetLastError();
+    suppress_gain_kernel<<<(total + SUPPRESS_THREADS - 1) / SUPPRESS_THREADS, SUPPRESS_THREADS, 0,
+                           (cudaStream_t)stream>>>(
+        (const float*)er, (const float*)ei, (const float*)yr, (const float*)yi,
+        (const float*)leak, (float*)out, total, (unsigned)F, beta, floor_gain);
+    return (int)cudaGetLastError();
+}
+
+int ms2_spectrum_planes(int device, const void* z, void* re, void* im, int rows, int F,
+                        int alternate, void* stream)
+{
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned total = (unsigned)rows * (unsigned)F;
+    if (total == 0) return (int)cudaGetLastError();
+    spectrum_planes_kernel<<<(total + LAYOUT_THREADS - 1) / LAYOUT_THREADS, LAYOUT_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+        (const float2*)z, (float*)re, (float*)im, total, (unsigned)F, alternate);
+    return (int)cudaGetLastError();
+}
+
+int ms2_planes_spectrum(int device, const void* re, const void* im, void* z, int rows, int F,
+                        float scale, int zero_last, void* stream)
+{
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned total = (unsigned)rows * (unsigned)F;
+    if (total == 0) return (int)cudaGetLastError();
+    planes_spectrum_kernel<<<(total + LAYOUT_THREADS - 1) / LAYOUT_THREADS, LAYOUT_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+        (const float*)re, (const float*)im, (float2*)z, total, (unsigned)F, scale, zero_last);
     return (int)cudaGetLastError();
 }
 

@@ -3,12 +3,12 @@
 
 Each leg runs a multi-delay-block frequency-domain adaptive filter: one
 10 ms block per partition, P = ceil(tail / 10 ms) partitions, spectra as
-(re, im) f32 pairs and DFTs as matrix products (``ops/rfft.py``). Two filters
-run side by side: a *shadow* adapts every tick with an unguarded NLMS step,
-and is promoted into the *main* (output) filter only on sustained,
-near-power-gated improvement; a diverged shadow is re-seeded from main or,
-when both are catastrophically off, zeroed. A spectral residual-echo
-suppressor follows.
+(re, im) f32 pairs, DFTs as FFTs on the card and as matrix products on the
+CPU (``ops/rfft.py``). Two filters run side by side: a *shadow* adapts
+every tick with an unguarded NLMS step, and is promoted into the *main*
+(output) filter only on sustained, near-power-gated improvement; a
+diverged shadow is re-seeded from main or, when both are catastrophically
+off, zeroed. A spectral residual-echo suppressor follows.
 
 Main taps and far-end history are bf16 [B, P, F]. The shadow taps' storage
 is chosen when the state is made, from the JAX package's environment
@@ -36,6 +36,9 @@ tensors):
   - f32 shadow otherwise (the jnp f32 branch or ``AEC_PALLAS_UPDATE=1``,
     aec.py:436-439, 487-496, 508-521, 541-542): ``kernels.mdf_update_fused``
     in its f32 mode.
+
+One more kernel takes a chain of PyTorch operations:
+``kernels.suppress_gain`` (the suppressor's gain on the error spectrum).
 
 ``cpos`` (and ``srk``) stay on the device: the host never waits for them.
 
@@ -214,9 +217,10 @@ def _aec_process(state, ins, params, ctx):
         gc_r, gc_i = apply_constraint(gp_r * inv_norm, gp_i * inv_norm, two_s)
 
         # --- two-path transfer decisions (per-leg, hysteretic) --------------
+        near_pow = (near * near).mean(dim=1)
         Em = ERR_EWMA * state["Em"] + (1 - ERR_EWMA) * (e_m * e_m).mean(dim=1)
         Es = ERR_EWMA * state["Es"] + (1 - ERR_EWMA) * (e_s * e_s).mean(dim=1)
-        Dn = ERR_EWMA * state["Dn"] + (1 - ERR_EWMA) * (near * near).mean(dim=1)
+        Dn = ERR_EWMA * state["Dn"] + (1 - ERR_EWMA) * near_pow
         # shadow-error floor via min statistics
         Nf = torch.where(Dn > 1e-7, torch.minimum(state["Nf"] * 1.01, Es), state["Nf"])
         at_floor = Es < 2.0 * Nf
@@ -265,9 +269,8 @@ def _aec_process(state, ins, params, ctx):
         y = torch.where(promote[:, None], y_s, y_m)
         # per-tick output limiter: blend back toward the mic (continuously) if
         # the selected filter makes this block worse than the raw mic
-        blk_near = (near * near).mean(dim=1)
         blk_err = (e * e).mean(dim=1)
-        w_bad = torch.clamp(blk_err / (2.0 * blk_near + 1e-9) - 1.0, 0.0, 1.0)[:, None]
+        w_bad = torch.clamp(blk_err / (2.0 * near_pow + 1e-9) - 1.0, 0.0, 1.0)[:, None]
         e = (1.0 - w_bad) * e + w_bad * near
         y = (1.0 - w_bad) * y
         e = torch.where(params["enabled"][:, None], e, near)
@@ -293,13 +296,10 @@ def _aec_process(state, ins, params, ctx):
         rise = torch.where(Dn < 1.5 * Ey, LEAK_RISE, 1.0)
         leak = torch.clamp(torch.minimum(state["leak"] * rise, inst_leak), 0.01, 1.0)
         Ehr, Ehi = rfft(e, S)
-        mag_e = torch.sqrt(cabs2(Ehr, Ehi) + 1e-18)
         Yhr, Yhi = rfft(y, S)
-        mag_y = torch.sqrt(cabs2(Yhr, Yhi) + 1e-18)
-        resid_mag = torch.sqrt(leak)[:, None] * mag_y
-        gain = torch.clamp((mag_e - SUPPRESS_BETA * resid_mag) / (mag_e + 1e-9),
-                           SUPPRESS_FLOOR, 1.0)
-        e_sup = irfft(Ehr * gain, Ehi * gain, S)
+        # gain = clamp((|E| - beta sqrt(leak) |Y|) / |E|, floor, 1) on E
+        e_sup = irfft(*kernels.suppress_gain(Ehr, Ehi, Yhr, Yhi, leak, SUPPRESS_BETA,
+                                             SUPPRESS_FLOOR), S)
         out = torch.where((params["suppress"] & params["enabled"])[:, None], e_sup, e)
         new_state["leak"] = leak
         return new_state, (out,), {}

@@ -23,6 +23,14 @@ g726_encode       ``g726_encode``, ``mediastreamer2_tpu/ops/g726.py:172``
 g726_decode       ``g726_decode``, ``mediastreamer2_tpu/ops/g726.py:180``
 ================  =======================================================
 
+``ms2_kernels.cu`` also holds three kernels that replace no loop or Pallas
+call of the JAX package, only chains of the port's PyTorch operations on
+the echo canceller's path: ``suppress_gain`` (its residual-echo
+suppressor's gain on the error spectrum, some twenty [B, F] passes) and the
+two layout passes of the DFTs' FFT path (``spectrum_planes``,
+``planes_spectrum``, which ``ops/rfft.py`` calls on the card). They count
+their launches as the others do.
+
 Build: at first use, ``nvcc`` compiles each source for ``sm_90a`` into a
 shared library with a plain C interface under ``_build/``, named by a hash
 of the source and the flags (the sources build side by side), and
@@ -110,6 +118,10 @@ def _load():
         main.ms2_mdf_apply.argtypes = [I, I] + [P] * 12 + [I, I, I, P]
         main.ms2_mdf_update.argtypes = [I] + [P] * 15 + [I, I, I, P]
         main.ms2_mdf_update_fused.argtypes = [I, I] + [P] * 17 + [ctypes.c_uint32, I, I, I, P]
+        Fl = ctypes.c_float
+        main.ms2_suppress_gain.argtypes = [I] + [P] * 6 + [I, I, Fl, Fl, P]
+        main.ms2_spectrum_planes.argtypes = [I] + [P] * 3 + [I, I, I, P]
+        main.ms2_planes_spectrum.argtypes = [I] + [P] * 3 + [I, I, Fl, I, P]
         g722.ms2_g722_encode.argtypes = [I, P, P, P, I, I, P]
         g722.ms2_g722_decode.argtypes = [I, P, P, P, I, I, P]
         adpcm.ms2_dvi4_encode.argtypes = [I, P, P, P, P, I, I, P]
@@ -118,7 +130,8 @@ def _load():
         adpcm.ms2_g726_decode.argtypes = [I, I, P, P, P, I, I, P]
         adpcm.ms2_adpcm_empty.argtypes = [I, I, P]
         fns = (main.ms2_fused_volume, main.ms2_mdf_apply, main.ms2_mdf_update,
-               main.ms2_mdf_update_fused, g722.ms2_g722_encode, g722.ms2_g722_decode,
+               main.ms2_mdf_update_fused, main.ms2_suppress_gain, main.ms2_spectrum_planes,
+               main.ms2_planes_spectrum, g722.ms2_g722_encode, g722.ms2_g722_decode,
                adpcm.ms2_dvi4_encode, adpcm.ms2_dvi4_decode, adpcm.ms2_g726_encode,
                adpcm.ms2_g726_decode, adpcm.ms2_adpcm_empty)
         for fn in fns:
@@ -158,7 +171,8 @@ _ptr = torch.Tensor.data_ptr
 
 def _wrappers():
     return (fused_volume, mdf_apply, mdf_update, mdf_update_fused, g722_encode, g722_decode,
-            dvi4_encode, dvi4_decode, g726_encode, g726_decode)
+            dvi4_encode, dvi4_decode, g726_encode, g726_decode, suppress_gain, spectrum_planes,
+            planes_spectrum)
 
 
 def launch_counts() -> dict:
@@ -446,6 +460,116 @@ def mdf_update_fused(cpos, Ws_r, Ws_i, Wm_r, Wm_i, Xh_r, Xh_i, Er, Ei,
 
 
 mdf_update_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# suppress_gain: the echo canceller's residual-echo suppressor gain
+# ---------------------------------------------------------------------------
+def suppress_gain_reference(Er, Ei, Yr, Yi, leak, beta, floor_gain):
+    """Plain version (the port's ``ops/aec.py`` before the kernel)."""
+    mag_e = torch.sqrt(Er * Er + Ei * Ei + 1e-18)
+    mag_y = torch.sqrt(Yr * Yr + Yi * Yi + 1e-18)
+    resid_mag = torch.sqrt(leak)[:, None] * mag_y
+    gain = torch.clamp((mag_e - beta * resid_mag) / (mag_e + 1e-9), floor_gain, 1.0)
+    return Er * gain, Ei * gain
+
+
+def suppress_gain(Er, Ei, Yr, Yi, leak, beta, floor_gain):
+    """The suppressor's gain on the error spectrum: (Er, Ei) of the error
+    and (Yr, Yi) of the echo estimate [B, F] f32, ``leak`` [B] -> the
+    error spectrum times clamp((|E| - beta sqrt(leak) |Y|) / |E|, floor, 1),
+    as (re, im) planes of one [2, B, F] tensor."""
+    if Er.device.type == "cpu":
+        return suppress_gain_reference(Er, Ei, Yr, Yi, leak, beta, floor_gain)
+    dev = _cuda_device(Er)
+    B, F = Er.shape
+    for name, t in (("Er", Er), ("Ei", Ei), ("Yr", Yr), ("Yi", Yi)):
+        _check(name, t, torch.float32, (B, F), dev)
+    _check("leak", leak, torch.float32, (B,), dev)
+    if B * F >= 2 ** 31:
+        raise ValueError(f"Er: {B} x {F} elements, at most 2^31 - 1")
+    out = torch.empty((2, B, F), dtype=torch.float32, device=dev)
+    _launch(_load().ms2_suppress_gain, dev, *map(_ptr, (Er, Ei, Yr, Yi, leak, out)), B, F,
+            beta, floor_gain)
+    suppress_gain.launches += 1
+    return out[0], out[1]
+
+
+suppress_gain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# spectrum_planes / planes_spectrum: the DFTs' FFT path's layout passes
+# ---------------------------------------------------------------------------
+def spectrum_planes_reference(z, alternate=False):
+    """Plain version: (re, im) of ``z`` [..., F] complex64, both planes of
+    one contiguous [2, ..., F] copy (times (-1)^k with ``alternate``)."""
+    factor = torch.ones((z.shape[-1],), dtype=torch.float32, device=z.device)
+    if alternate:
+        factor[1::2] = -1.0
+    ri = torch.view_as_real(z).movedim(-1, 0)
+    out = torch.mul(ri, factor, out=torch.empty(ri.shape, dtype=torch.float32, device=z.device))
+    return out[0], out[1]
+
+
+def spectrum_planes(z, alternate=False):
+    """A complex spectrum as contiguous planes: ``z`` [..., F] complex64 ->
+    (re, im) [..., F] float32, both planes of one [2, ..., F] tensor, times
+    (-1)^k with ``alternate`` (the spectrum of a block shifted by n/2)."""
+    if z.device.type == "cpu":
+        return spectrum_planes_reference(z, alternate)
+    dev = _cuda_device(z)
+    if z.dtype != torch.complex64 or not z.is_contiguous():
+        raise ValueError(f"z: {z.dtype}, contiguous {z.is_contiguous()}: needs contiguous "
+                         f"complex64")
+    F = z.shape[-1]
+    rows = z.numel() // F if F else 0
+    if rows * F >= 2 ** 31:
+        raise ValueError(f"z: {rows} x {F} elements, at most 2^31 - 1")
+    out = torch.empty((2, *z.shape), dtype=torch.float32, device=dev)
+    p = out.data_ptr()
+    _launch(_load().ms2_spectrum_planes, dev, z.data_ptr(), p, p + 4 * rows * F, rows, F,
+            int(alternate))
+    spectrum_planes.launches += 1
+    return out[0], out[1]
+
+
+spectrum_planes.launches = 0
+
+
+def planes_spectrum_reference(re, im, n):
+    """Plain version: (re + i im) / n, the imaginary part zeroed at DC and,
+    for an even ``n``, at Nyquist."""
+    scale = 1.0 / n
+    w = torch.full((re.shape[-1],), scale, dtype=torch.float32, device=re.device)
+    w[0] = 0.0
+    if n % 2 == 0:
+        w[-1] = 0.0
+    return torch.complex(re * scale, im * w)
+
+
+def planes_spectrum(re, im, n):
+    """The input of an unnormalised complex-to-real transform of length
+    ``n``: (re, im) [..., F] float32 -> (re + i im) / n [..., F] complex64,
+    the imaginary parts of DC and (n even) Nyquist zeroed, as a real
+    signal's spectrum has them."""
+    if re.device.type == "cpu":
+        return planes_spectrum_reference(re, im, n)
+    dev = _cuda_device(re)
+    F = re.shape[-1]
+    for name, t in (("re", re), ("im", im)):
+        _check(name, t, torch.float32, re.shape, dev)
+    rows = re.numel() // F if F else 0
+    if rows * F >= 2 ** 31:
+        raise ValueError(f"re: {rows} x {F} elements, at most 2^31 - 1")
+    z = torch.empty(re.shape, dtype=torch.complex64, device=dev)
+    _launch(_load().ms2_planes_spectrum, dev, re.data_ptr(), im.data_ptr(), z.data_ptr(),
+            rows, F, 1.0 / n, int(n % 2 == 0))
+    planes_spectrum.launches += 1
+    return z
+
+
+planes_spectrum.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,34 @@
-"""Real-pair DFTs as matrix products (port of ``mediastreamer2_tpu/ops/rfft.py``).
+"""Real-pair DFTs (port of ``mediastreamer2_tpu/ops/rfft.py``): FFTs on
+the card, matrix products on the CPU.
 
-Spectra are (re, im) float32 pairs; every DFT is a product with a constant
-cos/sin basis built in float64 with numpy, stored as float32, and cached
-per ``(n, device)``. Conventions match numpy.fft.rfft/irfft (forward:
-X_k = sum x_n e^{-2pi i nk/N}).
+Spectra are (re, im) float32 pairs. Conventions match numpy.fft.rfft/irfft
+(forward: X_k = sum x_n e^{-2pi i nk/N}). Each transform picks its path by
+its input's device (``_fft_on``), as ``rowwise_mm`` picks its product:
 
-These products run outside any hand kernel, so they go to ``torch.matmul``
-on the card and to ``rowwise_mm`` on the CPU. Importing this module turns
-TF32 off for CUDA matmuls and cuDNN and sets the float32 matmul precision
-to "highest": a TF32 product keeps about three decimal digits, which the
-echo canceller's error spectra cannot afford.
+* on a CUDA tensor it is an FFT through ``torch.fft`` (cuFFT): O(n log n)
+  work where the product does O(n^2). cuFFT reads and writes interleaved
+  complex spectra; one pass each way (``kernels.spectrum_planes``,
+  ``kernels.planes_spectrum``) turns them into contiguous (re, im) planes of
+  one [2, ..., F] tensor, which ``mdf_apply`` and ``mdf_update*`` need, and
+  back. Per-bin factors ride along: a complex-to-real input is scaled by
+  1/n (the transform runs unnormalised) and its imaginary parts at DC and
+  Nyquist are zeroed, as the product's basis ignores them (its sin rows are
+  zero there); ``rfft_tail`` pads at the end and takes the shift by n/2 as
+  (-1)^k; ``irfft_tail`` keeps the last half; the constraint is an irfft,
+  half the samples zeroed, and an rfft. cuFFT makes its plans at a shape's
+  first call, so the first ticks (the warm-up) make them; a CUDA graph
+  captured later needs them made before its capture.
+* on the CPU it is a product with a constant cos/sin basis built in
+  float64 with numpy, stored as float32, and cached per ``(n, device)``,
+  through ``rowwise_mm``, so that the CPU tests hold the JAX package's bits.
+
+``calls`` counts the calls by path (``"fft"``, ``"product"``), one a call,
+as ``ops/kernels.py`` counts its launches.
+
+Importing this module turns TF32 off for CUDA matmuls and cuDNN and sets
+the float32 matmul precision to "highest": a TF32 product keeps about three
+decimal digits, which the resampler's products and the echo canceller's
+error spectra cannot afford.
 
 Left out: the ``RFFT_BF16`` basis option (``ops/rfft.py:48`` of the JAX
 package), measured neutral there and not part of the default semantics.
@@ -20,6 +39,8 @@ import functools
 
 import numpy as np
 import torch
+
+from mediastreamer2_tpu_torch.ops import kernels
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -121,27 +142,61 @@ def _on(kind: str, n: int, device: torch.device):
     return tuple(torch.from_numpy(m).to(device) for m in mats)
 
 
+calls = {"fft": 0, "product": 0}
+
+
+def _fft_on(t) -> bool:
+    """The path rule: an FFT on the card, a basis product on the CPU."""
+    return t.device.type != "cpu"
+
+
+def _c2r(re, im, n: int):
+    """irfft(re, im, n) by cuFFT: 1/n and the zeroed DC and Nyquist
+    imaginary parts go in with the interleaving pass, so the transform runs
+    unnormalised."""
+    return torch.fft.irfft(kernels.planes_spectrum(re, im, n), n=n, norm="forward")
+
+
 def rfft(x, n: int):
     """x [..., n] float32 -> (re, im) each [..., n//2+1]."""
+    if _fft_on(x):
+        calls["fft"] += 1
+        return kernels.spectrum_planes(torch.fft.rfft(x, n=n))
+    calls["product"] += 1
     c, s, _, _ = _on("fwd", n, x.device)
     return rowwise_mm(x, c), rowwise_mm(x, s)
 
 
 def irfft(re, im, n: int):
     """(re, im) [..., n//2+1] -> x [..., n]."""
+    if _fft_on(re):
+        calls["fft"] += 1
+        return _c2r(re, im, n)
+    calls["product"] += 1
     cw, sw, _, _ = _on("inv", n, re.device)
     return rowwise_mm(re, cw) + rowwise_mm(im, sw)
 
 
 def rfft_tail(x_tail, n: int):
     """rfft of [zeros(n/2), x_tail] without materializing the zeros (the
-    MDF error-spectrum transform)."""
+    MDF error-spectrum transform); n even. The FFT path pads at the end and
+    turns the shift by n/2 into (-1)^k in the planes' pass."""
+    if _fft_on(x_tail):
+        if n % 2:
+            raise ValueError(f"rfft_tail needs an even n, got {n}")
+        calls["fft"] += 1
+        return kernels.spectrum_planes(torch.fft.rfft(x_tail, n=n), alternate=True)
+    calls["product"] += 1
     _, _, c_t, s_t = _on("fwd", n, x_tail.device)
     return rowwise_mm(x_tail, c_t), rowwise_mm(x_tail, s_t)
 
 
 def irfft_tail(re, im, n: int):
     """Last n/2 samples of irfft(re, im, n) (the overlap-save output)."""
+    if _fft_on(re):
+        calls["fft"] += 1
+        return _c2r(re, im, n)[..., n // 2:]
+    calls["product"] += 1
     _, _, cw_t, sw_t = _on("inv", n, re.device)
     return rowwise_mm(re, cw_t) + rowwise_mm(im, sw_t)
 
@@ -149,6 +204,12 @@ def irfft_tail(re, im, n: int):
 def apply_constraint(re, im, n: int):
     """(re, im) -> constrained (re', im'): equivalent to
     rfft(irfft(re, im, n) with samples n//2: zeroed, n)."""
+    if _fft_on(re):
+        calls["fft"] += 1
+        x = _c2r(re, im, n)
+        x[..., n // 2:].zero_()
+        return kernels.spectrum_planes(torch.fft.rfft(x))
+    calls["product"] += 1
     arr, ari, air, aii = _on("con", n, re.device)
     return (rowwise_mm(re, arr) + rowwise_mm(im, air),
             rowwise_mm(re, ari) + rowwise_mm(im, aii))

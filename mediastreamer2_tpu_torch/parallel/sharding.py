@@ -23,8 +23,9 @@ Names follow the JAX module: ``LEGS_AXIS``, ``make_mesh``, ``leg_sharding``,
 
 A third trap is on the card: under its default workspace cuBLAS picks a
 product's algorithm (split-K or not) by its row count, so a 1,024-leg
-shard's DFT products give every leg other bits than the 4,096-leg graph's
-(``tools/batch_invariance.py``), and the AEC amplifies those bits past the
+shard's resampler products give every leg other bits than the 4,096-leg
+graph's (``tools/batch_invariance.py``; the DFTs there are FFTs, whose
+rows do not depend on the batch), and the AEC amplifies those bits past the
 cross-backend quality bar on a few legs in 100 ticks. So every shard
 process runs with no cuBLAS workspace (``CUBLAS_WORKSPACE_CONFIG=:0:0``,
 set by ``spawn_shards`` before cuBLAS's first use): its products do not

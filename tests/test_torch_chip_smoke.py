@@ -844,7 +844,8 @@ def test_phase_12_video_on_the_cpu(smoke, monkeypatch):
     try:
         launches = smoke.video_pixel_path(kernels, "cpu", "cpu", 2, 5, cam=(64, 48),
                                           out=(32, 24))
-        assert set(launches) == set(smoke.REPLACES) and not any(launches.values())
+        assert set(launches) == set(smoke.REPLACES) | set(smoke.EC_KERNELS)
+        assert not any(launches.values())
         smoke.video_e2e("cpu", "cpu", 2, seconds=1.0, warmup=0.3, size=(32, 24), paced=False)
         smoke.video_cross("cpu", "cpu", 2, 5, cam=(64, 48), out=(32, 24))
         smoke.video_codec_refusals("cpu", "cpu")
@@ -1189,7 +1190,8 @@ def test_phase_15_on_the_cpu(smoke, capsys):
     finally:
         torch.set_num_threads(threads)
     assert n == 2 * 3 * 2
-    assert set(launches) == set(smoke.REPLACES) and not any(launches.values())
+    assert set(launches) == set(smoke.REPLACES) | set(smoke.EC_KERNELS)
+    assert not any(launches.values())
     out = capsys.readouterr().out
     for line in ("15a rank 1: 4 legs x 3 ticks", "15b rank 1: 4 legs x 3 ticks",
                  "collectives 3 (", "15b mixer rank 1: bit-equal True",
@@ -1478,3 +1480,66 @@ def test_kernels_line_carries_the_program_runs(smoke):
     assert entries["g722_encode"]["launches_per_tick"]["gateway_example"] == 201 / 200
     assert entries["fused_volume"]["launches"] == 402 + 2 * 340 + 800 + 300
     assert entries["g722_decode"]["launches"] == 0
+
+
+def test_flagship_makes_phase_3s_dft_calls(smoke):
+    """Phase 3's count of the echo canceller's DFTs: the flagship makes
+    ``FLAGSHIP_DFTS`` a tick, here all products (the CPU's path); the bar
+    that wants FFTs (the card's) fails them."""
+    import torch
+    from mediastreamer2_tpu_torch.models.flagship import echo_coupled_inputs
+    from mediastreamer2_tpu_torch.ops import rfft
+    ticks = 3
+    mic, far = echo_coupled_inputs(8, ticks, seed=7)
+    before = dict(rfft.calls)
+    smoke.run_flagship(8, ticks, torch.device("cpu"), mic, far)
+    dfts = {k: v - before[k] for k, v in rfft.calls.items()}
+    what = "DFT calls by path"
+    smoke._require_counts("flagship", dfts, {"product": smoke.FLAGSHIP_DFTS * ticks}, what)
+    with pytest.raises(AssertionError, match="flagship: DFT calls by path"):
+        smoke._require_counts("flagship", dfts, {"fft": smoke.FLAGSHIP_DFTS * ticks}, what)
+
+
+def test_ec_kernels_are_wanted_with_mdf_apply(smoke):
+    """The launch bars want each kernel of ``EC_KERNELS`` as many times an
+    echo-canceller tick as it names (5, 4, 1), over mdf_apply's ticks,
+    without a phase naming them; a layout pass too few fails; a phase that
+    names one holds its own number."""
+    assert {k: n for k, (_, n) in smoke.EC_KERNELS.items()} == {
+        "spectrum_planes": 5, "planes_spectrum": 4, "suppress_gain": 1}
+    launches = dict.fromkeys([*smoke.REPLACES, *smoke.EC_KERNELS], 0)
+    launches.update(fused_volume=6, mdf_apply=2, mdf_update_fused=2, spectrum_planes=10,
+                    planes_spectrum=8, suppress_gain=2)
+    want = {"fused_volume": 6, "mdf_apply": 2, "mdf_update_fused": 2}
+    smoke._require_counts("8a", launches, want)
+    with pytest.raises(AssertionError, match="spectrum_planes"):
+        smoke._require_counts("8a", dict(launches, spectrum_planes=9), want)
+    smoke._require_counts("8a", dict(launches, suppress_gain=0), dict(want, suppress_gain=0))
+    idle = dict.fromkeys(launches, 0)
+    smoke._require_counts("9b", dict(idle, g726_encode=1), {"g726_encode": 1})
+    with pytest.raises(AssertionError, match="planes_spectrum"):
+        smoke._require_counts("9b", dict(idle, planes_spectrum=1), {})
+
+
+def test_kernels_line_carries_the_ec_kernels(smoke):
+    """Each kernel of ``EC_KERNELS`` has an entry in the kernels JSON line
+    with the contract's keys, the port's operations it replaces (a file of
+    the port), its measurements at the three shapes and its launches a
+    tick of each counted run."""
+    meas = dict(max_abs_err=0.0, ms=1.0, plain_ms=2.0, bound_ms=0.5, bound_by="bytes")
+    results = {name: dict(meas) for name in smoke.EC_KERNELS}
+    zero = dict.fromkeys([*smoke.REPLACES, *smoke.EC_KERNELS], 0)
+    runs = {"flagship": ({**zero, "spectrum_planes": 500, "planes_spectrum": 400,
+                          "suppress_gain": 100}, 100),
+            "gateway": (zero, 50)}
+    entries = smoke.ec_kernel_entries(results, results, results, runs)
+    assert [e["name"] for e in entries] == list(smoke.EC_KERNELS)
+    contract = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms", "session_shapes",
+                "wideband_shapes"}
+    for e in entries:
+        assert contract <= set(e) and e["source"] == smoke.KERNEL_SOURCE
+        assert os.path.exists(os.path.join(REPO, e["replaces"].split(":")[0]))
+        assert e["launches_per_tick"] == {"flagship": smoke.EC_KERNELS[e["name"]][1],
+                                          "gateway": 0.0}
+    assert [e["launches"] for e in entries] == [500, 400, 100]

@@ -56,3 +56,127 @@ def test_conf_mixer_segment_sum_on_the_card(card):
     got = _mixer_run(card, groups, params, xs)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
     assert torch.equal(_mixer_run(card, groups, params, xs), got)
+
+
+# the echo canceller's DFTs at the flagship's shapes (ops/rfft.py): the
+# overlap-save pair at n = 960 and the suppressor's at n = 480
+FLAGSHIP_DFTS = [("rfft", 960), ("irfft_tail", 960), ("rfft_tail", 960),
+                 ("apply_constraint", 960), ("rfft", 480), ("irfft", 480)]
+DFT_ROWS, DFT_SHARD = 4096, 1024
+
+
+def _dft_case(name, n, rows, device):
+    """(the transform, its arguments at ``rows`` rows on ``device``);
+    spectra's DC and Nyquist imaginary parts are far from zero."""
+    from mediastreamer2_tpu_torch.ops import rfft
+    g = torch.Generator().manual_seed(22)
+    rnd = lambda *shape: torch.randn(shape, generator=g).to(device)
+    f = n // 2 + 1
+    im = rnd(rows, f)
+    im[:, 0], im[:, -1] = 3.0, -2.0
+    spec = (rnd(rows, f), im)
+    return {"rfft": (lambda x: rfft.rfft(x, n), (rnd(rows, n),)),
+            "irfft": (lambda r, i: rfft.irfft(r, i, n), spec),
+            "rfft_tail": (lambda x: rfft.rfft_tail(x, n), (rnd(rows, n // 2),)),
+            "irfft_tail": (lambda r, i: rfft.irfft_tail(r, i, n), spec),
+            "apply_constraint": (lambda r, i: rfft.apply_constraint(r, i, n), spec)}[name]
+
+
+def _outs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", FLAGSHIP_DFTS)
+def test_dft_rows_on_the_card_do_not_depend_on_the_batch(card, name, n):
+    """Each DFT at 4,096 rows equals, bit for bit, the same rows run as
+    1,024-row calls at offsets 0, 1,024, 2,048 and 3,072 (a shard's rows),
+    by the FFT path."""
+    from mediastreamer2_tpu_torch.ops import rfft
+    fn, args = _dft_case(name, n, DFT_ROWS, card)
+    before = rfft.calls["fft"]
+    full = _outs(fn(*args))
+    assert rfft.calls["fft"] == before + 1
+    for off in range(0, DFT_ROWS, DFT_SHARD):
+        part = _outs(fn(*(a[off:off + DFT_SHARD].clone() for a in args)))
+        for p, f in zip(part, full):
+            differ = (p.contiguous().view(torch.int32)
+                      != f[off:off + DFT_SHARD].contiguous().view(torch.int32)).any(dim=-1)
+            assert not bool(differ.any()), \
+                f"{name} n={n}: rows {(off + differ.nonzero()[:, 0]).tolist()[:10]} differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", FLAGSHIP_DFTS)
+def test_dft_ffts_on_the_card_match_the_products(card, monkeypatch, name, n):
+    """Each DFT's FFT is within 3e-6 of each row's peak of the basis
+    product on the card (the DC and Nyquist imaginary parts, which the
+    product ignores, far from zero)."""
+    from mediastreamer2_tpu_torch.ops import rfft
+    fn, args = _dft_case(name, n, DFT_SHARD, card)
+    got = _outs(fn(*args))
+    monkeypatch.setattr(rfft, "_fft_on", lambda t: False)
+    want = _outs(fn(*args))
+    peak = torch.stack([w.abs().amax(dim=-1) for w in want]).amax(dim=0)[:, None]
+    err = max(float(((g - w).abs() / peak).max()) for g, w in zip(got, want))
+    assert err <= 3e-6, f"{name} n={n}: {err:.3e} of the row's peak"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", [("irfft_tail", 960), ("apply_constraint", 960),
+                                    ("irfft", 480)])
+def test_dft_c2r_on_the_card_ignores_dc_and_nyquist_imaginary_parts(card, name, n):
+    """The complex-to-real transforms give the same bits with and without
+    the imaginary parts of bins 0 and n/2, as the product does."""
+    fn, (re, im) = _dft_case(name, n, DFT_SHARD, card)
+    zeroed = im.clone()
+    zeroed[:, [0, -1]] = 0.0
+    for a, b in zip(_outs(fn(re, im)), _outs(fn(re, zeroed))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [481, 241, 81])
+def test_dft_layout_kernels_equal_their_plain_versions(card, F):
+    """The FFT path's two layout passes on the card equal their plain
+    versions bit for bit: complex spectra to planes (with and without the
+    alternating sign) and planes to an unnormalised complex-to-real input
+    (scaled by 1/n, DC and Nyquist imaginary parts zeroed, n even and odd)."""
+    from mediastreamer2_tpu_torch.ops import kernels
+    g = torch.Generator().manual_seed(23)
+    re, im = (torch.randn((1000, F), generator=g).to(card) for _ in range(2))
+    z = torch.complex(re, im)
+    for alternate in (False, True):
+        got = kernels.spectrum_planes(z, alternate)
+        want = kernels.spectrum_planes_reference(z, alternate)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert got[0].is_contiguous() and got[1].is_contiguous()
+    for n in (2 * F - 2, 2 * F - 1):
+        got = kernels.planes_spectrum(re, im, n)
+        assert torch.equal(got, kernels.planes_spectrum_reference(re, im, n))
+
+
+@pytest.mark.cuda
+def test_suppress_gain_equals_its_plain_version(card):
+    """The suppressor's gain on the card equals, bit for bit, the plain
+    PyTorch operations it replaces, silent error spectra included, with
+    the gain at its floor, at one and between."""
+    from mediastreamer2_tpu_torch.ops import aec, kernels
+    B, F = 2048, 241
+    g = torch.Generator().manual_seed(25)
+    planes = [torch.randn((B, F), generator=g) * torch.exp(-6 * torch.rand((B, 1), generator=g))
+              for _ in range(4)]
+    planes[0][::7] = 0.0                    # silent error spectra
+    planes[1][::7] = 0.0
+    planes[2][1::5] = 0.0                   # no echo estimate: a gain of one
+    planes[3][1::5] = 0.0
+    leak = torch.rand(B, generator=g).clamp(0.01, 1.0)
+    args = [t.to(card) for t in planes + [leak]]
+    consts = (aec.SUPPRESS_BETA, aec.SUPPRESS_FLOOR)
+    got = kernels.suppress_gain(*args, *consts)
+    want = kernels.suppress_gain_reference(*args, *consts)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    live = args[0] != 0
+    gain = got[0][live] / args[0][live]
+    assert bool((gain == 1.0).any()) and bool((gain < 0.16).any())
+    assert bool(((gain > 0.2) & (gain < 0.9)).any())

@@ -69,7 +69,9 @@ def test_fused_volume_counts_no_cpu_launch():
                                        "mdf_update": 0, "mdf_update_fused": 0,
                                        "g722_encode": 0, "g722_decode": 0,
                                        "dvi4_encode": 0, "dvi4_decode": 0,
-                                       "g726_encode": 0, "g726_decode": 0}
+                                       "g726_encode": 0, "g726_decode": 0,
+                                       "suppress_gain": 0, "spectrum_planes": 0,
+                                       "planes_spectrum": 0}
 
 
 def test_mdf_apply_matches_jax_default_path():
