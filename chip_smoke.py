@@ -25,7 +25,8 @@ Needs one CUDA card, nvcc, g++ and nvidia-smi; imports nothing of JAX.
 Phases, in order (any failure raises and the script exits non-zero):
 
 1. card, versions, build times (one nvcc per kernel source and g++ for the
-   edge and the receive pump, started together), the G.722, DVI4 and G.726 kernels' registers
+   edge and the receive pump, started together), the G.722, DVI4, G.726 and
+   aec_decide kernels' registers
    and spill bytes from nvcc's ``-Xptxas -v`` report (a spill fails the
    run), the edge's AES path (``native.hw_crypto``) and which system codec,
    video, crypto and sound libraries the machine has (opus, gsm, speex,
@@ -41,7 +42,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    the echo canceller's ``EC_KERNELS`` bit-exact and on four row
    slices: spectrum_planes with and without the alternating sign and
    planes_spectrum at F bins and at the suppressor's S/2 + 1,
-   suppress_gain on legs from loud to silent)
+   suppress_gain on legs from loud to silent; aec_decide on every kind
+   of leg, with and without the suppressor: flags, counters and e_s
+   equal, the rest within rtol 1e-5, row slices bit for bit; and on rows
+   longer than its registers hold, 960 and 882 samples at 1,024 legs)
    at the session's (B = 1,024, S = 80, F = 81: the three kernels of
    its path) and the wideband call's (B = 1,024, S = 160, F = 161), and
    g722_encode / g722_decode bit-exact (codes or samples and every state
@@ -69,8 +73,9 @@ Phases, in order (any failure raises and the script exits non-zero):
 3. the flagship at 4,096 legs (1,024 four-party conferences) for 100
    ticks of echo-coupled input: fused_volume, mdf_apply and
    mdf_update_fused launched once per tick and mdf_update never,
-   spectrum_planes 5, planes_spectrum 4 and suppress_gain once a tick
-   (``EC_KERNELS``: every launch bar wants them with mdf_apply), the
+   spectrum_planes 5, planes_spectrum 4, suppress_gain and aec_decide
+   once a tick (``EC_KERNELS``: every launch bar wants them with
+   mdf_apply), the
    echo canceller's 8 DFTs a tick all FFTs (``ops/rfft.calls``), all
    outputs finite, the AEC's shadow filter converged (Es < 0.5 * Dn) on
    >= 90% of legs; ms/tick;
@@ -406,25 +411,34 @@ SOURCES = {"g722": G722_SOURCE, "dvi4": ADPCM_SOURCE, "g726": ADPCM_SOURCE}   # 
 # the echo canceller's kernels that replace no TPU kernel, only the port's own
 # PyTorch operations: what each replaces, and its launches an echo-canceller
 # tick (the DFTs' FFT path: 5 spectra to planes, 4 planes to complex-to-real
-# inputs; the suppressor's gain once)
+# inputs; the suppressor's gain once; the time-domain passes and decisions
+# once)
 EC_KERNELS = {
     "spectrum_planes": ("mediastreamer2_tpu_torch/ops/rfft.py: a cuFFT spectrum split into "
                         "(re, im) planes", 5),
     "planes_spectrum": ("mediastreamer2_tpu_torch/ops/rfft.py: (re, im) planes interleaved "
                         "into a complex-to-real input", 4),
     "suppress_gain": ("mediastreamer2_tpu_torch/ops/aec.py: the suppressor's gain", 1),
+    "aec_decide": ("mediastreamer2_tpu_torch/ops/aec.py: the error signals, the two-path "
+                   "decisions, the output limiter and the leak tracker", 1),
 }
 SYSTEM_LIBRARIES = ("opus", "gsm", "speex", "bcg729", "bv16", "avcodec", "vpx", "aom", "X11",
                     "ssl", "crypto", "asound", "pulse-simple")
 # kernels whose registers phase 1 prints and whose spills fail it, by a
 # fragment of the mangled name (G.726 at 40 kbit/s: the most thresholds
-# and candidates a lane)
+# and candidates a lane; aec_decide with 32 lanes a leg: its longest rows in
+# registers, and rows longer than that, read chunk by chunk)
 SPILL_CHECKED = {"g722_encode": "g722_encode_kernel", "g722_decode": "g722_decode_kernel",
                  "dvi4_encode": "dvi4_encode_kernel", "dvi4_decode": "dvi4_decode_kernel",
                  "g726_encode (40 kbit/s)": "g726_encode_kernelILi5E",
-                 "g726_decode (40 kbit/s)": "g726_decode_kernelILi5E"}
+                 "g726_decode (40 kbit/s)": "g726_decode_kernelILi5E",
+                 "aec_decide (32 lanes, float4)": "aec_decide_kernelILi32ELb1ELb0E",
+                 "aec_decide (32 lanes, by sample)": "aec_decide_kernelILi32ELb0ELb0E",
+                 "aec_decide (long rows, float4)": "aec_decide_kernelILi32ELb1ELb1E",
+                 "aec_decide (long rows, by sample)": "aec_decide_kernelILi32ELb0ELb1E"}
 LEGS = 4096
 TICKS = 100
+DECIDE_LONG_S = (960, 882)    # aec_decide's rows past its registers (phase 2)
 FLAGSHIP_DFTS = 8             # the echo canceller's DFT calls a tick (ops/rfft.py)
 CROSS_LEGS = 256
 CROSS_TICKS = 100
@@ -672,6 +686,13 @@ def suppress_gain_cost(B, F):
     """Four [B, F] f32 planes (the error's and the echo estimate's) and
     leak [B] in, two planes out; ~20 operations a bin."""
     return 4 * B * (6 * F + 1), 20 * B * F
+
+
+def aec_decide_cost(B, S, suppress=True):
+    """near, y_m and y_s read, e_s, e and (with the suppressor) y written
+    ([B, S] f32); the eight [B] state rows and enabled in, the rows and
+    three flags out; ~25 operations a sample."""
+    return 4 * B * S * (3 + (3 if suppress else 2)) + B * (8 * 4 + 1 + 8 * 4 + 3), 25 * B * S
 
 
 def update_mix(promote, reseed, hard_reset, bf16_shadow=True):
@@ -1061,7 +1082,92 @@ def ec_kernel_checks(kernels, g, B, S, F):
     plain = lambda *a: kernels.suppress_gain_reference(*a, *sup)
     check("suppress_gain", fn, plain, gain_args())
     results["suppress_gain"] = _timed(exact(), suppress_gain_cost(B, half), gain_args, fn, plain)
+
+    results["aec_decide"] = _timed(
+        {"max_abs_err": decide_checks(kernels, g, B, S),
+         "tolerance": "flags, counters and e_s equal; rtol 1e-5", "row_slices": 4},
+        aec_decide_cost(B, S), lambda: decide_args(g, B, S),
+        lambda *a: kernels.aec_decide(*a, aec.DECIDE),
+        lambda *a: kernels.aec_decide_reference(*a, aec.DECIDE))
     return results
+
+
+def decide_checks(kernels, g, B, S):
+    """aec_decide at [B, S] against its plain version (``check_decide``)
+    over three fresh ticks with and without the suppressor, and the whole
+    batch against four row slices, bit for bit. Returns the largest
+    absolute difference."""
+    from mediastreamer2_tpu_torch.ops import aec
+    err = 0.0
+    for suppress in (True, False):
+        for t in range(3):
+            err = max(err, check_decide(kernels, f"aec_decide [{B}, {S}] (suppress {suppress}) "
+                                        f"tick {t}", decide_args(g, B, S), suppress)[0])
+    _slices_equal(f"aec_decide [{B}, {S}]", lambda *a: kernels.aec_decide(*a, aec.DECIDE),
+                  decide_args(g, B, S))
+    return err
+
+
+def decide_args(g, B, S):
+    """aec_decide's inputs on the card, a kind of leg by b % 5 at a level
+    drawn a leg: a converged shadow beside a half-converged main, a good
+    main beside a thrown-off shadow, two filters far off, a silent leg, two
+    filters alike; y_m and y_s the last halves of [B, 2S] rows (the
+    overlap-save output); the state rows with counters near their
+    thresholds (so that flags rise), 10% of the legs disabled."""
+    from mediastreamer2_tpu_torch.ops import kernels
+    dev = g.device
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    level = torch.exp(-4 * torch.rand((B, 1), generator=g, device=dev))
+    kind = torch.arange(B, device=dev)[:, None] % 5
+    echo = 0.2 * level * rnd(B, S)
+    near = echo + 0.005 * level * rnd(B, S)
+    y_m = torch.where(kind == 0, 0.5 * echo, echo + 0.01 * echo * rnd(B, S))
+    y_s = torch.where(kind == 0, echo + 0.01 * echo * rnd(B, S),
+                      torch.where(kind == 1, echo + 0.5 * level * rnd(B, S), y_m))
+    off = torch.where(kind == 2, 3.0 * level * rnd(B, S), 0.0)
+    silent = kind == 3
+    rows = torch.zeros((2, B, 2 * S), device=dev)
+    rows[0, :, S:] = torch.where(silent, 0.0, y_m + off)
+    rows[1, :, S:] = torch.where(silent, 0.0, y_s + off)
+    cnt = lambda lo, hi: torch.randint(lo, hi, (B,), generator=g, device=dev, dtype=torch.int32)
+    level = level[:, 0] ** 2
+    state = {"Em": 0.01 * level, "Es": torch.where(kind[:, 0] == 0, 1e-5, 0.01) * level,
+             "Dn": 0.008 * level, "Nf": level,
+             "leak": torch.rand(B, generator=g, device=dev).clamp(0.01, 1.0),
+             "promote_cnt": cnt(6, 8), "reseed_cnt": cnt(6, 8), "diverge_cnt": cnt(14, 16)}
+    return (torch.where(silent, 0.0, near), rows[0, :, S:], rows[1, :, S:],
+            *(state[k] for k in kernels.DECIDE_ROWS),
+            torch.rand(B, generator=g, device=dev) > 0.1)
+
+
+def check_decide(kernels, name, args, suppress):
+    """aec_decide against its plain version on the card: flags, counters and
+    e_s (one subtraction) equal on every leg, the float rows, e and y
+    within rtol 1e-5 (a leg's mean squares summed in another order than
+    PyTorch's: a few ulp). Returns (the largest absolute difference, the
+    plain version's outputs)."""
+    from mediastreamer2_tpu_torch.ops import aec
+    got = kernels.aec_decide(*args, aec.DECIDE, suppress)
+    want = kernels.aec_decide_reference(*args, aec.DECIDE, suppress)
+    names = ("e_s", "e", "y", *kernels.DECIDE_ROWS, "promote", "reseed", "hard_reset")
+    err = 0.0
+    for label, a, b in zip(names, got, want):
+        if b is None or a is None:
+            if (a is None) != (b is None):
+                raise AssertionError(f"{name} {label}: {a} against {b}")
+            continue
+        if label == "e_s" or label in ("promote", "reseed", "hard_reset") or \
+                not b.is_floating_point():
+            _require_equal(f"{name} {label}", a, b)
+            continue
+        d = float((a - b).abs().max())
+        lim = (1e-5 * b.abs() + 1e-7)
+        if not bool(((a - b).abs() <= lim).all()):
+            raise AssertionError(f"{name} {label}: kernel differs from its plain version "
+                                 f"beyond rtol 1e-5 (max abs err {d})")
+        err = max(err, d)
+    return err, want
 
 
 def kernel_checks(kernels, dev, card, B, S, P, F, full=True):
@@ -5723,6 +5829,14 @@ def main():
     session_results = kernel_checks(kernels, dev, card, SESSION_LEGS, S8, SP, SF, full=False)
     wide_results = kernel_checks(kernels, dev, card, WIDE_LEGS, S16, SP, WF, full=False)
     results.update(g722_checks(kernels, dev, card, WIDE_LEGS))
+    # aec_decide on rows longer than its registers hold (96 kHz mono or 48
+    # kHz stereo, float4; 44.1 kHz stereo, sample by sample)
+    g = torch.Generator(device=dev).manual_seed(960)
+    for s_long in DECIDE_LONG_S:
+        err = decide_checks(kernels, g, SESSION_LEGS, s_long)
+        print(f"kernel aec_decide [B={SESSION_LEGS} S={s_long}]: matches plain (flags, "
+              f"counters and e_s equal; rtol 1e-5, max abs err {err}; whole batch = 4 row "
+              f"slices, bit for bit) [{card}]", flush=True)
     adpcm_results = adpcm_checks(kernels, dev, card, GATEWAY_LEGS)
 
     phase_done(2)

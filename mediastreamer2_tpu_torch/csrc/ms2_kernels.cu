@@ -844,6 +844,271 @@ __global__ void suppress_gain_kernel(const float* __restrict__ er, const float* 
 }
 
 // ---------------------------------------------------------------------------
+// aec_decide -- the echo canceller's time-domain passes and per-leg
+// two-path decisions (ops/aec.py's adapt and suppress stages; the plain
+// twin, kernels.aec_decide_reference, is the PyTorch code it replaces:
+// some ninety [B, S] and [B] operations a tick). For each leg, with
+// m(x) = sum_i x_i / S over the leg's S samples and c the thresholds that
+// ops/aec.py names (DecConsts, passed in at every launch):
+//
+//   e_m = near - y_m,  e_s = near - y_s
+//   Em, Es, Dn  = err_ewma old + err_new m(e_m^2), m(e_s^2), m(near^2)
+//   Nf, the promote / reseed / divergence counters, promote, reseed,
+//   hard_reset; then Em = promote ? Es : Em, Es = reseed ? Em : Es,
+//   Es = hard_reset ? Dn : Es (the selects after the update)
+//   e, y  = the promoted path's (e_s, y_s) or main's (e_m, y_m), blended
+//           toward the mic by w = clamp(m(e^2) / (limit m(near^2) + eps)
+//           - 1, 0, 1): e = (1 - w) e + w near, y = (1 - w) y; e = near
+//           where the leg is disabled
+//   leak  = clamp(min(leak * rise, m(e^2) / (m(y^2) + eps)), leak_floor, 1),
+//           rise = leak_rise where Dn < leak_gate m(y^2), else 1
+//           (suppressor on)
+//
+// Bandwidth-bound: near, y_m and y_s read once (y_m and y_s are the last
+// halves of the overlap-save rows, read at their row stride), e_s, e and
+// y written once: 24 bytes a sample with the suppressor, 20 without (no
+// y). As fused_volume, a leg takes a group of G lanes (8, 16 or 32, from
+// S) and a 128-thread block 128 / G legs. A chunk of a row is DEC_LANE
+// samples a lane (four float4 on rows whose samples are 16-byte aligned,
+// else sample by sample), all loads issued before the first use. A row
+// of one chunk (S <= 512) stays in registers through both passes; a
+// longer row (LONG, 32 lanes) is read chunk by chunk in each pass, near
+// and the selected path's y again in the second. The first pass writes
+// e_s and sums near^2, e_m^2, e_s^2; the second, once the decisions are
+// known, writes e and y and sums e^2 and y^2. A lane adds its samples in
+// chunk order; a sum closes with __shfl_xor_sync inside the group, so
+// every lane of it holds the same bits (each step adds a + b on one lane
+// and b + a on the other) and works out the leg's decisions itself; lane
+// 0 writes the [B] rows. The selected error's m(e^2) is the sum of the
+// first pass (the same samples in the same order). The lane that owns a
+// sample and the order of each sum depend only on S, never on B or on the
+// leg's place in the batch. Every operation rounds as PyTorch's does
+// (-fmad=false); torch.minimum and torch.clamp keep a NaN, and so do tmin
+// and clamp_nan here.
+// ---------------------------------------------------------------------------
+#define DEC_BLOCK 128
+#define DEC_LANE 16                   // samples of each row a lane holds in a chunk
+
+// ops/aec.py's thresholds in kernels.DecideConsts' order; the wrapper
+// hands them in as DEC_NCONST floats (hold and diverge_hold whole ticks)
+struct DecConsts {
+    float err_ewma, err_new, copy_ratio, erle_gate, reset_ratio, nf_creep, nf_active,
+        floor_ratio, main_gate, active_pow, diverge_ratio, blowup_ratio, limit_ratio,
+        leak_rise, leak_gate, leak_floor, eps;
+    int hold, diverge_hold;
+};
+#define DEC_NCONST 19
+
+static __device__ __forceinline__ float tmin(float a, float b)
+{
+    return a != a ? a : (b != b ? b : fminf(a, b));
+}
+static __device__ __forceinline__ float clamp_nan(float x, float lo, float hi)
+{
+    return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+
+struct DecArgs {
+    const float *near, *y_m, *y_s;          // [B, S] rows at their strides
+    const float *em, *es, *dn, *nf;         // [B] state rows
+    const int *pc, *rc, *dc;
+    const float* leak;
+    const uint8_t* enabled;
+    float *e_s, *e, *y;                     // [B, S]; y null without the suppressor
+    float* rows;                            // [8, B]: Em Es Dn Nf pc rc dc (int32) leak
+    uint8_t* flags;                         // [3, B]: promote, reseed, hard_reset
+};
+
+// a lane's samples k = 0 .. DEC_LANE - 1 of a chunk: VEC, element k % 4 of
+// the lane's float4 k / 4 (vector lane + (k / 4) G of the chunk); else
+// sample lane + k G
+template <int G, bool VEC>
+static __device__ __forceinline__ void dec_load(const float* row, int lane, int nk,
+                                                float (&v)[DEC_LANE])
+{
+#pragma unroll
+    for (int u = 0; u < DEC_LANE / 4; ++u) {
+        if (VEC) {
+            if (4 * u < nk) {
+                const float4 a = reinterpret_cast<const float4*>(row)[lane + u * G];
+                v[4 * u] = a.x; v[4 * u + 1] = a.y; v[4 * u + 2] = a.z; v[4 * u + 3] = a.w;
+            }
+        } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                if (4 * u + c < nk) v[4 * u + c] = row[lane + (4 * u + c) * G];
+        }
+    }
+}
+
+template <int G, bool VEC>
+static __device__ __forceinline__ void dec_store(float* row, int lane, int nk,
+                                                 const float (&v)[DEC_LANE])
+{
+#pragma unroll
+    for (int u = 0; u < DEC_LANE / 4; ++u) {
+        if (VEC) {
+            if (4 * u < nk)
+                reinterpret_cast<float4*>(row)[lane + u * G] =
+                    make_float4(v[4 * u], v[4 * u + 1], v[4 * u + 2], v[4 * u + 3]);
+        } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                if (4 * u + c < nk) row[lane + (4 * u + c) * G] = v[4 * u + c];
+        }
+    }
+}
+
+template <int G>
+static __device__ __forceinline__ float group_sum(float s)
+{
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+    return s;
+}
+
+template <int G, bool VEC, bool LONG>
+__global__ void __launch_bounds__(DEC_BLOCK)
+aec_decide_kernel(DecArgs a, DecConsts c, long long ld_n, long long ld_m, long long ld_s,
+                  int B, int S)
+{
+    const int lane = threadIdx.x & (G - 1);
+    const int b = blockIdx.x * (DEC_BLOCK / G) + threadIdx.x / G;
+    const bool valid = b < B;          // a group past the batch joins the shuffles only
+    const int bb = valid ? b : 0;
+    const float* nrow = a.near + bb * ld_n;
+    const float* mrow = a.y_m + bb * ld_m;
+    const float* srow = a.y_s + bb * ld_s;
+    const size_t out = (size_t)bb * S;
+    // a chunk's units (float4 or samples) and the chunks of the row
+    const int units = VEC ? S >> 2 : S;
+    const int cu = G * (VEC ? DEC_LANE / 4 : DEC_LANE);
+    const int nch = LONG ? (units + cu - 1) / cu : 1;
+    // the lane's samples of chunk ch: a prefix of k = 0 .. DEC_LANE - 1
+    auto lane_nk = [&](int ch) {
+        const int u = min(units - ch * cu, cu);
+        const int k = valid && lane < u ? (u - lane + G - 1) / G : 0;
+        return VEC ? 4 * k : k;
+    };
+    float n[DEC_LANE], ym[DEC_LANE], ys[DEC_LANE], o[DEC_LANE];
+    float em0 = 0.f, es0 = 0.f, dn0 = 0.f, nf0 = 0.f, leak0 = 0.f;
+    int pc0 = 0, rc0 = 0, dc0 = 0;
+    bool en = false;
+
+    // first pass: e_s out, the three mean squares' sums
+    float snn = 0.f, smm = 0.f, sss = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+        const int nk = lane_nk(ch);
+        const size_t off = (size_t)ch * G * DEC_LANE;
+        dec_load<G, VEC>(nrow + off, lane, nk, n);
+        dec_load<G, VEC>(mrow + off, lane, nk, ym);
+        dec_load<G, VEC>(srow + off, lane, nk, ys);
+        if (ch == 0 && valid) {
+            em0 = a.em[bb]; es0 = a.es[bb]; dn0 = a.dn[bb]; nf0 = a.nf[bb];
+            leak0 = a.leak[bb];
+            pc0 = a.pc[bb]; rc0 = a.rc[bb]; dc0 = a.dc[bb];
+            en = a.enabled[bb] != 0;
+        }
+#pragma unroll
+        for (int k = 0; k < DEC_LANE; ++k) {
+            if (k < nk) {
+                const float em = n[k] - ym[k], es = n[k] - ys[k];
+                snn += n[k] * n[k];
+                smm += em * em;
+                sss += es * es;
+                o[k] = es;
+            }
+        }
+        dec_store<G, VEC>(a.e_s + out + off, lane, nk, o);
+    }
+    snn = group_sum<G>(snn);
+    smm = group_sum<G>(smm);
+    sss = group_sum<G>(sss);
+
+    // the leg's decisions, on every lane of its group
+    const float fs = (float)S;
+    const float near_pow = snn / fs;
+    const float Em = c.err_ewma * em0 + c.err_new * (smm / fs);
+    const float Es = c.err_ewma * es0 + c.err_new * (sss / fs);
+    const float Dn = c.err_ewma * dn0 + c.err_new * near_pow;
+    const float Nf = Dn > c.nf_active ? tmin(nf0 * c.nf_creep, Es) : nf0;
+    const bool at_floor = Es < c.floor_ratio * Nf;
+    const bool better = (Es < c.copy_ratio * Em) && ((Es < c.erle_gate * Dn) || at_floor);
+    const bool worse = (Es > c.reset_ratio * Em) && (Em < c.main_gate * Dn);
+    int pc = better ? pc0 + 1 : 0, rc = worse ? rc0 + 1 : 0;
+    bool promote = pc >= c.hold;
+    const bool reseed = rc >= c.hold;
+    if (promote) pc = 0;
+    if (reseed) rc = 0;
+    const bool active = Dn > c.active_pow;
+    const bool diverged =
+        ((tmin(Em, Es) > c.diverge_ratio * Dn) || (Es > c.blowup_ratio * Dn)) && active;
+    int dc = diverged ? dc0 + 1 : (active ? max(dc0 - 1, 0) : dc0);
+    const bool hard = dc >= c.diverge_hold;
+    if (hard) dc = 0;
+    promote = promote && !hard;
+    const float em_out = promote ? Es : Em;
+    const float es_out = hard ? Dn : (reseed ? em_out : Es);
+
+    // second pass: the output limiter, the enable select, e and y out
+    const float blk_err = (promote ? sss : smm) / fs;
+    const float w = clamp_nan(blk_err / (c.limit_ratio * near_pow + c.eps) - 1.0f, 0.0f, 1.0f);
+    const float omw = 1.0f - w;
+    float see = 0.f, syy = 0.f;
+    for (int ch = 0; ch < nch; ++ch) {
+        const int nk = lane_nk(ch);
+        const size_t off = (size_t)ch * G * DEC_LANE;
+        if (LONG) {
+            dec_load<G, VEC>(nrow + off, lane, nk, n);
+            dec_load<G, VEC>((promote ? srow : mrow) + off, lane, nk, ym);
+        } else {
+#pragma unroll
+            for (int k = 0; k < DEC_LANE; ++k)
+                ym[k] = promote ? ys[k] : ym[k];
+        }
+#pragma unroll
+        for (int k = 0; k < DEC_LANE; ++k) {
+            if (k < nk) {
+                const float es = n[k] - ym[k];
+                const float yv = omw * ym[k];
+                const float ev = en ? omw * es + w * n[k] : n[k];
+                see += ev * ev;
+                syy += yv * yv;
+                o[k] = ev;
+                ym[k] = yv;
+            }
+        }
+        dec_store<G, VEC>(a.e + out + off, lane, nk, o);
+        if (a.y) dec_store<G, VEC>(a.y + out + off, lane, nk, ym);
+    }
+    float leak = leak0;
+    if (a.y) {
+        see = group_sum<G>(see);
+        syy = group_sum<G>(syy);
+        const float Ey = syy / fs;
+        const float inst_leak = (see / fs) / (Ey + c.eps);
+        const float rise = Dn < c.leak_gate * Ey ? c.leak_rise : 1.0f;
+        leak = clamp_nan(tmin(leak0 * rise, inst_leak), c.leak_floor, 1.0f);
+    }
+    if (valid && lane == 0) {
+        float* r = a.rows;
+        int* ri = reinterpret_cast<int*>(a.rows);
+        r[b] = em_out;
+        r[B + b] = es_out;
+        r[2 * B + b] = Dn;
+        r[3 * B + b] = Nf;
+        ri[4 * B + b] = pc;
+        ri[5 * B + b] = rc;
+        ri[6 * B + b] = dc;
+        if (a.y) r[7 * B + b] = leak;
+        a.flags[b] = promote;
+        a.flags[B + b] = reseed;
+        a.flags[2 * B + b] = hard;
+    }
+}
+
+// ---------------------------------------------------------------------------
 // The FFT path's layout passes (ops/rfft.py). cuFFT reads and writes
 // interleaved complex spectra; the echo canceller's kernels and its
 // pointwise code take (re, im) planes. One pass each way reads and writes
@@ -1008,6 +1273,54 @@ int ms2_suppress_gain(int device, const void* er, const void* ei, const void* yr
                            (cudaStream_t)stream>>>(
         (const float*)er, (const float*)ei, (const float*)yr, (const float*)yi,
         (const float*)leak, (float*)out, total, (unsigned)F, beta, floor_gain);
+    return (int)cudaGetLastError();
+}
+
+// p: near, y_m, y_s, Em, Es, Dn, Nf, promote_cnt, reseed_cnt, diverge_cnt,
+// leak, enabled, e_s, e, y (or null), rows, flags; consts: DEC_NCONST
+// floats in host memory, DecConsts' fields in order; ld_*: the input rows'
+// strides in samples (each row's samples contiguous)
+int ms2_aec_decide(int device, void* const* p, const float* consts, long long ld_n,
+                   long long ld_m, long long ld_s, int B, int S, void* stream)
+{
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (B <= 0) return (int)cudaGetLastError();
+    if (S < 1) return (int)cudaErrorInvalidValue;
+    const DecArgs a = {(const float*)p[0], (const float*)p[1], (const float*)p[2],
+                       (const float*)p[3], (const float*)p[4], (const float*)p[5],
+                       (const float*)p[6], (const int*)p[7], (const int*)p[8], (const int*)p[9],
+                       (const float*)p[10], (const uint8_t*)p[11], (float*)p[12],
+                       (float*)p[13], (float*)p[14], (float*)p[15], (uint8_t*)p[16]};
+    const float* k = consts;
+    const DecConsts c = {k[0], k[1], k[2], k[3], k[4], k[5], k[6], k[7], k[8], k[9], k[10],
+                         k[11], k[12], k[13], k[14], k[15], k[16], (int)k[17], (int)k[18]};
+    // float4 rows when every row's samples are 16-byte aligned; the lanes a
+    // leg from the units (float4 or samples) a row holds; a row longer than
+    // one chunk of 32 lanes goes chunk by chunk
+    bool vec = S % 4 == 0 && ld_n % 4 == 0 && ld_m % 4 == 0 && ld_s % 4 == 0;
+    const void* sig[6] = {p[0], p[1], p[2], p[12], p[13], p[14]};
+    for (int i = 0; i < 6; ++i)
+        vec = vec && ((uintptr_t)sig[i] % 16) == 0;
+    const int units = vec ? S / 4 : S, per = vec ? DEC_LANE / 4 : DEC_LANE;
+    const bool lng = units > 32 * per;
+    const int G = units <= 8 * per ? 8 : (units <= 16 * per ? 16 : 32);
+    const unsigned blocks = (unsigned)((B + DEC_BLOCK / G - 1) / (DEC_BLOCK / G));
+    cudaStream_t st = (cudaStream_t)stream;
+#define DEC_LAUNCH(g, v, l) aec_decide_kernel<g, v, l><<<blocks, DEC_BLOCK, 0, st>>>( \
+        a, c, ld_n, ld_m, ld_s, B, S)
+    if (vec) {
+        if (lng) DEC_LAUNCH(32, true, true);
+        else if (G == 8) DEC_LAUNCH(8, true, false);
+        else if (G == 16) DEC_LAUNCH(16, true, false);
+        else DEC_LAUNCH(32, true, false);
+    } else {
+        if (lng) DEC_LAUNCH(32, false, true);
+        else if (G == 8) DEC_LAUNCH(8, false, false);
+        else if (G == 16) DEC_LAUNCH(16, false, false);
+        else DEC_LAUNCH(32, false, false);
+    }
+#undef DEC_LAUNCH
     return (int)cudaGetLastError();
 }
 

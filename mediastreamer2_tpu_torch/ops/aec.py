@@ -37,16 +37,20 @@ tensors):
     aec.py:436-439, 487-496, 508-521, 541-542): ``kernels.mdf_update_fused``
     in its f32 mode.
 
-One more kernel takes a chain of PyTorch operations:
-``kernels.suppress_gain`` (the suppressor's gain on the error spectrum).
+Two more kernels take chains of PyTorch operations: ``kernels.aec_decide``
+(the error signals, the two-path decisions, the output limiter and the
+suppressor's leak tracker: every [B, S] time-domain pass and [B] decision
+of a tick, once) and ``kernels.suppress_gain`` (the suppressor's gain on
+the error spectrum).
 
 ``cpos`` (and ``srk``) stay on the device: the host never waits for them.
 
 A tick runs in five profiler spans that cover it (``core/trace.py``):
 ``ms2.aec/analysis`` (the far block's spectrum and the history powers),
-``/apply``, ``/adapt`` (the error spectrum, the normalisation, the
-constraint and the two-path decisions), ``/update`` and ``/suppress`` (the
-output limiter and the residual-echo suppressor).
+``/apply``, ``/adapt`` (``aec_decide``: the error signals, the two-path
+decisions, the output limiter and the leak tracker; then the error
+spectrum, the normalisation and the constraint), ``/update`` and
+``/suppress`` (the residual-echo suppressor's transforms and gain).
 
 Built for one shard of the legs (``FilterCtx.shard``), the filter reads
 the megakernel rule from the whole batch and hands ``mdf_update_fused``
@@ -87,6 +91,24 @@ HOLD_TICKS = 8         # hysteresis: condition must hold 50 ms
 SUPPRESS_BETA = 2.5    # over-subtraction factor (on the *residual* estimate)
 SUPPRESS_FLOOR = 0.15  # spectral floor
 LEAK_RISE = 1.01       # min-statistics leak tracker creep-up per tick
+# the rest of the decisions' and the leak tracker's thresholds (written
+# inline in the JAX package's aec.py:378-411, 601-602)
+NF_CREEP = 1.01        # shadow-error floor's creep-up per tick (min statistics)
+NF_ACTIVE = 1e-7       # near energy above which the floor tracks
+FLOOR_RATIO = 2.0      # shadow within this of its floor counts as converged
+MAIN_GATE = 0.8        # re-seed only where main cancels some of the mic
+ACTIVE_POW = 1e-5      # near energy that feeds the divergence counter
+DIVERGE_RATIO = 1.05   # both filters' errors above the mic -> diverged
+BLOWUP_RATIO = 10.0    # the shadow's error this far above the mic -> diverged
+DIVERGE_HOLD = 2 * HOLD_TICKS   # divergence evidence that hard-resets
+LIMIT_RATIO = 2.0      # output limiter: blend toward the mic above this error
+LEAK_GATE = 1.5        # the leak creeps up only while the mic is mostly echo
+LEAK_FLOOR = 0.01      # the leak tracker's least value
+POW_EPS = 1e-9         # guards the limiter's and the leak's power ratios
+DECIDE = kernels.DecideConsts(
+    ERR_EWMA, 1 - ERR_EWMA, COPY_RATIO, ERLE_GATE, RESET_RATIO, NF_CREEP, NF_ACTIVE,
+    FLOOR_RATIO, MAIN_GATE, ACTIVE_POW, DIVERGE_RATIO, BLOWUP_RATIO, LIMIT_RATIO, LEAK_RISE,
+    LEAK_GATE, LEAK_FLOOR, POW_EPS, HOLD_TICKS, DIVERGE_HOLD)
 STORE_DTYPE = torch.bfloat16
 # the profiler spans of the five stages of a tick, which cover it
 _ANALYSIS, _APPLY, _ADAPT, _UPDATE, _SUPPRESS = (
@@ -195,11 +217,16 @@ def _aec_process(state, ins, params, ctx):
             Xh_r, Xh_i, Xr, Xi)
         y_m = irfft_tail(Ym_r, Ym_i, two_s)
         y_s = irfft_tail(Ys_r, Ys_i, two_s)
-        e_m = near - y_m
-        e_s = near - y_s
 
-    # --- shadow adaptation inputs ------------------------------------------
     with span(_ADAPT):
+        # the error signals, the two-path transfer decisions (per-leg,
+        # hysteretic), the output limiter and the suppressor's leak tracker
+        suppress = not ctx.params.get("no_suppress")     # build-time bypass
+        (e_s, e, y, Em, Es, Dn, Nf, promote_cnt, reseed_cnt, diverge_cnt, leak,
+         promote, reseed, hard_reset) = kernels.aec_decide(
+            near, y_m, y_s, *(state[k] for k in kernels.DECIDE_ROWS), params["enabled"],
+            DECIDE, suppress)
+        # --- shadow adaptation inputs --------------------------------------
         Er, Ei = rfft_tail(e_s, two_s)
         # exact MDF-NLMS normalization by the running per-bin history power
         Hp = torch.clamp(state["Hp"] + inst_q - drop_pow, min=0.0)
@@ -216,35 +243,6 @@ def _aec_process(state, ins, params, ctx):
         gp_r, gp_i = cmul_conj(hp_r, hp_i, Er, Ei)
         gc_r, gc_i = apply_constraint(gp_r * inv_norm, gp_i * inv_norm, two_s)
 
-        # --- two-path transfer decisions (per-leg, hysteretic) --------------
-        near_pow = (near * near).mean(dim=1)
-        Em = ERR_EWMA * state["Em"] + (1 - ERR_EWMA) * (e_m * e_m).mean(dim=1)
-        Es = ERR_EWMA * state["Es"] + (1 - ERR_EWMA) * (e_s * e_s).mean(dim=1)
-        Dn = ERR_EWMA * state["Dn"] + (1 - ERR_EWMA) * near_pow
-        # shadow-error floor via min statistics
-        Nf = torch.where(Dn > 1e-7, torch.minimum(state["Nf"] * 1.01, Es), state["Nf"])
-        at_floor = Es < 2.0 * Nf
-        better = (Es < COPY_RATIO * Em) & ((Es < ERLE_GATE * Dn) | at_floor)
-        worse = (Es > RESET_RATIO * Em) & (Em < 0.8 * Dn)
-        zero = torch.zeros_like(state["promote_cnt"])
-        promote_cnt = torch.where(better, state["promote_cnt"] + 1, zero)
-        reseed_cnt = torch.where(worse, state["reseed_cnt"] + 1, zero)
-        promote = promote_cnt >= HOLD_TICKS
-        reseed = reseed_cnt >= HOLD_TICKS
-        promote_cnt = torch.where(promote, zero, promote_cnt)
-        reseed_cnt = torch.where(reseed, zero, reseed_cnt)
-        # catastrophic-divergence insurance (leaky evidence counter)
-        active = Dn > 1e-5
-        diverged = ((torch.minimum(Em, Es) > 1.05 * Dn) | (Es > 10.0 * Dn)) & active
-        diverge_cnt = torch.where(
-            diverged, state["diverge_cnt"] + 1,
-            torch.where(active, torch.clamp(state["diverge_cnt"] - 1, min=0),
-                        state["diverge_cnt"]))
-        hard_reset = diverge_cnt >= 2 * HOLD_TICKS
-        diverge_cnt = torch.where(hard_reset, zero, diverge_cnt)
-        # never promote taps declared catastrophically diverged this tick
-        promote = promote & ~hard_reset
-
     # --- gradient + NLMS update + transfer copies (in place on Ws, Wm) ------
     with span(_UPDATE):
         if megakernel:
@@ -260,48 +258,26 @@ def _aec_process(state, ins, params, ctx):
                 cpos, state["Ws_r"], state["Ws_i"], state["Wm_r"], state["Wm_i"],
                 Xh_r, Xh_i, Er, Ei, inv_norm, gc_r, gc_i, mu, promote, reseed,
                 hard_reset, state.get("srk"), lin0)
-        Em = torch.where(promote, Es, Em)
-        Es = torch.where(reseed, Em, Es)
-        Es = torch.where(hard_reset, Dn, Es)
 
     with span(_SUPPRESS):
-        e = torch.where(promote[:, None], e_s, e_m)
-        y = torch.where(promote[:, None], y_s, y_m)
-        # per-tick output limiter: blend back toward the mic (continuously) if
-        # the selected filter makes this block worse than the raw mic
-        blk_err = (e * e).mean(dim=1)
-        w_bad = torch.clamp(blk_err / (2.0 * near_pow + 1e-9) - 1.0, 0.0, 1.0)[:, None]
-        e = (1.0 - w_bad) * e + w_bad * near
-        y = (1.0 - w_bad) * y
-        e = torch.where(params["enabled"][:, None], e, near)
-
         new_state = {"Wm_r": Wm_r, "Wm_i": Wm_i, "Ws_r": Ws_r, "Ws_i": Ws_i,
                      "Xh_r": Xh_r, "Xh_i": Xh_i, "far_prev": far, "Hp": Hp,
-                     "Em": Em, "Es": Es, "Dn": Dn, "Nf": Nf,
-                     "leak": state["leak"],
+                     "Em": Em, "Es": Es, "Dn": Dn, "Nf": Nf, "leak": leak,
                      "promote_cnt": promote_cnt, "reseed_cnt": reseed_cnt,
                      "diverge_cnt": diverge_cnt,
                      "cpos": torch.remainder(cpos + 1, P).to(torch.int32)}
         if bf16_shadow:
             new_state["srk"] = state["srk"] + 1
-        # --- residual echo suppression --------------------------------------
-        if ctx.params.get("no_suppress"):
-            # build-time suppressor bypass (static)
+        if not suppress:
             return new_state, (e,), {}
-
-        # over-subtract only the estimated residual (leak * |Y|); `leak` is the
-        # residual/echo power ratio, tracked as a slow minimum
-        Ey = (y * y).mean(dim=1)
-        inst_leak = (e * e).mean(dim=1) / (Ey + 1e-9)
-        rise = torch.where(Dn < 1.5 * Ey, LEAK_RISE, 1.0)
-        leak = torch.clamp(torch.minimum(state["leak"] * rise, inst_leak), 0.01, 1.0)
+        # --- residual echo suppression --------------------------------------
+        # over-subtract only the estimated residual (leak * |Y|)
         Ehr, Ehi = rfft(e, S)
         Yhr, Yhi = rfft(y, S)
         # gain = clamp((|E| - beta sqrt(leak) |Y|) / |E|, floor, 1) on E
         e_sup = irfft(*kernels.suppress_gain(Ehr, Ehi, Yhr, Yhi, leak, SUPPRESS_BETA,
                                              SUPPRESS_FLOOR), S)
         out = torch.where((params["suppress"] & params["enabled"])[:, None], e_sup, e)
-        new_state["leak"] = leak
         return new_state, (out,), {}
 
 

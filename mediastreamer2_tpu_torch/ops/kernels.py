@@ -23,13 +23,14 @@ g726_encode       ``g726_encode``, ``mediastreamer2_tpu/ops/g726.py:172``
 g726_decode       ``g726_decode``, ``mediastreamer2_tpu/ops/g726.py:180``
 ================  =======================================================
 
-``ms2_kernels.cu`` also holds three kernels that replace no loop or Pallas
+``ms2_kernels.cu`` also holds four kernels that replace no loop or Pallas
 call of the JAX package, only chains of the port's PyTorch operations on
-the echo canceller's path: ``suppress_gain`` (its residual-echo
-suppressor's gain on the error spectrum, some twenty [B, F] passes) and the
-two layout passes of the DFTs' FFT path (``spectrum_planes``,
-``planes_spectrum``, which ``ops/rfft.py`` calls on the card). They count
-their launches as the others do.
+the echo canceller's path: ``aec_decide`` (its time-domain passes and
+per-leg two-path decisions, some ninety [B, S] and [B] operations),
+``suppress_gain`` (its residual-echo suppressor's gain on the error
+spectrum, some twenty [B, F] passes) and the two layout passes of the DFTs'
+FFT path (``spectrum_planes``, ``planes_spectrum``, which ``ops/rfft.py``
+calls on the card). They count their launches as the others do.
 
 Build: at first use, ``nvcc`` compiles each source for ``sm_90a`` into a
 shared library with a plain C interface under ``_build/``, named by a hash
@@ -54,6 +55,7 @@ import subprocess
 import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -122,6 +124,8 @@ def _load():
         main.ms2_suppress_gain.argtypes = [I] + [P] * 6 + [I, I, Fl, Fl, P]
         main.ms2_spectrum_planes.argtypes = [I] + [P] * 3 + [I, I, I, P]
         main.ms2_planes_spectrum.argtypes = [I] + [P] * 3 + [I, I, Fl, I, P]
+        LL = ctypes.c_longlong
+        main.ms2_aec_decide.argtypes = [I, P, P, LL, LL, LL, I, I, P]
         g722.ms2_g722_encode.argtypes = [I, P, P, P, I, I, P]
         g722.ms2_g722_decode.argtypes = [I, P, P, P, I, I, P]
         adpcm.ms2_dvi4_encode.argtypes = [I, P, P, P, P, I, I, P]
@@ -131,9 +135,9 @@ def _load():
         adpcm.ms2_adpcm_empty.argtypes = [I, I, P]
         fns = (main.ms2_fused_volume, main.ms2_mdf_apply, main.ms2_mdf_update,
                main.ms2_mdf_update_fused, main.ms2_suppress_gain, main.ms2_spectrum_planes,
-               main.ms2_planes_spectrum, g722.ms2_g722_encode, g722.ms2_g722_decode,
-               adpcm.ms2_dvi4_encode, adpcm.ms2_dvi4_decode, adpcm.ms2_g726_encode,
-               adpcm.ms2_g726_decode, adpcm.ms2_adpcm_empty)
+               main.ms2_planes_spectrum, main.ms2_aec_decide, g722.ms2_g722_encode,
+               g722.ms2_g722_decode, adpcm.ms2_dvi4_encode, adpcm.ms2_dvi4_decode,
+               adpcm.ms2_g726_encode, adpcm.ms2_g726_decode, adpcm.ms2_adpcm_empty)
         for fn in fns:
             fn.restype = I
         _lib = types.SimpleNamespace(**{fn.__name__: fn for fn in fns})
@@ -172,7 +176,7 @@ _ptr = torch.Tensor.data_ptr
 def _wrappers():
     return (fused_volume, mdf_apply, mdf_update, mdf_update_fused, g722_encode, g722_decode,
             dvi4_encode, dvi4_decode, g726_encode, g726_decode, suppress_gain, spectrum_planes,
-            planes_spectrum)
+            planes_spectrum, aec_decide)
 
 
 def launch_counts() -> dict:
@@ -496,6 +500,147 @@ def suppress_gain(Er, Ei, Yr, Yi, leak, beta, floor_gain):
 
 
 suppress_gain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# aec_decide: the echo canceller's time-domain passes and two-path decisions
+# ---------------------------------------------------------------------------
+# the echo canceller's [B] state rows that aec_decide reads and returns, in
+# its argument and output order
+DECIDE_ROWS = ("Em", "Es", "Dn", "Nf", "promote_cnt", "reseed_cnt", "diverge_cnt", "leak")
+
+
+class DecideConsts(NamedTuple):
+    """The two-path decisions' and the leak tracker's thresholds, as
+    ``ops/aec.py`` names them (``aec.DECIDE``); the kernel takes them in
+    this order (csrc: DecConsts)."""
+    err_ewma: float         # ERR_EWMA
+    err_new: float          # 1 - ERR_EWMA
+    copy_ratio: float       # COPY_RATIO
+    erle_gate: float        # ERLE_GATE
+    reset_ratio: float      # RESET_RATIO
+    nf_creep: float         # NF_CREEP
+    nf_active: float        # NF_ACTIVE
+    floor_ratio: float      # FLOOR_RATIO
+    main_gate: float        # MAIN_GATE
+    active_pow: float       # ACTIVE_POW
+    diverge_ratio: float    # DIVERGE_RATIO
+    blowup_ratio: float     # BLOWUP_RATIO
+    limit_ratio: float      # LIMIT_RATIO
+    leak_rise: float        # LEAK_RISE
+    leak_gate: float        # LEAK_GATE
+    leak_floor: float       # LEAK_FLOOR
+    eps: float              # POW_EPS
+    hold: int               # HOLD_TICKS
+    diverge_hold: int       # DIVERGE_HOLD
+
+
+def aec_decide_reference(near, y_m, y_s, Em, Es, Dn, Nf, promote_cnt, reseed_cnt,
+                         diverge_cnt, leak, enabled, c, suppress=True):
+    """Plain version: the port's ``ops/aec.py`` code before the kernel, in
+    its order of operations, with ``c``'s thresholds."""
+    e_m = near - y_m
+    e_s = near - y_s
+    # --- two-path transfer decisions (per-leg, hysteretic) ------------------
+    near_pow = (near * near).mean(dim=1)
+    Em = c.err_ewma * Em + c.err_new * (e_m * e_m).mean(dim=1)
+    Es = c.err_ewma * Es + c.err_new * (e_s * e_s).mean(dim=1)
+    Dn = c.err_ewma * Dn + c.err_new * near_pow
+    # shadow-error floor via min statistics
+    Nf = torch.where(Dn > c.nf_active, torch.minimum(Nf * c.nf_creep, Es), Nf)
+    at_floor = Es < c.floor_ratio * Nf
+    better = (Es < c.copy_ratio * Em) & ((Es < c.erle_gate * Dn) | at_floor)
+    worse = (Es > c.reset_ratio * Em) & (Em < c.main_gate * Dn)
+    zero = torch.zeros_like(promote_cnt)
+    promote_cnt = torch.where(better, promote_cnt + 1, zero)
+    reseed_cnt = torch.where(worse, reseed_cnt + 1, zero)
+    promote = promote_cnt >= c.hold
+    reseed = reseed_cnt >= c.hold
+    promote_cnt = torch.where(promote, zero, promote_cnt)
+    reseed_cnt = torch.where(reseed, zero, reseed_cnt)
+    # catastrophic-divergence insurance (leaky evidence counter)
+    active = Dn > c.active_pow
+    diverged = ((torch.minimum(Em, Es) > c.diverge_ratio * Dn) | (Es > c.blowup_ratio * Dn)) \
+        & active
+    diverge_cnt = torch.where(
+        diverged, diverge_cnt + 1,
+        torch.where(active, torch.clamp(diverge_cnt - 1, min=0), diverge_cnt))
+    hard_reset = diverge_cnt >= c.diverge_hold
+    diverge_cnt = torch.where(hard_reset, zero, diverge_cnt)
+    # never promote taps declared catastrophically diverged this tick
+    promote = promote & ~hard_reset
+    # the transfers' error energies (the taps move in the update)
+    Em = torch.where(promote, Es, Em)
+    Es = torch.where(reseed, Em, Es)
+    Es = torch.where(hard_reset, Dn, Es)
+    e = torch.where(promote[:, None], e_s, e_m)
+    y = torch.where(promote[:, None], y_s, y_m)
+    # per-tick output limiter: blend back toward the mic (continuously) if
+    # the selected filter makes this block worse than the raw mic
+    blk_err = (e * e).mean(dim=1)
+    w_bad = torch.clamp(blk_err / (c.limit_ratio * near_pow + c.eps) - 1.0, 0.0, 1.0)[:, None]
+    e = (1.0 - w_bad) * e + w_bad * near
+    y = (1.0 - w_bad) * y
+    e = torch.where(enabled[:, None], e, near)
+    if suppress:
+        # `leak` is the residual/echo power ratio, tracked as a slow minimum
+        Ey = (y * y).mean(dim=1)
+        inst_leak = (e * e).mean(dim=1) / (Ey + c.eps)
+        rise = torch.where(Dn < c.leak_gate * Ey, c.leak_rise, 1.0)
+        leak = torch.clamp(torch.minimum(leak * rise, inst_leak), c.leak_floor, 1.0)
+    else:
+        y = None
+    return (e_s, e, y, Em, Es, Dn, Nf, promote_cnt, reseed_cnt, diverge_cnt, leak,
+            promote, reseed, hard_reset)
+
+
+def aec_decide(near, y_m, y_s, Em, Es, Dn, Nf, promote_cnt, reseed_cnt, diverge_cnt, leak,
+               enabled, c, suppress=True):
+    """The echo canceller's error signals, two-path decisions, output
+    limiter and (``suppress``) the suppressor's leak tracker, a leg a row,
+    with the thresholds ``c`` (a ``DecideConsts``).
+
+    near, y_m, y_s: f32 [B, S] (each row's samples contiguous, the rows at
+    any stride: y_m and y_s are views of the overlap-save output); the [B]
+    state rows of ``DECIDE_ROWS`` (f32, the counters int32); enabled: bool
+    [B]. Returns (e_s, e, y, the new state rows in ``DECIDE_ROWS``'s order,
+    promote, reseed, hard_reset): e_s the shadow's error, e and y the
+    output and the echo estimate the suppressor takes ([B, S] f32; y None
+    without the suppressor, and leak then the one given); the flags bool
+    [B]."""
+    rows_in = (Em, Es, Dn, Nf, promote_cnt, reseed_cnt, diverge_cnt, leak)
+    if near.device.type == "cpu":
+        return aec_decide_reference(near, y_m, y_s, *rows_in, enabled, c, suppress)
+    dev = _cuda_device(near)
+    B, S = near.shape
+    if S < 1:
+        raise ValueError("aec_decide: no samples a tick")
+    for name, t in (("near", near), ("y_m", y_m), ("y_s", y_s)):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (B, S):
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, expected "
+                             f"float32 {(B, S)} on {dev}")
+        if t.stride(1) != 1:
+            raise ValueError(f"{name}: a row's samples are not contiguous")
+    for name, t in zip(DECIDE_ROWS, rows_in):
+        _check(name, t, torch.int32 if name.endswith("_cnt") else torch.float32, (B,), dev)
+    _check("enabled", enabled, torch.bool, (B,), dev)
+    sig = torch.empty((3 if suppress else 2, B, S), dtype=torch.float32, device=dev)
+    rows = torch.empty((8, B), dtype=torch.float32, device=dev)
+    flags = torch.empty((3, B), dtype=torch.bool, device=dev)
+    ptrs = (ctypes.c_void_p * 17)(
+        *map(_ptr, (near, y_m, y_s, *rows_in, enabled, sig[0], sig[1])),
+        _ptr(sig[2]) if suppress else None, _ptr(rows), _ptr(flags))
+    consts = (ctypes.c_float * len(c))(*c)
+    _launch(_load().ms2_aec_decide, dev, ptrs, consts, near.stride(0), y_m.stride(0),
+            y_s.stride(0), B, S)
+    aec_decide.launches += 1
+    counts = rows[4:7].view(torch.int32)
+    return (sig[0], sig[1], sig[2] if suppress else None, rows[0], rows[1], rows[2], rows[3],
+            counts[0], counts[1], counts[2], rows[7] if suppress else leak, flags[0], flags[1],
+            flags[2])
+
+
+aec_decide.launches = 0
 
 
 # ---------------------------------------------------------------------------

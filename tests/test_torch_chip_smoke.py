@@ -1502,14 +1502,14 @@ def test_flagship_makes_phase_3s_dft_calls(smoke):
 
 def test_ec_kernels_are_wanted_with_mdf_apply(smoke):
     """The launch bars want each kernel of ``EC_KERNELS`` as many times an
-    echo-canceller tick as it names (5, 4, 1), over mdf_apply's ticks,
+    echo-canceller tick as it names (5, 4, 1, 1), over mdf_apply's ticks,
     without a phase naming them; a layout pass too few fails; a phase that
     names one holds its own number."""
     assert {k: n for k, (_, n) in smoke.EC_KERNELS.items()} == {
-        "spectrum_planes": 5, "planes_spectrum": 4, "suppress_gain": 1}
+        "spectrum_planes": 5, "planes_spectrum": 4, "suppress_gain": 1, "aec_decide": 1}
     launches = dict.fromkeys([*smoke.REPLACES, *smoke.EC_KERNELS], 0)
     launches.update(fused_volume=6, mdf_apply=2, mdf_update_fused=2, spectrum_planes=10,
-                    planes_spectrum=8, suppress_gain=2)
+                    planes_spectrum=8, suppress_gain=2, aec_decide=2)
     want = {"fused_volume": 6, "mdf_apply": 2, "mdf_update_fused": 2}
     smoke._require_counts("8a", launches, want)
     with pytest.raises(AssertionError, match="spectrum_planes"):
@@ -1530,7 +1530,7 @@ def test_kernels_line_carries_the_ec_kernels(smoke):
     results = {name: dict(meas) for name in smoke.EC_KERNELS}
     zero = dict.fromkeys([*smoke.REPLACES, *smoke.EC_KERNELS], 0)
     runs = {"flagship": ({**zero, "spectrum_planes": 500, "planes_spectrum": 400,
-                          "suppress_gain": 100}, 100),
+                          "suppress_gain": 100, "aec_decide": 100}, 100),
             "gateway": (zero, 50)}
     entries = smoke.ec_kernel_entries(results, results, results, runs)
     assert [e["name"] for e in entries] == list(smoke.EC_KERNELS)
@@ -1542,4 +1542,4 @@ def test_kernels_line_carries_the_ec_kernels(smoke):
         assert os.path.exists(os.path.join(REPO, e["replaces"].split(":")[0]))
         assert e["launches_per_tick"] == {"flagship": smoke.EC_KERNELS[e["name"]][1],
                                           "gateway": 0.0}
-    assert [e["launches"] for e in entries] == [500, 400, 100]
+    assert [e["launches"] for e in entries] == [500, 400, 100, 100]

@@ -180,3 +180,60 @@ def test_suppress_gain_equals_its_plain_version(card):
     gain = got[0][live] / args[0][live]
     assert bool((gain == 1.0).any()) and bool((gain < 0.16).any())
     assert bool(((gain > 0.2) & (gain < 0.9)).any())
+
+
+# aec_decide's row lengths: the flagship's 48 kHz, the wideband and
+# narrowband sessions', and 44.1 kHz, whose rows take the sample-by-sample
+# path (441 samples are not whole float4s); 960 (48 kHz stereo, 96 kHz)
+# and 882 (44.1 kHz stereo), rows longer than the kernel's registers hold
+DECIDE_S = [480, 160, 80, 441, 960, 882]
+DECIDE_B = [1, 1024, 4096]
+DECIDE_TICKS = 24
+
+
+def _smoke():
+    """chip_smoke.py's phase-2 helpers (its module defines only)."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("suppress", [True, False], ids=["suppress", "no_suppress"])
+@pytest.mark.parametrize("S", DECIDE_S)
+def test_aec_decide_matches_its_plain_version(card, S, suppress):
+    """aec_decide on the card against its plain version on the card, on
+    echo-coupled legs of every kind (``chip_smoke.decide_args``: promoting,
+    reseeding, diverging, silent, alike; 10% disabled) stepped from the
+    same state each tick (the plain version's) for DECIDE_TICKS ticks at
+    1, 1,024 and 4,096 legs: flags, counters and e_s equal on every leg, the
+    rest within rtol 1e-5 (``chip_smoke.check_decide``: PyTorch's
+    reductions sum a leg's squares in another order), and at 4,096 legs
+    every flag raised on some leg. Each 4,096-row call equals, bit for bit,
+    its rows run as 1,024-row calls at the four offsets."""
+    from mediastreamer2_tpu_torch.ops import aec, kernels
+    smoke = _smoke()
+    fn = lambda *a: tuple(o for o in kernels.aec_decide(*a, aec.DECIDE, suppress)
+                          if o is not None)
+    for B in DECIDE_B:
+        g = torch.Generator(device=card).manual_seed(26 + B + S)
+        rows = smoke.decide_args(g, B, S)[3:-1]
+        raised = torch.zeros(3, dtype=torch.int64, device=card)
+        before = kernels.aec_decide.launches
+        for t in range(DECIDE_TICKS):
+            fresh = smoke.decide_args(g, B, S)
+            args = (*fresh[:3], *rows, fresh[-1])
+            _, want = smoke.check_decide(kernels, f"B={B} S={S} tick {t}", args, suppress)
+            raised += torch.stack([f.bool().sum() for f in want[-3:]])
+            if B == DECIDE_B[-1]:
+                smoke._slices_equal(f"aec_decide B={B} S={S} tick {t}", fn, args)
+            rows = want[3:3 + len(kernels.DECIDE_ROWS)]
+        assert kernels.aec_decide.launches - before == DECIDE_TICKS * (
+            6 if B == DECIDE_B[-1] else 1)
+        if B == DECIDE_B[-1]:
+            assert bool((raised > 0).all()), f"S={S}: flags raised {raised.tolist()}"

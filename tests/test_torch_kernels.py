@@ -71,7 +71,7 @@ def test_fused_volume_counts_no_cpu_launch():
                                        "dvi4_encode": 0, "dvi4_decode": 0,
                                        "g726_encode": 0, "g726_decode": 0,
                                        "suppress_gain": 0, "spectrum_planes": 0,
-                                       "planes_spectrum": 0}
+                                       "planes_spectrum": 0, "aec_decide": 0}
 
 
 def test_mdf_apply_matches_jax_default_path():

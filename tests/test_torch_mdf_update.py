@@ -124,7 +124,7 @@ def test_launch_counts_name_all_four_kernels_and_cpu_launches_none():
                                        "dvi4_encode": 0, "dvi4_decode": 0,
                                        "g726_encode": 0, "g726_decode": 0,
                                        "suppress_gain": 0, "spectrum_planes": 0,
-                                       "planes_spectrum": 0}
+                                       "planes_spectrum": 0, "aec_decide": 0}
 
 
 def test_mdf_update_rejects_other_devices():
